@@ -2,10 +2,10 @@
 H100.
 
 It mirrors the JAX package's layout (``core/``, ``ops/``, ``runtime/``,
-``__main__.py``, ``systems.py``) and reuses its jax-free host layers
-(``aztotmd_tpu.io``, ``units``, ``output.writers``, ``native``).  It never
-imports jax.  The hand-written CUDA kernels live in ``csrc/`` and are
-built with nvcc at first use.
+``__main__.py``, ``systems.py``) and owns copies of the host layers it
+needs (``io/``, ``units.py``, ``output/writers.py``, pure Python).  It
+imports nothing of jax or of the JAX package.  The hand-written CUDA
+kernels live in ``csrc/`` and are built with nvcc at first use.
 """
 
 __version__ = "0.1.0"

@@ -18,10 +18,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from aztotmd_tpu import units
-from aztotmd_tpu.io.control import (ELEC_EWALD, ELEC_FENNEL, TSTAT_NOSE,
-                                    ControlSpec)
-from aztotmd_tpu.io.field import FieldSpec
+from .. import units
+from ..io.control import (ELEC_EWALD, ELEC_FENNEL, TSTAT_NOSE,
+                          ControlSpec)
+from ..io.field import FieldSpec
 
 
 def _round_up(x: int, m: int) -> int:

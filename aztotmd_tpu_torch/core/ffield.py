@@ -12,7 +12,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from aztotmd_tpu.io.field import FieldSpec
+from ..io.field import FieldSpec
 
 
 @dataclass

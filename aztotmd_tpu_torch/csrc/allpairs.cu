@@ -2,19 +2,9 @@
 //
 // Replaces aztotmd_tpu/ops/pallas_pair.py::_allpairs_kernel (driver
 // pair_forces_allpairs, tile body _tile_physics/_vdw_pair/_coul_pair/_erfc),
-// non-reactive branch: no bind/jump candidate outputs.
-//
-// What it computes, per ordered pair (i, j), i != j, j < n:
-//   min-image displacement (round half to even, rintf), r2;
-//   pairs with r2 > r2_max are skipped (the TPU kernel masks them after
-//   sanitizing r2 to 1 before the rsqrt, which gives the same sums);
-//   ri = rsqrt(r2), r2i = ri*ri, rr = r2*ri;
-//   VdW of the species pair's kind (7 families, Surkov with per-atom
-//   radii) where r2 <= that pair's r2cut, plus the Coulomb term of the
-//   static elec type (none / direct / Ewald real space / Fennel, erfc by
-//   Abramowitz-Stegun 7.1.26);
-//   the summed force-over-r of the pair is clipped to +-MX_FRC, then
-//   multiplied into dx, dy, dz; energies take weight 0.5 per ordered pair.
+// non-reactive branch: no bind/jump candidate outputs.  The per-pair
+// physics is pair_physics.cuh, shared with sparse.cu; this kernel visits
+// every ordered pair (i, j), i != j, j < n.
 //
 // Design: one thread per i atom holds its accumulators in registers; the
 // block stages j tiles of x/y/z/type/radius in shared memory and loops
@@ -31,18 +21,11 @@
 // pass.  This first version is plain: no cp.async/TMA staging, no
 // symmetric half pass, no specialization of the dispatch.
 
-#include <cuda_runtime.h>
+#include "pair_physics.cuh"
 
 namespace {
 
 constexpr int TILE = 128;
-constexpr float MX_FRC = 1.0e4f;
-
-// families (aztotmd_tpu.io.field VDW_*)
-constexpr int VDW_LJ = 1, VDW_BUCK = 2, VDW_746 = 3, VDW_BHM = 4,
-              VDW_ELIN = 5, VDW_EINV = 6, VDW_SURK = 7;
-// elec types (aztotmd_tpu.io.control ELEC_*)
-constexpr int ELEC_DIRECT = 1, ELEC_EWALD = 2, ELEC_FENNEL = 3;
 
 struct Args {
     const float* pos;      // (n, 3)
@@ -53,112 +36,16 @@ struct Args {
     float* frc;            // (n_split, n, 3) partial forces
     float* ev;             // (n_split, n) partial VdW energies
     float* ec;             // (n_split, n) partial Coulomb energies
-    int nsp, n, n_split, use_radii, elec_type;
-    float bx, by, bz, ibx, iby, ibz;
-    float r2_max, alpha, daipi2, fennel_c1, fennel_c2, r_real;
+    int n, n_split;
+    aztotmd::PairConsts c;
 };
-
-__device__ __forceinline__ float erfc_as(float x) {
-    const float t = 1.0f / (1.0f + 0.3275911f * x);
-    const float poly = t * (0.254829592f + t * (-0.284496736f
-                       + t * (1.421413741f + t * (-1.453152027f
-                       + t * 1.061405429f))));
-    return poly * expf(-x * x);
-}
-
-__device__ __forceinline__ void vdw_pair(int kind, float r2i, float ri,
-                                         float rr, const float* p,
-                                         float ra, float rb,
-                                         float& f, float& e) {
-    const float p0 = p[0], p1 = p[1], p2 = p[2], p3 = p[3], p4 = p[4];
-    switch (kind) {
-    case VDW_LJ: {
-        const float s = p1 * r2i;
-        const float sr6 = s * s * s;
-        e = p0 * sr6 * (sr6 - 1.0f);
-        f = p2 * r2i * sr6 * (2.0f * sr6 - 1.0f);
-        break;
-    }
-    case VDW_BUCK: {
-        const float ip1 = 1.0f / p1;
-        const float r6i = r2i * r2i * r2i;
-        const float ex = expf(-rr * ip1);
-        e = p0 * ex - p2 * r6i;
-        f = p0 * ex * ri * ip1 - 6.0f * p2 * r6i * r2i;
-        break;
-    }
-    case VDW_746: {
-        const float r4i = r2i * r2i;
-        e = r4i * (p0 * r2i * ri - p1 - p2 * r2i);
-        f = r4i * r2i * (7.0f * p0 * r2i * ri - 4.0f * p1 - 6.0f * p2 * r2i);
-        break;
-    }
-    case VDW_BHM: {
-        const float r6i = r2i * r2i * r2i;
-        const float ex = expf(p1 * (p2 - rr));
-        e = p0 * ex - p3 * r6i - p4 * r6i * r2i;
-        f = p0 * p1 * ex * ri - 6.0f * p3 * r6i * r2i
-            - 8.0f * p4 * r6i * r2i * r2i;
-        break;
-    }
-    case VDW_ELIN: {
-        const float ip1 = 1.0f / p1;
-        const float ex = expf(-rr * ip1);
-        e = p0 * ex + p2 * rr;
-        f = p0 * ex * ri * ip1 - p2 * ri;
-        break;
-    }
-    case VDW_EINV: {
-        const float ip1 = 1.0f / p1;
-        const float ex = expf(-rr * ip1);
-        e = p0 * ex - p2 * ri;
-        f = p0 * ex * ri * ip1 - p2 * ri * r2i;
-        break;
-    }
-    case VDW_SURK: {
-        const float r6i = r2i * r2i * r2i;
-        const float c2sum = p1 / (p2 * ra + p3 * rb);
-        const float rprod = ra * rb;
-        const float c1ab2 = rprod * rprod * p0;
-        e = rprod * r6i * (c1ab2 * ri - c2sum);
-        f = rprod * r6i * r2i * (7.0f * c1ab2 * ri - 6.0f * c2sum);
-        break;
-    }
-    default:
-        f = 0.0f;
-        e = 0.0f;
-    }
-}
-
-__device__ __forceinline__ void coul_pair(const Args& a, float r2i, float ri,
-                                          float rr, float kqq,
-                                          float& f, float& e) {
-    if (a.elec_type == ELEC_DIRECT) {
-        f = kqq * ri * r2i;
-        e = kqq * ri;
-    } else if (a.elec_type == ELEC_EWALD) {
-        const float ar = a.alpha * rr;
-        const float ecf = erfc_as(ar);
-        f = kqq * ri * r2i * (ecf + a.daipi2 * rr * expf(-ar * ar));
-        e = kqq * ecf * ri;
-    } else {  // ELEC_FENNEL
-        const float ar = a.alpha * rr;
-        const float ecf = erfc_as(ar);
-        e = kqq * (ecf * ri - a.fennel_c1 + a.fennel_c2 * (rr - a.r_real));
-        f = kqq * ri * ((ecf * r2i + a.daipi2 * expf(-ar * ar) * ri)
-                        - a.fennel_c2);
-    }
-}
 
 __global__ void __launch_bounds__(TILE) allpairs_kernel(const Args a) {
     extern __shared__ float s_tab[];          // params then kinds
     __shared__ float s_x[TILE], s_y[TILE], s_z[TILE], s_r[TILE];
     __shared__ int s_t[TILE];
 
-    const int npair = a.nsp * a.nsp;
-    int* s_kind = reinterpret_cast<int*>(s_tab + npair * 8);
-    for (int k = threadIdx.x; k < npair * 8; k += TILE) s_tab[k] = a.params[k];
-    for (int k = threadIdx.x; k < npair; k += TILE) s_kind[k] = a.kinds[k];
+    aztotmd::load_tables(s_tab, a.params, a.kinds, a.c.nsp * a.c.nsp);
 
     const int n = a.n;
     const int i = blockIdx.x * TILE + threadIdx.x;
@@ -170,7 +57,7 @@ __global__ void __launch_bounds__(TILE) allpairs_kernel(const Args a) {
         yi = a.pos[3 * i + 1];
         zi = a.pos[3 * i + 2];
         ti = a.types[i];
-        if (a.use_radii) rai = a.radii[i];
+        if (a.c.use_radii) rai = a.radii[i];
     }
 
     const int n_tiles = (n + TILE - 1) / TILE;
@@ -187,45 +74,16 @@ __global__ void __launch_bounds__(TILE) allpairs_kernel(const Args a) {
             s_y[threadIdx.x] = a.pos[3 * jl + 1];
             s_z[threadIdx.x] = a.pos[3 * jl + 2];
             s_t[threadIdx.x] = a.types[jl];
-            s_r[threadIdx.x] = a.use_radii ? a.radii[jl] : 1.0f;
+            s_r[threadIdx.x] = a.c.use_radii ? a.radii[jl] : 1.0f;
         }
         __syncthreads();
         if (!active) continue;
         const int jn = min(TILE, n - t * TILE);
         for (int k = 0; k < jn; ++k) {
             if (t * TILE + k == i) continue;  // self pair by global slot
-            float dx = xi - s_x[k];
-            float dy = yi - s_y[k];
-            float dz = zi - s_z[k];
-            dx = dx - a.bx * rintf(dx * a.ibx);
-            dy = dy - a.by * rintf(dy * a.iby);
-            dz = dz - a.bz * rintf(dz * a.ibz);
-            const float r2 = dx * dx + dy * dy + dz * dz;
-            if (!(r2 <= a.r2_max)) continue;
-            const float ri = rsqrtf(r2);
-            const float r2i = ri * ri;
-            const float rr = r2 * ri;
-            const int row = ti * a.nsp + s_t[k];
-            const float* p = s_tab + row * 8;
-            float fsum = 0.0f;
-            const int kind = s_kind[row];
-            if (kind != 0 && r2 <= p[6]) {
-                float f, e;
-                vdw_pair(kind, r2i, ri, rr, p, rai, s_r[k], f, e);
-                fsum += f;
-                ev += 0.5f * e;
-            }
-            if (a.elec_type != 0) {
-                float f, e;
-                coul_pair(a, r2i, ri, rr, p[5], f, e);
-                fsum += f;
-                ec += 0.5f * e;
-            }
-            // clip that keeps a NaN a NaN, like jnp.clip
-            fsum = fsum > MX_FRC ? MX_FRC : (fsum < -MX_FRC ? -MX_FRC : fsum);
-            fx += fsum * dx;
-            fy += fsum * dy;
-            fz += fsum * dz;
+            aztotmd::pair_accumulate(a.c, s_tab, xi - s_x[k], yi - s_y[k],
+                                     zi - s_z[k], ti, s_t[k], rai, s_r[k],
+                                     fx, fy, fz, ev, ec);
         }
     }
     if (active) {
@@ -249,10 +107,9 @@ extern "C" int aztotmd_allpairs_f32(
     float r2_max, float alpha, float daipi2, float fennel_c1,
     float fennel_c2, float r_real,
     float* frc, float* ev, float* ec, void* stream) {
-    Args a{pos, types, radii, params, kinds, frc, ev, ec,
-           nsp, n, n_split, use_radii, elec_type,
-           bx, by, bz, ibx, iby, ibz,
-           r2_max, alpha, daipi2, fennel_c1, fennel_c2, r_real};
+    Args a{pos, types, radii, params, kinds, frc, ev, ec, n, n_split,
+           {nsp, use_radii, elec_type, bx, by, bz, ibx, iby, ibz,
+            r2_max, alpha, daipi2, fennel_c1, fennel_c2, r_real}};
     const dim3 grid((n + TILE - 1) / TILE, n_split);
     const size_t smem = static_cast<size_t>(nsp) * nsp * 9 * sizeof(float);
     allpairs_kernel<<<grid, TILE, smem, static_cast<cudaStream_t>(stream)>>>(a);

@@ -26,10 +26,10 @@ import math
 
 import torch
 
-from aztotmd_tpu.io.control import (ELEC_DIRECT, ELEC_EWALD, ELEC_FENNEL,
-                                    ELEC_NONE)
-from aztotmd_tpu.io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
-                                  VDW_ELIN, VDW_LJ, VDW_SURK)
+from ..io.control import (ELEC_DIRECT, ELEC_EWALD, ELEC_FENNEL,
+                          ELEC_NONE)
+from ..io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
+                        VDW_ELIN, VDW_LJ, VDW_SURK)
 
 from . import cuda_build
 from .pairs import MX_FRC, PairResult, no_candidates
@@ -136,27 +136,66 @@ def _coul_pair(cfg, r2i, ri, rr, kqq, erfc):
     raise ValueError(f"unknown elec type {cfg.elec_type}")
 
 
+def plain_tables(cfg, ff, dt):
+    """(nsp*nsp, 5) VdW parameters, r2cut and kqq rows in dtype ``dt``."""
+    return (ff.vdw_p.reshape(-1, 5).to(dt), ff.vdw_r2cut.reshape(-1).to(dt),
+            (ff.chprod.reshape(-1) * cfg.coul_scale).to(dt))
+
+
+def pair_terms(cfg, tabs, r2, inr, ti, tj, rai, raj):
+    """Plain physics of a block of ordered pairs (``_tile_physics``).
+
+    ``r2`` holds the min-image squared distances, ``inr`` the pairs in
+    range (self pairs and padding already masked out); ``ti``/``tj`` and
+    the radii ``rai``/``raj`` (None without radii) broadcast against them.
+    Returns the clipped force-over-r, and the VdW and Coulomb energies of
+    each row summed over the last axis with weight 0.5 per ordered pair.
+    In f32 it follows the kernels operation by operation, with the A&S
+    erfc; in f64 it is the JAX package's f64 route, with the exact erfc.
+    """
+    vp, r2cut, kqq = tabs
+    nsp = cfg.n_spec
+    erfc = torch.special.erfc if r2.dtype == torch.float64 else erfc_as
+    use_coul = cfg.elec_type != ELEC_NONE
+    r2s = torch.where(inr, r2, torch.ones_like(r2))
+    ri = torch.rsqrt(r2s)
+    r2i = ri * ri
+    rr = r2s * ri
+    zero = torch.zeros_like(r2)
+    fsum = zero
+    ev = torch.zeros(r2.shape[:-1], dtype=r2.dtype, device=r2.device)
+    ec = ev.clone()
+    for a in range(nsp):
+        for b in range(nsp):
+            kind = cfg.vdw_kind_table[a][b]
+            row = a * nsp + b
+            if not (kind or use_coul):
+                continue
+            pm = inr if nsp == 1 else inr & (ti == a) & (tj == b)
+            if kind:
+                vm = pm & (r2 <= r2cut[row])
+                fv, e_v = _vdw_pair(kind, r2i, ri, rr,
+                                    [vp[row, k] for k in range(5)],
+                                    ra=rai, rb=raj)
+                fsum = fsum + torch.where(vm, fv, zero)
+                ev = ev + 0.5 * torch.sum(torch.where(vm, e_v, zero), -1)
+            if use_coul:
+                fc, e_c = _coul_pair(cfg, r2i, ri, rr, kqq[row], erfc)
+                fsum = fsum + torch.where(pm, fc, zero)
+                ec = ec + 0.5 * torch.sum(torch.where(pm, e_c, zero), -1)
+    return torch.clamp(fsum, -MX_FRC, MX_FRC), ev, ec
+
+
 def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
                                rows: int | None = None) -> PairResult:
     """What the kernel computes, in plain PyTorch, ``rows`` i atoms at a
-    time so a 4k x 4k pass fits in memory.
-
-    In f32 it follows the kernel (and the TPU kernel) operation by
-    operation, with the A&S erfc.  In f64 it is the JAX package's f64
-    route: the same formulas with the exact erfc.
-    """
+    time so a 4k x 4k pass fits in memory (f32 or f64, see
+    ``pair_terms``)."""
     N = cfg.n_at
     dt = pos.dtype
     dev = pos.device
-    nsp = cfg.n_spec
-    f64 = dt == torch.float64
-    erfc = torch.special.erfc if f64 else erfc_as
     use_radii = bool(cfg.use_radii and radii is not None)
-    use_coul = cfg.elec_type != ELEC_NONE
-    kinds = cfg.vdw_kind_table
-    vp = ff.vdw_p.reshape(-1, 5).to(dt)
-    r2cut = ff.vdw_r2cut.reshape(-1).to(dt)
-    kqq = (ff.chprod.reshape(-1) * cfg.coul_scale).to(dt)
+    tabs = plain_tables(cfg, ff, dt)
     box = torch.tensor(cfg.box, dtype=dt, device=dev)
     ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
     if rows is None:
@@ -175,37 +214,12 @@ def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
         r2 = dx * dx + dy * dy + dz * dz
         gi = torch.arange(i0, i1, device=dev)[:, None]
         inr = (r2 <= cfg.r2_max) & (gi != gj[None, :])
-        r2s = torch.where(inr, r2, torch.ones_like(r2))
-        ri = torch.rsqrt(r2s)
-        r2i = ri * ri
-        rr = r2s * ri
-        rai = radii[i0:i1, None] if use_radii else None
-        raj = radii[None, :] if use_radii else None
-        ti = types[i0:i1, None]
-        tj = types[None, :]
-        zero = torch.zeros_like(r2)
-        fsum = zero
-        for a in range(nsp):
-            for b in range(nsp):
-                kind = kinds[a][b]
-                row = a * nsp + b
-                if not (kind or use_coul):
-                    continue
-                pm = inr if nsp == 1 else inr & (ti == a) & (tj == b)
-                if kind:
-                    vm = pm & (r2 <= r2cut[row])
-                    fv, e_v = _vdw_pair(kind, r2i, ri, rr,
-                                        [vp[row, k] for k in range(5)],
-                                        ra=rai, rb=raj)
-                    fsum = fsum + torch.where(vm, fv, zero)
-                    ev_sum = ev_sum + 0.5 * torch.sum(torch.where(vm, e_v,
-                                                                  zero))
-                if use_coul:
-                    fc, e_c = _coul_pair(cfg, r2i, ri, rr, kqq[row], erfc)
-                    fsum = fsum + torch.where(pm, fc, zero)
-                    ec_sum = ec_sum + 0.5 * torch.sum(torch.where(pm, e_c,
-                                                                  zero))
-        fsum = torch.clamp(fsum, -MX_FRC, MX_FRC)
+        fsum, ev, ec = pair_terms(
+            cfg, tabs, r2, inr, types[i0:i1, None], types[None, :],
+            radii[i0:i1, None] if use_radii else None,
+            radii[None, :] if use_radii else None)
+        ev_sum = ev_sum + ev.sum()
+        ec_sum = ec_sum + ec.sum()
         frc[i0:i1, 0] = torch.sum(fsum * dx, dim=1)
         frc[i0:i1, 1] = torch.sum(fsum * dy, dim=1)
         frc[i0:i1, 2] = torch.sum(fsum * dz, dim=1)
@@ -248,6 +262,16 @@ def kernel_tables(cfg, ff, device):
     return prm, kinds
 
 
+def kernel_consts(cfg) -> list:
+    """The f32 scalars of ``PairConsts`` (csrc/pair_physics.cuh): box,
+    its reciprocal rounded to f32 as the JAX kernels do, r2_max and the
+    Coulomb constants."""
+    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
+    return ([f32(b) for b in cfg.box] + [f32(1.0 / b) for b in cfg.box]
+            + [f32(cfg.r2_max), f32(cfg.alpha), f32(cfg.daipi2),
+               f32(cfg.fennel_c1), f32(cfg.fennel_c2), f32(cfg.r_real)])
+
+
 def _lib():
     lib = cuda_build.load("allpairs")
     fn = lib.aztotmd_allpairs_f32
@@ -261,7 +285,7 @@ def _lib():
     return lib
 
 
-def _check(name, t, dtype, shape, device):
+def check_tensor(name, t, dtype, shape, device):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:
@@ -274,22 +298,31 @@ def _check(name, t, dtype, shape, device):
 
 
 def _allpairs_cuda(cfg, ff, pos, types, radii) -> PairResult:
-    global launches
     N = cfg.n_at
-    nsp = cfg.n_spec
     dev = pos.device
     if pos.dtype != torch.float32:
         raise TypeError("the all-pairs CUDA kernel is f32 only; got "
                         f"{pos.dtype} (f64 runs on the CPU: --cpu)")
-    if nsp > 32:
+    if cfg.n_spec > 32:
         raise ValueError(f"the all-pairs kernel takes at most 32 species "
-                         f"(shared-memory table), got {nsp}")
+                         f"(shared-memory table), got {cfg.n_spec}")
     use_radii = bool(cfg.use_radii and radii is not None)
-    _check("pos", pos, torch.float32, (N, 3), dev)
-    _check("types", types, torch.int32, (N,), dev)
+    check_tensor("pos", pos, torch.float32, (N, 3), dev)
+    check_tensor("types", types, torch.int32, (N,), dev)
     if use_radii:
-        _check("radii", radii, torch.float32, (N,), dev)
-    prm, kinds = kernel_tables(cfg, ff, dev)
+        check_tensor("radii", radii, torch.float32, (N,), dev)
+    frc_p, ev_p, ec_p = launch(cfg, *kernel_tables(cfg, ff, dev), pos,
+                               types, radii if use_radii else None)
+    return _result(N, frc_p.sum(0), ev_p.sum(), ec_p.sum())
+
+
+def launch(cfg, prm, kinds, pos, types, radii):
+    """Launch csrc/allpairs.cu on checked inputs (``radii`` None without
+    radii) and return its (n_split, N, 3) force and (n_split, N) energy
+    partial rows.  Counts the launch."""
+    global launches
+    N = cfg.n_at
+    dev = pos.device
     lib = _lib()
     tile = lib.aztotmd_allpairs_tile()
     n_blk = max(1, -(-N // tile))
@@ -297,22 +330,16 @@ def _allpairs_cuda(cfg, ff, pos, types, radii) -> PairResult:
     frc_p = torch.empty((n_split, N, 3), dtype=torch.float32, device=dev)
     ev_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)
     ec_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)
-    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
-    bx, by, bz = (f32(b) for b in cfg.box)
-    ibx, iby, ibz = (f32(1.0 / b) for b in cfg.box)
     stream = torch.cuda.current_stream(dev).cuda_stream
     if N:
         err = lib.aztotmd_allpairs_f32(
             pos.data_ptr(), types.data_ptr(),
-            radii.data_ptr() if use_radii else None,
-            prm.data_ptr(), kinds.data_ptr(), nsp, N, n_split,
-            int(use_radii), int(cfg.elec_type),
-            bx, by, bz, ibx, iby, ibz,
-            f32(cfg.r2_max), f32(cfg.alpha), f32(cfg.daipi2),
-            f32(cfg.fennel_c1), f32(cfg.fennel_c2), f32(cfg.r_real),
+            radii.data_ptr() if radii is not None else None,
+            prm.data_ptr(), kinds.data_ptr(), cfg.n_spec, N, n_split,
+            int(radii is not None), int(cfg.elec_type), *kernel_consts(cfg),
             frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"allpairs kernel launch failed: CUDA error "
                                f"{err}")
         launches += 1
-    return _result(N, frc_p.sum(0), ev_p.sum(), ec_p.sum())
+    return frc_p, ev_p, ec_p

@@ -1,0 +1,87 @@
+"""Bucketed cell list (port of the parts of ``aztotmd_tpu/ops/cell_list.py``
+that the cell-candidate RDF needs).
+
+Atoms are binned into a flat (n_cell * cap,) table of atom ids with one
+stable sort; empty slots hold the sentinel ``n_at``, and atoms past a
+cell's capacity are dropped and reported through the returned maximum
+occupancy.  Each atom's candidates are the slots of its stencil cells.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def cell_coords(cfg, pos):
+    """Integer cell coordinates per atom (periodic wrap for robustness
+    against slightly out-of-box positions)."""
+    g = cfg.grid
+    dims = torch.tensor(g.dims, dtype=torch.int32, device=pos.device)
+    scale = torch.tensor([g.dims[k] / cfg.box[k] for k in range(3)],
+                         dtype=pos.dtype, device=pos.device)
+    return torch.floor(pos * scale).to(torch.int32) % dims
+
+
+def cell_ids(cfg, coords):
+    _, ncy, ncz = cfg.grid.dims
+    return (coords[..., 0] * ncy + coords[..., 1]) * ncz + coords[..., 2]
+
+
+def _bin_slots(cfg, pos):
+    """Sort atoms by cell id and compute each atom's flat table slot
+    (cell id * cap + rank in its cell).
+
+    Returns (order (N,) sorted atom ids, slot (N,) scatter targets with
+    rank >= cap sent to the drop slot n_cell * cap, max occupancy)."""
+    N = cfg.n_at
+    grid = cfg.grid
+    cap = grid.cap
+    cid = cell_ids(cfg, cell_coords(cfg, pos))
+    # stable, as jnp.argsort: which atoms a full cell drops depends on it
+    order = torch.argsort(cid, stable=True)
+    sorted_cid = cid[order]
+    first = torch.searchsorted(sorted_cid, sorted_cid, side="left")
+    rank = torch.arange(N, dtype=torch.int32, device=pos.device) \
+        - first.to(torch.int32)
+    slot = torch.where(rank < cap, sorted_cid * cap + rank,
+                       grid.n_cell * cap)
+    return order, slot, torch.max(rank) + 1
+
+
+def build_cell_table(cfg, pos):
+    """The flat (n_cell * cap,) int32 atom-id table (sentinel ``n_at``)
+    and the maximum cell occupancy."""
+    N = cfg.n_at
+    size = cfg.grid.n_cell * cfg.grid.cap
+    order, slot, max_occ = _bin_slots(cfg, pos)
+    table = torch.full((size + 1,), N, dtype=torch.int32, device=pos.device)
+    table[slot.long()] = order.to(torch.int32)
+    return table[:size], max_occ
+
+
+def stencil_offsets(cfg, device=None):
+    """(S, 3) int32 neighbor-cell offsets."""
+    return torch.tensor(cfg.grid.stencil, dtype=torch.int32, device=device)
+
+
+def stencil_cell_ids(cfg, coords):
+    """Flat cell ids of every stencil cell per atom: (N, S) int32."""
+    g = cfg.grid
+    dims = torch.tensor(g.dims, dtype=torch.int32, device=coords.device)
+    offs = stencil_offsets(cfg, coords.device)
+    return cell_ids(cfg, (coords[:, None, :] + offs[None, :, :]) % dims)
+
+
+def stencil_slot_ids(cfg, coords):
+    """(N, S * cap) flat table-slot ids of every stencil cell's slots."""
+    cap = cfg.grid.cap
+    ncid = stencil_cell_ids(cfg, coords)
+    slots = (ncid[:, :, None] * cap
+             + torch.arange(cap, dtype=torch.int32,
+                            device=coords.device)[None, None, :])
+    return slots.reshape(slots.shape[0], -1)
+
+
+def gather_candidates(cfg, table, coords):
+    """(N, S * cap) int32 candidate atom ids per atom (sentinel n_at)."""
+    return table[stencil_slot_ids(cfg, coords).long()]

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into ``csrc/build/`` (listed in
 ``.gitignore``) and loaded with ``ctypes``.  The library's file name
-carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded.  The compiler's output, including the
+carries a hash of the source and of the ``csrc/`` headers it includes,
+so an edited source or header is rebuilt and a stale library is never
+loaded.  The compiler's output, including the
 ``-Xptxas -v`` register and shared-memory report, is kept beside the
 library in a ``.log`` file.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -40,11 +42,31 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes with
+    ``#include "..."``, transitively, in first-seen order."""
+    todo, seen = [name + ".cu"], []
+    while todo:
+        rel = todo.pop(0)
+        if rel in seen:
+            continue
+        seen.append(rel)
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            todo += [m.decode() for m in _INCLUDE.findall(f.read())]
+    return seen
+
+
 def library_path(name: str) -> str:
-    """Path of the built library for ``csrc/<name>.cu`` (may not exist)."""
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"{name}-{digest}.so")
+    """Path of the built library for ``csrc/<name>.cu`` (may not exist).
+    The hash covers the source and every local header it includes."""
+    h = hashlib.sha256()
+    for rel in _sources(name):
+        with open(os.path.join(CSRC, rel), "rb") as f:
+            h.update(rel.encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(name: str) -> tuple[str, float]:

@@ -8,8 +8,8 @@ from __future__ import annotations
 
 import torch
 
-from aztotmd_tpu.io.control import (ELEC_DIRECT, ELEC_EWALD, ELEC_FENNEL,
-                                    ELEC_NONE)
+from ..io.control import (ELEC_DIRECT, ELEC_EWALD, ELEC_FENNEL,
+                          ELEC_NONE)
 
 
 def coul_eval(cfg, r2, r, chprod):

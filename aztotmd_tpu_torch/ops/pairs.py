@@ -10,7 +10,7 @@ from dataclasses import dataclass
 
 import torch
 
-from aztotmd_tpu.io.control import ELEC_NONE
+from ..io.control import ELEC_NONE
 
 from .elec import coul_eval
 from .vdw import vdw_eval

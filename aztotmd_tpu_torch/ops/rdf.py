@@ -1,23 +1,27 @@
-"""Radial distribution functions (port of the all-pairs subset of
-``aztotmd_tpu/ops/rdf.py``).
+"""Radial distribution functions (port of the all-pairs and cell-candidate
+branches of ``aztotmd_tpu/ops/rdf.py``).
 
 Each unordered in-range pair adds 2*V/(N_i*N_j) to bin floor(r/dRDF) of
 its species pair; the histogram is integer counts (``torch.bincount``)
 scaled by a per-pair weight table.  The pair ids are built in the JAX
 package's order (i < j by index, r^2 summed x, y, z), so the counts are
-the same.  The cell-candidate branch waits for the cell-list engine.
+the same.  Small or dense systems take the all-pairs branch; larger ones
+gather candidates from the RDF cell grid (``ops/cell_list.py``).  The
+RDF neighbor-list branch comes with the neighbor engine.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from aztotmd_tpu import units
+from .. import units
 
+from . import cell_list as cl
 from ..core.config import (CellGrid, _max_neigh_count, _round_up,
                            make_cell_grid)
 
@@ -99,51 +103,72 @@ def _hist_counts(flat, n_slot: int, dtype):
     return c[:n_slot].to(dtype)
 
 
+def _bin_counts(rcfg: RdfConfig, r2, mask, ti, tj):
+    """(n_bin, n_pair) integer counts of the pairs in ``mask``; ``ti`` and
+    ``tj`` broadcast against ``r2`` (unused for one species)."""
+    d_rdf = torch.full((), rcfg.d_rdf, dtype=r2.dtype, device=r2.device)
+    r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
+    ib = torch.clamp((r / d_rdf).to(torch.int32), max=rcfg.n_bin - 1)
+    ip = 0 if rcfg.n_spec == 1 else pair_index(rcfg.n_spec, ti, tj)
+    B = rcfg.n_bin * rcfg.n_pair
+    flat = torch.where(mask, ib * rcfg.n_pair + ip, torch.full_like(ib, B))
+    return _hist_counts(flat, B, r2.dtype).reshape(rcfg.n_bin, rcfg.n_pair)
+
+
 def rdf_counts_allpairs(cfg, rcfg: RdfConfig, pos, types):
     """(n_bin, n_pair) integer counts of one all-pairs sample."""
     N = cfg.n_at
     dt = pos.dtype
     dev = pos.device
+    # true division by a box tensor, as jnp does (a CUDA tensor divided by
+    # a Python scalar is multiplied by its reciprocal instead)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
     r2 = torch.zeros((N, N), dtype=dt, device=dev)
     for k in range(3):
-        b = float(cfg.box[k])
         d = pos[:, k, None] - pos[None, :, k]
-        d = d - b * torch.round(d / b)
+        d = d - box[k] * torch.round(d / box[k])
         r2 = r2 + d * d
     own = torch.arange(N, device=dev)
     mask = (own[:, None] < own[None, :]) & (r2 < rcfg.r2_max)
-    r = torch.sqrt(torch.where(mask, r2, torch.ones_like(r2)))
-    ib = torch.clamp((r / rcfg.d_rdf).to(torch.int32), max=rcfg.n_bin - 1)
-    if rcfg.n_spec == 1:
-        ip = 0
-    else:
-        t = types.to(torch.int32)
-        ip = pair_index(rcfg.n_spec, t[:, None], t[None, :])
-    B = rcfg.n_bin * rcfg.n_pair
-    flat = torch.where(mask, ib * rcfg.n_pair + ip,
-                       torch.full_like(ib, B))
-    return _hist_counts(flat, B, dt).reshape(rcfg.n_bin, rcfg.n_pair)
+    t = types.to(torch.int32)
+    return _bin_counts(rcfg, r2, mask, t[:, None], t[None, :])
 
 
-def rdf_sample_allpairs(cfg, rcfg: RdfConfig, pos, types, spec_number,
-                        spec_nuclei, nucl_number, hist, nhist=None):
-    """All-pairs RDF sample; returns updated (hist, nhist)."""
-    counts = rdf_counts_allpairs(cfg, rcfg, pos, types)
-    return _apply_weights(cfg, rcfg, counts, spec_number, spec_nuclei,
-                          nucl_number, hist, nhist)
+def rdf_counts_cells(cfg, rcfg: RdfConfig, pos, types):
+    """(n_bin, n_pair) integer counts of one sample over the candidates of
+    the RDF cell grid: each atom against the slots of its stencil cells,
+    each unordered pair once (candidate id above the atom's)."""
+    N = cfg.n_at
+    dt = pos.dtype
+    dev = pos.device
+    gcfg = dataclasses.replace(cfg, grid=rcfg.grid)
+    coords = cl.cell_coords(gcfg, pos)
+    table, _ = cl.build_cell_table(gcfg, pos)
+    cand = cl.gather_candidates(gcfg, table, coords).long()     # (N, M)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=dt, device=dev)])
+    d = pos[:, None, :] - pos_p[cand]
+    d = d - box * torch.round(d / box)
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    own = torch.arange(N, device=dev)[:, None]
+    mask = (cand != N) & (cand > own) & (r2 < rcfg.r2_max)
+    t = types.to(torch.int32)
+    tp = torch.cat([t, torch.zeros((1,), dtype=torch.int32, device=dev)])
+    return _bin_counts(rcfg, r2, mask, t[:, None], tp[cand])
 
 
 def rdf_sample(cfg, rcfg: RdfConfig, pos, types, spec_number,
                spec_nuclei, nucl_number, hist, nhist=None):
-    """One RDF sample.  Dense or small systems (N no larger than the RDF
-    grid's candidate row) take the all-pairs branch, as in the JAX
-    package; the cell-candidate branch is not ported yet."""
+    """One RDF sample; returns updated (hist, nhist).  Dense or small
+    systems (N no larger than the RDF grid's candidate row) take the
+    all-pairs branch, larger ones the cell-candidate branch, as in the
+    JAX package."""
     if cfg.n_at <= len(rcfg.grid.stencil) * rcfg.grid.cap:
-        return rdf_sample_allpairs(cfg, rcfg, pos, types, spec_number,
-                                   spec_nuclei, nucl_number, hist, nhist)
-    raise NotImplementedError(
-        "cell-list RDF sampling comes with the neighbor engine "
-        "(ROADMAP.md: modules to port, 'neighbor engine (case study 1)')")
+        counts = rdf_counts_allpairs(cfg, rcfg, pos, types)
+    else:
+        counts = rdf_counts_cells(cfg, rcfg, pos, types)
+    return _apply_weights(cfg, rcfg, counts, spec_number, spec_nuclei,
+                          nucl_number, hist, nhist)
 
 
 def _apply_weights(cfg, rcfg: RdfConfig, counts, spec_number, spec_nuclei,

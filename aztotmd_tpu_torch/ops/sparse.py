@@ -1,0 +1,321 @@
+"""Morton block-sparse pair pass: the hand-written CUDA kernel and its plain
+PyTorch version (port of ``aztotmd_tpu/ops/pallas_sparse.py``: the
+non-reactive branch of ``pair_forces_sparse`` with ``morton_codes``,
+``_tile_worklist`` and ``_sparse_kernel``).
+
+Atoms are sorted by the Morton code of their fine-grid cell, cut into
+tiles of T slots, and a tile pair interacts when the periodic min-image
+gap between the two tiles' bounding boxes is within the cutoff (a lower
+bound on every cross-tile distance, so no pair in range is dropped).  The
+i-major worklist of interacting ordered tile pairs is truncated at
+``pair_cap`` entries; ``max_occ`` carries the length it needed
+(``n_need``), which the runner compares with ``cfg.sparse_pair_cap`` to
+regrow the capacity.
+
+Kernel: ``csrc/sparse.cu``, CUDA C++ for sm_90a, bound through a plain C
+interface and ``ctypes``.  It replaces the TPU kernel
+``aztotmd_tpu/ops/pallas_sparse.py::_sparse_kernel``.  On the H100 it is
+bound by FP32 issue (and the MUFU rsqrt) over the visited slot pairs,
+n_need * T^2, not by memory; see the note at the top of the source.  The
+worklist, its CSR row offsets and the sort are built here in torch
+without a host synchronisation.
+
+Routing: a CPU tensor goes to the plain version, in f32 or f64; a CUDA
+tensor launches the kernel or raises.  The kernel is f32 only.  The JAX
+package sends f64 to its XLA cell-block engine instead
+(``pallas_sparse.py:252``); the port's f64 route is the plain version on
+the CPU, whose ``max_occ`` is still the worklist length.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.config import _morton_dims, _part1by2, _round_up
+from . import cuda_build
+from .allpairs import (_SM_TARGET_BLOCKS, check_tensor, kernel_consts,
+                       kernel_tables, pair_terms, plain_tables)
+from .pairs import PairResult, no_candidates
+
+# launches of csrc/sparse.cu made by pair_forces_sparse (a plain int;
+# tools that check the main path reset and read it)
+launches = 0
+
+_MAX_TILE = 256          # one thread per i slot (MAX_T in csrc/sparse.cu)
+
+
+def morton_codes(box, r_max, pos):
+    """int32 Morton code per atom from the (wrapped) positions."""
+    dims = _morton_dims(box, r_max)
+    code = None
+    for k in range(3):
+        b = float(box[k])
+        # true division by the box, as jnp does (a CUDA tensor divided by
+        # a Python scalar is multiplied by its reciprocal instead)
+        bt = torch.full((), b, dtype=pos.dtype, device=pos.device)
+        w = pos[:, k] - b * torch.floor(pos[:, k] / bt)
+        c = torch.clamp((w * (dims[k] / b)).to(torch.int32), 0, dims[k] - 1)
+        s = _part1by2(c) << k
+        code = s if code is None else code | s
+    return code
+
+
+def _tile_worklist(box, r2_max, xs, ys, zs, valid, n_t, T, pair_cap):
+    """AABB-interacting ordered tile pairs, compacted i-major.
+
+    Returns (it, jt, vp) int32 (pair_cap,) tensors and the int32 count
+    of interacting pairs ``n_need``.  Entries past pair_cap are dropped;
+    unused entries point at the (n_t-1, n_t-1) pair with vp 0.  The
+    compaction is a cumsum rank and a fixed-size scatter, so it does not
+    wait for the device (``jnp.nonzero(size=...)`` in JAX).  JAX's
+    ``first`` flags (a new i tile starts) have no use here: the kernel
+    walks CSR rows (``sort_tiles``)."""
+    dt = xs.dtype
+    dev = xs.device
+    vt = valid.reshape(n_t, T) > 0
+    tile_valid = torch.any(vt, dim=1)
+    inf = torch.full((), float("inf"), dtype=dt, device=dev)
+
+    def aabb(a):
+        at = a.reshape(n_t, T)
+        lo = torch.amin(torch.where(vt, at, inf), dim=1)
+        hi = torch.amax(torch.where(vt, at, -inf), dim=1)
+        return (lo + hi) * 0.5, (hi - lo) * 0.5
+
+    # scalars in the working precision, 1/b divided in it, as JAX does
+    npdt = np.float64 if dt == torch.float64 else np.float32
+    gap2 = torch.zeros((n_t, n_t), dtype=dt, device=dev)
+    for k, a in enumerate((xs, ys, zs)):
+        c, h = aabb(a)
+        d = c[:, None] - c[None, :]
+        b = npdt(box[k])
+        d = d - float(b) * torch.round(d * float(npdt(1.0) / b))
+        g = torch.clamp(torch.abs(d) - h[:, None] - h[None, :], min=0.0)
+        gap2 = gap2 + g * g
+    mask = ((gap2 <= float(npdt(r2_max))) & tile_valid[:, None]
+            & tile_valid[None, :]).reshape(-1)
+
+    n_need = torch.sum(mask, dtype=torch.int32)
+    rank = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    dest = torch.where(mask & (rank < pair_cap), rank, pair_cap)
+    buf = torch.full((pair_cap + 1,), -1, dtype=torch.int32, device=dev)
+    buf.scatter_(0, dest.long(),
+                 torch.arange(n_t * n_t, dtype=torch.int32, device=dev))
+    flat = buf[:pair_cap]
+    vp = (flat >= 0).to(torch.int32)
+    safe = torch.where(vp > 0, flat, n_t * n_t - 1)
+    it = torch.div(safe, n_t, rounding_mode="floor")
+    jt = safe - it * n_t
+    return it, jt, vp, n_need
+
+
+@dataclass
+class SortedTiles:
+    """Morton-sorted atoms in n_t tiles of T slots and their worklist."""
+    T: int
+    n_t: int
+    pair_cap: int
+    perm: torch.Tensor        # (N,) sorted slot -> atom
+    x: torch.Tensor           # (n_t*T,) sorted positions, 0 on padding
+    y: torch.Tensor
+    z: torch.Tensor
+    gid: torch.Tensor         # (n_t*T,) int32 atom id, -1 on padding
+    types: torch.Tensor       # (n_t*T,) int32
+    radii: torch.Tensor       # (n_t*T,) 1 on padding and without radii
+    it: torch.Tensor          # (pair_cap,) int32 worklist
+    jt: torch.Tensor
+    vp: torch.Tensor
+    n_need: torch.Tensor      # int32 worklist length needed
+    row_ptr: torch.Tensor     # (n_t+1,) int32 CSR offsets of i tiles
+
+
+def tile_shape(cfg, tile=None, pair_cap=None):
+    """(T, n_t, pair_cap) of the pass, as ``pair_forces_sparse`` sizes
+    them: the configured capacity holds for ``cfg.sparse_tile`` only."""
+    N = cfg.n_at
+    T = int(tile if tile is not None else (cfg.sparse_tile or 256))
+    T = min(T, _round_up(N, 128))
+    n_t = _round_up(N, T) // T
+    if pair_cap is None:
+        pair_cap = (int(cfg.sparse_pair_cap)
+                    if T == int(cfg.sparse_tile) else 0) or n_t * n_t
+    return T, n_t, max(n_t, min(int(pair_cap), n_t * n_t))
+
+
+def sort_tiles(cfg, pos, types, radii=None, tile=None,
+               pair_cap=None) -> SortedTiles:
+    """Sort, pad and tile the atoms and build the worklist and its CSR
+    row offsets (no host synchronisation)."""
+    if (cfg.use_bnd == 2 and cfg.use_linkage) or cfg.ejtype:
+        raise NotImplementedError(
+            "bind/jump candidates of the sparse pass are not ported yet "
+            "(ROADMAP.md: modules to port, item 4)")
+    N = cfg.n_at
+    dt = pos.dtype
+    dev = pos.device
+    T, n_t, pair_cap = tile_shape(cfg, tile, pair_cap)
+    padn = n_t * T - N
+    # jnp.argsort is stable: many atoms share a code, and another tie
+    # order changes the tiles, their boxes and so the integer n_need
+    perm = torch.argsort(morton_codes(cfg.box, cfg.r_max, pos), stable=True)
+
+    def padded(a, fill):
+        return torch.cat([a[perm], torch.full((padn,), fill, dtype=a.dtype,
+                                              device=dev)])
+
+    srt = pos[perm]
+    x, y, z = (torch.cat([srt[:, k], torch.zeros(padn, dtype=dt, device=dev)])
+               for k in range(3))
+    gid = padded(torch.arange(N, dtype=torch.int32, device=dev), -1)
+    ts = padded(types.to(torch.int32), 0)
+    # radius 1.0 on padding keeps the Surkov 1/(k1*ra + k2*rb) term finite
+    ra = (padded(radii.to(dt), 1.0) if cfg.use_radii and radii is not None
+          else torch.ones(n_t * T, dtype=dt, device=dev))
+    it, jt, vp, n_need = _tile_worklist(
+        cfg.box, cfg.r2_max, x, y, z, (gid >= 0).to(torch.int32), n_t, T,
+        pair_cap)
+    counts = torch.zeros(n_t, dtype=torch.int32, device=dev)
+    counts.scatter_add_(0, it.long(), vp)
+    row_ptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
+                         torch.cumsum(counts, 0, dtype=torch.int32)])
+    return SortedTiles(T, n_t, pair_cap, perm, x, y, z, gid, ts, ra, it, jt,
+                       vp, n_need, row_ptr)
+
+
+def _result(S: SortedTiles, frc_s, ev, ec) -> PairResult:
+    """Un-sort the (n_t*T, 3) slot forces back to atom order."""
+    N = S.perm.shape[0]
+    frc = torch.zeros((N, 3), dtype=frc_s.dtype, device=frc_s.device)
+    frc.index_copy_(0, S.perm, frc_s[:N])
+    idx, r2n = no_candidates(N, frc.dtype, frc.device)
+    return PairResult(frc=frc, eng_vdw=ev, eng_coul=ec, max_occ=S.n_need,
+                      bind_idx=idx, bind_r2=r2n, jump_idx=idx.clone(),
+                      jump_r2=r2n.clone())
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version
+
+
+def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, tile=None,
+                             pair_cap=None) -> PairResult:
+    """What the kernel computes, in plain PyTorch: the worklist's entries
+    in chunks of P, gathered into (P, T, T) tile pairs (~1M slot pairs)
+    and added into the i tiles with ``index_add_`` (f32 or f64, see
+    ``allpairs.pair_terms``).  Tiles no entry visits stay exactly zero."""
+    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap)
+    dt = pos.dtype
+    dev = pos.device
+    T, n_t = S.T, S.n_t
+    use_radii = bool(cfg.use_radii and radii is not None)
+    tabs = plain_tables(cfg, ff, dt)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
+    cols = [a.reshape(n_t, T) for a in (S.x, S.y, S.z, S.gid, S.types,
+                                        S.radii)]
+    acc = torch.zeros((5, n_t, T), dtype=dt, device=dev)   # fx fy fz ev ec
+    P = max(1, (1 << 20) // (T * T))
+    for c0 in range(0, S.pair_cap, P):
+        it = S.it[c0:c0 + P].long()
+        jt = S.jt[c0:c0 + P].long()
+        ci = [c[it][:, :, None] for c in cols]
+        cj = [c[jt][:, None, :] for c in cols]
+        d = []
+        for k in range(3):
+            dk = ci[k] - cj[k]
+            d.append(dk - box[k] * torch.round(dk * ibox[k]))
+        dx, dy, dz = d
+        r2 = dx * dx + dy * dy + dz * dz
+        gi, gj = ci[3], cj[3]
+        vm = ((S.vp[c0:c0 + P] > 0)[:, None, None] & (gi >= 0) & (gj >= 0)
+              & (gi != gj))
+        fsum, ev, ec = pair_terms(cfg, tabs, r2, vm & (r2 <= cfg.r2_max),
+                                  ci[4], cj[4],
+                                  ci[5] if use_radii else None,
+                                  cj[5] if use_radii else None)
+        rows = torch.stack([torch.sum(fsum * dx, -1), torch.sum(fsum * dy, -1),
+                            torch.sum(fsum * dz, -1), ev, ec])
+        acc.index_add_(1, it, rows)
+    return _result(S, acc[:3].reshape(3, n_t * T).T, acc[3].sum(),
+                   acc[4].sum())
+
+
+# --------------------------------------------------------------------------
+# the kernel
+
+
+def pair_forces_sparse(cfg, ff, pos, types, radii=None, tile=None,
+                       pair_cap=None) -> PairResult:
+    """Morton block-sparse pair pass: the CUDA kernel for CUDA tensors,
+    the plain version for CPU tensors.  ``max_occ`` carries the worklist
+    length needed; above the capacity the forces of this call are
+    truncated and the runner regrows."""
+    if pos.device.type == "cpu":
+        return pair_forces_sparse_plain(cfg, ff, pos, types, radii, tile,
+                                        pair_cap)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    return _sparse_cuda(cfg, ff, pos, types, radii, tile, pair_cap)
+
+
+def _lib():
+    lib = cuda_build.load("sparse")
+    fn = lib.aztotmd_sparse_f32
+    if fn.argtypes is None:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = ([P] * 10 + [I] * 6 + [F] * 12 + [P] * 4)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _sparse_cuda(cfg, ff, pos, types, radii, tile, pair_cap) -> PairResult:
+    N = cfg.n_at
+    dev = pos.device
+    if pos.dtype != torch.float32:
+        raise TypeError("the sparse CUDA kernel is f32 only; got "
+                        f"{pos.dtype} (f64 runs on the CPU: --cpu)")
+    if cfg.n_spec > 32:
+        raise ValueError(f"the sparse kernel takes at most 32 species "
+                         f"(shared-memory table), got {cfg.n_spec}")
+    check_tensor("pos", pos, torch.float32, (N, 3), dev)
+    check_tensor("types", types, torch.int32, (N,), dev)
+    if cfg.use_radii and radii is not None:
+        check_tensor("radii", radii, torch.float32, (N,), dev)
+    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap)
+    frc_p, ev_p, ec_p = launch(cfg, *kernel_tables(cfg, ff, dev), S)
+    return _result(S, frc_p.sum(0), ev_p.sum(), ec_p.sum())
+
+
+def launch(cfg, prm, kinds, S: SortedTiles):
+    """Launch csrc/sparse.cu on sorted f32 tiles and return its
+    (n_split, n_t*T, 3) force and (n_split, n_t*T) energy partial rows.
+    Counts the launch."""
+    global launches
+    dev = S.x.device
+    n_t, T = S.n_t, S.T
+    if T > _MAX_TILE:
+        raise ValueError(f"the sparse kernel takes tiles of at most "
+                         f"{_MAX_TILE} slots, got {T}")
+    lib = _lib()
+    n_split = max(1, min(n_t, math.ceil(_SM_TARGET_BLOCKS / n_t)))
+    frc_p = torch.empty((n_split, n_t * T, 3), dtype=torch.float32,
+                        device=dev)
+    ev_p = torch.empty((n_split, n_t * T), dtype=torch.float32, device=dev)
+    ec_p = torch.empty((n_split, n_t * T), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.aztotmd_sparse_f32(
+        S.x.data_ptr(), S.y.data_ptr(), S.z.data_ptr(), S.gid.data_ptr(),
+        S.types.data_ptr(), S.radii.data_ptr(), S.row_ptr.data_ptr(),
+        S.jt.data_ptr(), prm.data_ptr(), kinds.data_ptr(),
+        cfg.n_spec, n_t, T, n_split, int(cfg.use_radii),
+        int(cfg.elec_type), *kernel_consts(cfg),
+        frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"sparse kernel launch failed: CUDA error {err}")
+    launches += 1
+    return frc_p, ev_p, ec_p

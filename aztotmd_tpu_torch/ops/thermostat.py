@@ -1,7 +1,6 @@
 """Thermostats (port of ``aztotmd_tpu/ops/thermostat.py``): the
-equilibration rescale and the radiative (photon-exchange) thermostat with
-the thermal radii that feed the Surkov potential.  Nose-Hoover waits for
-its ROADMAP item.
+equilibration rescale, Nose-Hoover, and the radiative (photon-exchange)
+thermostat with the thermal radii that feed the Surkov potential.
 """
 
 from __future__ import annotations
@@ -11,8 +10,8 @@ import math
 import numpy as np
 import torch
 
-from aztotmd_tpu import units
-from aztotmd_tpu.io.control import TSTAT_NOSE, TSTAT_RADI
+from .. import units
+from ..io.control import TSTAT_NOSE, TSTAT_RADI
 
 from . import prng
 
@@ -33,6 +32,20 @@ def temp_scale(cfg, vel, eng_kin):
     k = torch.sqrt(torch.full_like(eng_kin, c * cfg.te_kin) / eng_kin)
     k = torch.where(eng_kin > 0.0, k, torch.ones_like(k))
     return vel * k, torch.full_like(eng_kin, cfg.te_kin)
+
+
+def nose_apply(cfg, vel, eng_kin, chit, consint):
+    """One Nose-Hoover scaling pass; the step applies it twice, at its
+    start and in ``apply_tstat``.  Returns (vel, eng_kin, chit,
+    consint)."""
+    dt = cfg.dt
+    chit = chit + dt * (eng_kin - cfg.te_kin) * cfg.rqmass
+    tscale = 1.0 - dt * chit
+    vel = vel * tscale
+    eng_kin = eng_kin * tscale * tscale
+    consint = consint + dt * chit * cfg.qmass_tau2
+    chit = chit + dt * (eng_kin - cfg.te_kin) * cfg.rqmass
+    return vel, eng_kin, chit, consint
 
 
 def _rand_uvect_from(u, v):
@@ -135,10 +148,10 @@ def apply_tstat(cfg, ff, state, eng_kin, photons=None):
         eng_kin = torch.where(do_scale, ek_s, eng_kin)
 
     if cfg.tstat_type == TSTAT_NOSE:
-        raise NotImplementedError(
-            "Nose-Hoover is not ported yet (ROADMAP.md: modules to port, "
-            "'Ewald + Nose-Hoover')")
-    if cfg.tstat_type == TSTAT_RADI:
+        vel, eng_kin, chit, consint = nose_apply(
+            cfg, vel, eng_kin, state.chit, state.consint)
+        upd.update(chit=chit, consint=consint)
+    elif cfg.tstat_type == TSTAT_RADI:
         vel, engs, radii, eng_temp, rng = tstat_radiative(
             cfg, ff, state.replace(vel=vel), photons)
         upd.update(engs=engs, radii=radii, rng=rng, _eng_temp=eng_temp)

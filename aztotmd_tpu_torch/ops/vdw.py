@@ -18,8 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from aztotmd_tpu.io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
-                                  VDW_ELIN, VDW_LJ, VDW_SURK)
+from ..io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
+                        VDW_ELIN, VDW_LJ, VDW_SURK)
 
 
 def _safe(ro, mask):

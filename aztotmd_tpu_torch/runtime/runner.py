@@ -6,12 +6,15 @@ Steps run in chunks sized to the greatest common divisor of the output
 periods, so every sampling step lands on a chunk boundary.  RDF samples
 are taken inside the chunk every ``fr_rdf`` steps, with the JAX runner's
 sample steps and its reset of the histogram after 500 samples.  The
-output files and their rows are the JAX runner's.  The JAX package's
-on-device stat ring, mesh, debug and profile paths are not ported.
+output files and their rows are the JAX runner's.  At each stat row the
+runner reads the block-sparse engine's worklist monitor and regrows its
+capacity (``_check_overflow``).  The JAX package's on-device stat ring,
+mesh, debug and profile paths are not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import os
 import sys
@@ -20,10 +23,11 @@ import time
 import numpy as np
 import torch
 
-from aztotmd_tpu import units
-from aztotmd_tpu.io.control import TSTAT_RADI
-from aztotmd_tpu.output import writers as W
+from .. import units
+from ..io.control import TSTAT_RADI
+from ..output import writers as W
 
+from ..core.config import _round_up
 from ..ops import rdf as ops_rdf
 from .checkpoint import save_checkpoint
 from .step import make_multi_step
@@ -197,7 +201,26 @@ class MDRunner:
             self.w_msdd.write_row(t, step, pos, cross_neg, cross_pos)
             if not self.quiet:
                 self._console(step, eng, float(pos[0, 0]), pressure)
+            self._check_overflow()
         self._sample_rest(step)
+
+    def _check_overflow(self):
+        """Block-sparse engine: ``cell_overflow`` carries the tile-pair
+        worklist length the steps needed.  Past ``sparse_pair_cap`` those
+        steps lost tile pairs, so grow the capacity (the JAX runner's
+        formula and warning) and rebuild the step.  Unlike the JAX
+        package, whose f64 route is the cell-block engine, the port's f64
+        route runs the same worklist, so this holds in f64 too."""
+        if self.cfg.pair_engine != "sparse":
+            return
+        need = int(self.state.cell_overflow)
+        if need > self.cfg.sparse_pair_cap:
+            new_cap = _round_up(need + max(64, need // 4), 64)
+            print(f"WARNING: sparse tile-pair count {need} exceeded "
+                  f"capacity {self.cfg.sparse_pair_cap}; rebuilding with "
+                  f"pair_cap={new_cap}", file=sys.stderr)
+            self.cfg = dataclasses.replace(self.cfg, sparse_pair_cap=new_cap)
+            self.multi = make_multi_step(self.cfg, self.aux)
 
     def _sample_rest(self, step: int):
         """Non-stat sampling: hist/vaf/rdf/traj/revcon/checkpoint."""

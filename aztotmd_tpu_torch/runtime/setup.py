@@ -12,11 +12,11 @@ import os
 import numpy as np
 import torch
 
-from aztotmd_tpu.io import (parse_atoms_file, parse_control_file,
-                            parse_device_cfg_dir, parse_field_file)
-from aztotmd_tpu.io.control import (INITVEL_CONST, INITVEL_ENG,
-                                    INITVEL_GAUSS, TSTAT_RADI, ControlSpec)
-from aztotmd_tpu.io.toplists import parse_anglelist_file, parse_bondlist_file
+from ..io import (parse_atoms_file, parse_control_file,
+                  parse_device_cfg_dir, parse_field_file)
+from ..io.control import (INITVEL_CONST, INITVEL_ENG,
+                          INITVEL_GAUSS, TSTAT_RADI, ControlSpec)
+from ..io.toplists import parse_anglelist_file, parse_bondlist_file
 
 from ..core.config import build_sim_config
 from ..core.ffield import build_forcefield

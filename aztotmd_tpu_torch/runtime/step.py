@@ -1,11 +1,12 @@
 """The MD step (port of ``aztotmd_tpu/runtime/step.py`` for engines
-without a neighbor list).
+without a neighbor list: the dense "pallas" engine and the block-sparse
+"sparse" engine).
 
 Stage order as in the JAX package:
-  verlet1 (+wrap, counters, F=-qE) -> pair forces -> verlet2
-  -> apply_tstat -> energies and pressure
-Bonds, Ewald reciprocal space, bond creation, electron jumps, angles and
-Nose-Hoover are not ported yet; a deck that needs one raises.
+  [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE) -> pair forces
+  -> verlet2 -> apply_tstat -> energies and pressure
+Bonds, Ewald reciprocal space, bond creation, electron jumps and angles
+are not ported yet; a deck that needs one raises.
 """
 
 from __future__ import annotations
@@ -14,12 +15,16 @@ import dataclasses
 
 import torch
 
-from aztotmd_tpu.io.control import ELEC_EWALD, TSTAT_NOSE
+from ..io.control import ELEC_EWALD, TSTAT_NOSE
 
 from ..core.state import Energies, MDState
 from ..ops import integrate as integ
 from ..ops import thermostat as tstat
 from ..ops.allpairs import pair_forces_dense
+from ..ops.sparse import pair_forces_sparse
+
+# the pair pass of each ported engine
+PAIR_ENGINES = {"pallas": pair_forces_dense, "sparse": pair_forces_sparse}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -31,17 +36,16 @@ class StepAux:
 def _check_supported(cfg):
     """Raise for the parts of a deck that the port does not run yet."""
     missing = []
-    if cfg.pair_engine != "pallas":
+    if cfg.pair_engine not in PAIR_ENGINES:
         missing.append(f"pair engine {cfg.pair_engine!r} ('neighbor "
-                       "engine (case study 1)', 'K3 + cellblock' or 'K4 + "
-                       "examples/nanoclusters')")
+                       "engine (case study 1)' or 'K3 + cellblock')")
     if cfg.use_bnd or cfg.use_angl:
         missing.append("bonds/angles ('bonds/angles + K1's bind/jump "
                        "candidates')")
     if cfg.ejtype:
         missing.append("electron jumps ('ejump')")
-    if cfg.elec_type == ELEC_EWALD or cfg.tstat_type == TSTAT_NOSE:
-        missing.append("Ewald / Nose-Hoover ('Ewald + Nose-Hoover')")
+    if cfg.elec_type == ELEC_EWALD:
+        missing.append("Ewald reciprocal space ('Ewald')")
     if missing:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md: modules to port): "
@@ -51,17 +55,24 @@ def _check_supported(cfg):
 def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
     """Build step(state, ff) -> state.
 
-    ``pair_fn`` replaces the pair pass (same signature as
+    ``pair_fn`` replaces the engine's pair pass (same signature as
     ``ops.allpairs.pair_forces_dense``); checks use it to run the plain
     version on the card.
     """
     _check_supported(cfg)
     aux = aux or StepAux()
-    pair_fn = pair_fn or pair_forces_dense
+    pair_fn = pair_fn or PAIR_ENGINES[cfg.pair_engine]
 
     def step(state: MDState, ff) -> MDState:
         fdt = state.pos.dtype
         dev = state.pos.device
+
+        # --- Nose-Hoover pass from the previous step's kinetic energy ---
+        if cfg.tstat_type == TSTAT_NOSE:
+            vel, _, chit, consint = tstat.nose_apply(
+                cfg, state.vel, state.energies.kin, state.chit,
+                state.consint)
+            state = state.replace(vel=vel, chit=chit, consint=consint)
 
         # --- verlet 1st stage + periodic wrap + counters ---
         upd, eng_field = integ.verlet1(cfg, ff, state)

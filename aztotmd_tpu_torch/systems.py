@@ -14,6 +14,11 @@ import os
 
 import numpy as np
 
+from . import units
+from .io.control import ControlSpec, ElecSpec, TStatSpec
+from .io.field import (_VDW_ABBR, VDW_LJ, VDW_SURK, FieldSpec, SpeciesSpec,
+                       VdWSpec)
+
 # Surkov parameters: C1=75, C2=8, ki=kj=1 put the pair minimum near 1.4 A
 # for radii ~0.577 (r_min = 7 C1 a^5 / (3 C2) for equal radii a).
 SURKOV_P = (75.0, 8.0, 1.0, 1.0)
@@ -83,6 +88,58 @@ Su\t{ra}\t{rb}\t{mx}
 """)
 
 
+def write_nanoclusters_deck(path, n_clusters: int = 10, per: int = 1200,
+                            box: float = 170.0, min_sep: float = 50.0,
+                            steps: int = 10000, seed: int = 29):
+    """Write the multi-cluster Ar LJ deck of ``examples/nanoclusters/``:
+    ``n_clusters`` jittered-lattice spheres of ``per`` atoms (spacing
+    2.6 A) at centres at least ``min_sep`` apart in a periodic box,
+    Nose-Hoover 90 K, no Coulomb, RDF and stat every 200 steps.  The
+    defaults write the committed example byte for byte (it was made by
+    ``tools/make_examples.py``); smaller arguments give test decks of the
+    same shape."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    centers = []
+    while len(centers) < n_clusters:
+        c = rng.uniform(0.0, box, size=3)
+        dd = np.asarray(centers) - c if centers else np.zeros((0, 3))
+        dd -= box * np.round(dd / box)
+        if not len(dd) or (np.sum(dd * dd, axis=1) > min_sep ** 2).all():
+            centers.append(c)
+    s = 2.6
+    g = (np.arange(-8, 9) + 0.5) * s
+    cube = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    cube = cube[np.argsort(np.sum(cube * cube, axis=1))][:per]
+    pos = np.concatenate([c + cube + rng.uniform(-0.25, 0.25, cube.shape)
+                          for c in centers]) % box
+    with open(os.path.join(path, "atoms.xyz"), "w") as f:
+        f.write(f"{len(pos)}\n1 {box:.6f} {box:.6f} {box:.6f}\n")
+        for p in pos:
+            f.write(f"Ar\t{p[0]:.6f}\t{p[1]:.6f}\t{p[2]:.6f}\n")
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.001 ps
+nstep {steps}
+nequil 500
+eqfreq 100
+temperature 90.0\tnose\t0.5
+init_vel\tgaus
+
+permittivity 1.0
+elec\tnone
+
+rdf\t6.0 0.05\t200\t0\t-nucl
+stat\t200
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write("""spec 1
+Ar\tAr\t39.948\t0.0\t0.0
+red-ox 0
+vdw 1
+Ar\tAr\tlnjs\t6.0\t0.0104\t2.5
+""")
+
+
 def write_lj_deck(path, n_side=9, box=40.0, steps=300, seed=5):
     """Write the small Ar LJ deck (radiative thermostat + RDF) that
     ``aztotmd_tpu.systems.write_lj_deck`` writes, byte for byte."""
@@ -128,18 +185,10 @@ FAMILY_PARAMS = {
 }
 
 
-def clustered_specs(n_atoms=257, nsp=1, elec=0, seed=3, radii=False):
-    """A dense cluster for pair-pass checks: atoms in a 12 A sub-box of a
-    30 A periodic box, ``nsp`` species with alternating charges when
-    ``elec`` (an ELEC_* type) is set, LJ or (``radii``) Surkov pairs.
-    Returns (ctl, fld, box, pos, types, radii-or-None) as host specs."""
-    from aztotmd_tpu import units
-    from aztotmd_tpu.io.control import ControlSpec, ElecSpec, TStatSpec
-    from aztotmd_tpu.io.field import (VDW_LJ, VDW_SURK, FieldSpec,
-                                      SpeciesSpec, VdWSpec)
-    rng = np.random.default_rng(seed)
-    box = 30.0
-    pos = rng.uniform(2.0, 14.0, size=(n_atoms, 3))
+def _pair_field(nsp, elec, radii, rcut=5.0):
+    """(ctl, fld) of the pair-pass checks: ``nsp`` species with
+    alternating charges when ``elec`` (an ELEC_* type) is set, LJ or
+    (``radii``) Surkov pairs, cutoff ``rcut``."""
     f = FieldSpec()
     f.species = [SpeciesSpec(name=f"S{k}", nuclei=0,
                              mass=39.9 * units.M_SCALE,
@@ -149,7 +198,6 @@ def clustered_specs(n_atoms=257, nsp=1, elec=0, seed=3, radii=False):
                  for k in range(nsp)]
     f.nnames = [s.name for s in f.species]
     f.nnumbers = [0] * nsp
-    rcut = 5.0
     f.vdw_index = [[None] * nsp for _ in range(nsp)]
     for a in range(nsp):
         for b in range(a, nsp):
@@ -166,6 +214,40 @@ def clustered_specs(n_atoms=257, nsp=1, elec=0, seed=3, radii=False):
     ctl = ControlSpec(t_step=0.001, n_step=1,
                       tstat=TStatSpec(type=0, temp=100.0),
                       elec=ElecSpec(type=elec, r_real=rcut, alpha=0.3))
+    return ctl, f
+
+
+def clustered_specs(n_atoms=257, nsp=1, elec=0, seed=3, radii=False):
+    """A dense cluster for pair-pass checks: atoms in a 12 A sub-box of a
+    30 A periodic box, with the species and pairs of ``_pair_field``.
+    Returns (ctl, fld, box, pos, types, radii-or-None) as host specs."""
+    rng = np.random.default_rng(seed)
+    box = 30.0
+    pos = rng.uniform(2.0, 14.0, size=(n_atoms, 3))
+    ctl, f = _pair_field(nsp, elec, radii)
+    types = np.asarray(rng.integers(0, nsp, n_atoms), np.int32)
+    rad = 0.577 + 0.1 * rng.uniform(size=n_atoms) if radii else None
+    return ctl, f, box, pos, types, rad
+
+
+def multi_cluster_specs(n_atoms=1500, n_clusters=5, nsp=2, elec=1,
+                        box=120.0, seed=7, radii=False):
+    """Several dense clusters (12 A cubes) scattered in a large periodic
+    box, the regime of the block-sparse pass; cluster 0 sits on the box
+    corner, so it wraps all three axes.  Atoms that do not divide evenly
+    into clusters are spread over the box.  Species and pairs as
+    ``_pair_field``; specs as ``clustered_specs``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(10.0, box - 10.0, size=(n_clusters, 3))
+    centers[0] = (0.5, box - 0.5, 0.5)
+    per = n_atoms // n_clusters
+    chunks = [centers[k] + rng.uniform(-6.0, 6.0, size=(per, 3))
+              for k in range(n_clusters)]
+    rest = n_atoms - per * n_clusters
+    if rest:
+        chunks.append(rng.uniform(0.0, box, size=(rest, 3)))
+    pos = np.concatenate(chunks) % box
+    ctl, f = _pair_field(nsp, elec, radii)
     types = np.asarray(rng.integers(0, nsp, n_atoms), np.int32)
     rad = 0.577 + 0.1 * rng.uniform(size=n_atoms) if radii else None
     return ctl, f, box, pos, types, rad
@@ -174,10 +256,6 @@ def clustered_specs(n_atoms=257, nsp=1, elec=0, seed=3, radii=False):
 def family_specs(fam: str):
     """One VdW family (a key of FAMILY_PARAMS) on a jittered 7^3 lattice
     in a 24 A box (nearest separation ~2.4 A), rcut 5 A."""
-    from aztotmd_tpu import units
-    from aztotmd_tpu.io.control import ControlSpec, ElecSpec, TStatSpec
-    from aztotmd_tpu.io.field import (_VDW_ABBR, FieldSpec, SpeciesSpec,
-                                      VdWSpec)
     rng = np.random.default_rng(5)
     box = 24.0
     g = (np.arange(7) + 0.5) * (box / 7)
@@ -198,16 +276,18 @@ def family_specs(fam: str):
     return ctl, f, box, pos, np.zeros(len(pos), np.int32), None
 
 
-def pair_system(specs, dtype: str = "f32", device=None):
-    """(cfg, ff, pos, types, radii) tensors of host specs for the dense
-    pair pass (engine forced to "pallas", the dense-kernel engine)."""
+def pair_system(specs, dtype: str = "f32", device=None,
+                pair_engine: str = "pallas"):
+    """(cfg, ff, pos, types, radii) tensors of host specs for a pair
+    pass, the engine forced to ``pair_engine`` ("pallas" for the dense
+    kernel, "sparse" for the block-sparse one)."""
     import torch
     from .core.config import build_sim_config
     from .core.ffield import build_forcefield
     ctl, fld, box, pos, types, rad = specs
     tdt = torch.float64 if dtype == "f64" else torch.float32
     cfg = build_sim_config(ctl, fld, (box, box, box), len(pos), dtype=dtype,
-                           pos=pos, pair_engine="pallas")
+                           pos=pos, pair_engine=pair_engine)
     ff = build_forcefield(fld, ctl.t_step, dtype=tdt, device=device)
     t = lambda a, d: torch.as_tensor(np.asarray(a), dtype=d, device=device)
     return (cfg, ff, t(pos, tdt), t(types, torch.int32),

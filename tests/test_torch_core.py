@@ -89,6 +89,23 @@ def test_slice_deck_writer_reproduces_committed_files(tmp_path):
                            os.path.join(SLICE_DECK, name), shallow=False)
 
 
+def test_nanoclusters_deck_routes_to_sparse_engine(tmp_path):
+    """examples/nanoclusters: written byte for byte by the port's writer,
+    and auto-selected to the block-sparse engine (the K4 path) with tile
+    256 and a capacity of 1,536 tile pairs, 871 needed at the start."""
+    from aztotmd_tpu_torch.core.config import estimate_sparse_pairs
+    deck = os.path.join(ROOT, "examples", "nanoclusters")
+    systems.write_nanoclusters_deck(str(tmp_path))
+    for name in ("atoms.xyz", "control.txt", "field.txt"):
+        assert filecmp.cmp(str(tmp_path / name), os.path.join(deck, name),
+                           shallow=False)
+    ctl, fld, atoms = _specs(deck)
+    cfg = build_sim_config(ctl, fld, atoms.box, atoms.n_atoms, pos=atoms.pos)
+    assert (cfg.n_at, cfg.pair_engine) == (12000, "sparse")
+    assert (cfg.sparse_tile, cfg.sparse_pair_cap) == (256, 1536)
+    assert estimate_sparse_pairs(cfg.box, cfg.r_max, atoms.pos, 256) == 871
+
+
 def test_lj_deck_writer_matches_jax(tmp_path, lj_deck):
     systems.write_lj_deck(str(tmp_path))
     for name in ("atoms.xyz", "control.txt", "field.txt"):

@@ -1,0 +1,128 @@
+"""The port stands alone: it imports neither jax nor the JAX package, and
+its own copies of the host layers (``io``, ``units``, ``output.writers``)
+parse and write exactly what the JAX package's do."""
+
+import ast
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+import aztotmd_tpu.io as j_io
+import aztotmd_tpu.output.writers as j_writers
+from aztotmd_tpu import units as j_units
+import aztotmd_tpu_torch.io as p_io
+import aztotmd_tpu_torch.output.writers as p_writers
+from aztotmd_tpu_torch import units as p_units
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EXAMPLES = sorted(d for d in os.listdir(os.path.join(ROOT, "examples"))
+                  if os.path.isdir(os.path.join(ROOT, "examples", d)))
+
+
+def _port_sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "aztotmd_tpu_torch")):
+        out += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "aztotmd_tpu")
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{os.path.relpath(path, ROOT)}:{node.lineno} {n}"
+                    for n in names if _forbidden(n)]
+    assert len(_port_sources()) > 20
+    assert not bad, bad
+
+
+def _norm(x):
+    """Comparable plain form of parsed decks (dataclasses, arrays)."""
+    if dataclasses.is_dataclass(x):
+        return {f.name: _norm(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, np.ndarray):
+        return ("ndarray", x.dtype.str, x.shape, x.tolist())
+    if isinstance(x, (list, tuple)):
+        return [_norm(v) for v in x]
+    if isinstance(x, dict):
+        return {k: _norm(v) for k, v in x.items()}
+    return x
+
+
+def _parse_deck(io, deck):
+    fld = io.parse_field_file(os.path.join(deck, "field.txt"))
+    ctl = io.parse_control_file(os.path.join(deck, "control.txt"),
+                                charged_spec=fld.charged_spec)
+    atoms = io.parse_atoms_file(os.path.join(deck, "atoms.xyz"))
+    out = dict(fld=fld, ctl=ctl, atoms=atoms,
+               dev=io.parse_device_cfg_dir(deck))
+    types = np.array([fld.spec_id(nm) for nm in atoms.names], np.int32)
+    if os.path.exists(os.path.join(deck, "bonds.txt")):
+        out["bonds"] = io.parse_bondlist_file(
+            os.path.join(deck, "bonds.txt"), types, fld.bonds)
+    if os.path.exists(os.path.join(deck, "angles.txt")):
+        out["angles"] = io.parse_anglelist_file(
+            os.path.join(deck, "angles.txt"), types, fld.angles)
+    return out
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_copied_parsers_equal_jax_parsers(name):
+    deck = os.path.join(ROOT, "examples", name)
+    got = _parse_deck(p_io, deck)
+    ref = _parse_deck(j_io, deck)
+    assert got.keys() == ref.keys()
+    for key in ref:
+        assert _norm(got[key]) == _norm(ref[key]), key
+
+
+def test_copied_units_equal():
+    names = [n for n in dir(j_units) if n.isupper()]
+    assert len(names) > 10
+    for n in names:
+        assert getattr(p_units, n) == getattr(j_units, n), n
+
+
+def test_copied_writers_write_equal_bytes(tmp_path, monkeypatch):
+    """revcon.xyz through both packages' writers from the same positions
+    (the JAX package's native row formatter included, which is pinned to
+    printf), and traj.dat against the JAX package's pure-Python branch,
+    the one the port keeps (its native traj rows round through f32)."""
+    import aztotmd_tpu.native as j_native
+    deck = os.path.join(ROOT, "examples", "surkov_cluster")
+    fld = p_io.parse_field_file(os.path.join(deck, "field.txt"))
+    rng = np.random.default_rng(3)
+    n = 50
+    pos = rng.uniform(-40.0, 40.0, (n, 3))
+    types = np.zeros(n, np.int32)
+    parents = np.where(rng.uniform(size=n) < 0.3, rng.integers(0, n, n),
+                       -1).astype(np.int32)
+    names = ["Su"] * n
+    box = (35.0, 35.0, 35.0)
+    for w, tag in ((p_writers, "p"), (j_writers, "j")):
+        w.write_atoms_xyz(str(tmp_path / f"{tag}.xyz"), names, pos, box)
+    monkeypatch.setattr(j_native, "HAVE_NATIVE", False)
+    for w, tag in ((p_writers, "p"), (j_writers, "j")):
+        t = w.TrajWriter(str(tmp_path / f"{tag}.traj"), fld, types)
+        for step in (10, 20):
+            t.write_row(step * 0.001, step, pos + step, types, parents)
+        t.close()
+    for ext in ("xyz", "traj"):
+        a = (tmp_path / f"p.{ext}").read_bytes()
+        assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext

@@ -15,12 +15,13 @@ import torch
 
 from aztotmd_tpu_torch import systems
 from aztotmd_tpu_torch.__main__ import main as cli
-from aztotmd_tpu_torch.ops import allpairs
+from aztotmd_tpu_torch.ops import allpairs, sparse
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
 from aztotmd_tpu_torch.runtime.step import make_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_DECK = os.path.join(ROOT, "examples", "surkov_cluster")
+NANO_DECK = os.path.join(ROOT, "examples", "nanoclusters")
 
 
 @pytest.fixture
@@ -100,3 +101,73 @@ def test_f64_step_on_the_card_raises(cuda, tmp_path):
         cli(["run", deck, "--dtype", "f64", "--steps", "2", "--quiet",
              "-o", str(tmp_path / "out")])
     assert allpairs.launches == before
+
+
+# --- the Morton block-sparse kernel (csrc/sparse.cu) ---
+
+def _compare_sparse(cfg, ff, pos, types, radii, **kw):
+    """Kernel against plain on the card; max_occ must be equal exactly."""
+    before = sparse.launches
+    k = sparse.pair_forces_sparse(cfg, ff, pos, types, radii, **kw)
+    assert sparse.launches == before + 1
+    p = sparse.pair_forces_sparse_plain(cfg, ff, pos, types, radii, **kw)
+    torch.cuda.synchronize()
+    kf, pf = k.frc.cpu().numpy(), p.frc.cpu().numpy()
+    scale = float(np.abs(pf).max()) or 1.0
+    np.testing.assert_allclose(kf, pf, rtol=0, atol=3e-5 * scale)
+    for a, b in ((k.eng_vdw, p.eng_vdw), (k.eng_coul, p.eng_coul)):
+        assert float(a) == pytest.approx(float(b), rel=1e-4, abs=1e-6)
+    assert int(k.max_occ) == int(p.max_occ)
+    return k, p
+
+
+_SPARSE_CASES = [dict(nsp=1, elec=0), dict(nsp=2, elec=1),
+                 dict(nsp=3, elec=2, radii=True),
+                 dict(nsp=3, elec=3, radii=True),
+                 dict(n_atoms=1501, nsp=2, elec=1, radii=True),
+                 dict(n_atoms=100, n_clusters=2, nsp=1, elec=0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SPARSE_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+def test_sparse_kernel_matches_plain_multi_cluster(cuda, case):
+    _compare_sparse(*systems.pair_system(
+        systems.multi_cluster_specs(**case), device=cuda,
+        pair_engine="sparse"))
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_matches_plain_nanoclusters(cuda):
+    d = load_deck_dir(NANO_DECK, device=cuda)
+    assert d["cfg"].pair_engine == "sparse"
+    st = d["state"]
+    _compare_sparse(d["cfg"], d["ff"], st.pos, st.types, None)
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_truncated_worklist(cuda):
+    """Below need: max_occ still the need, unvisited tiles exactly 0."""
+    args = systems.pair_system(systems.multi_cluster_specs(), device=cuda,
+                               pair_engine="sparse")
+    need = int(sparse.pair_forces_sparse(*args).max_occ)
+    k, _ = _compare_sparse(*args, pair_cap=need // 2)
+    assert int(k.max_occ) == need
+    S = sparse.sort_tiles(args[0], *args[2:], pair_cap=need // 2)
+    empty = (S.row_ptr[1:] == S.row_ptr[:-1]).cpu().numpy()
+    assert empty.any()
+    slot_tile = np.repeat(np.arange(S.n_t), S.T)[:args[0].n_at]
+    atoms = S.perm.cpu().numpy()[empty[slot_tile]]
+    assert np.all(k.frc.cpu().numpy()[atoms] == 0.0)
+
+
+@pytest.mark.cuda
+def test_sparse_kernel_refuses_f64(cuda):
+    cfg, ff, pos, types, rad = systems.pair_system(
+        systems.multi_cluster_specs(radii=True), device=cuda,
+        pair_engine="sparse")
+    before = sparse.launches
+    with pytest.raises(TypeError, match="f32 only"):
+        sparse.pair_forces_sparse(cfg, ff, pos.double(), types,
+                                  rad.double())
+    assert sparse.launches == before

@@ -59,7 +59,7 @@ def test_rdf_counts_exact_and_normalized(deck, nsp, nuclei):
     h, nh = rdf.zero_hist(rc, torch.float64)
     tpos, ttypes = torch.as_tensor(pos), torch.as_tensor(types)
     counts = rdf.rdf_counts_allpairs(cfg, rc, tpos, ttypes)
-    h, nh = rdf.rdf_sample_allpairs(
+    h, nh = rdf.rdf_sample(
         cfg, rc, tpos, ttypes, torch.as_tensor(spec_number),
         torch.as_tensor(spec_nuclei), torch.as_tensor(nucl_number), h, nh)
 
@@ -85,3 +85,49 @@ def test_hist_counts_drop_slot():
     flat = torch.tensor([[0, 3, 3], [5, 1, 5]])
     np.testing.assert_array_equal(rdf._hist_counts(flat, 5, torch.int64),
                                   [1, 1, 0, 2, 0])
+
+
+@pytest.mark.parametrize("nsp", [1, 2])
+def test_rdf_cell_candidate_counts_exact(tmp_path, nsp):
+    """A clustered system with N above stencil * cap takes the
+    cell-candidate branch in both packages; counts exactly equal in f64
+    (same bins, same stable sort, so the same dropped atoms)."""
+    import dataclasses
+    from aztotmd_tpu_torch.systems import write_nanoclusters_deck
+    d = str(tmp_path)
+    write_nanoclusters_deck(d, n_clusters=4, per=256, box=60.0, min_sep=25.0,
+                            steps=10)
+    j, p, pos, types = _inputs(d, nsp, seed=nsp)
+    pos = pos % 60.0
+    jcfg = dataclasses.replace(j["cfg"], n_spec=nsp)
+    cfg = dataclasses.replace(p["cfg"], n_spec=nsp)
+    jr = j_rdf.make_rdf_config(j["ctl"], jcfg, pos=pos)
+    rc = rdf.make_rdf_config(p["ctl"], cfg, pos=pos)
+    assert dataclasses.asdict(rc) == dataclasses.asdict(jr)
+    assert cfg.n_at > len(rc.grid.stencil) * rc.grid.cap
+
+    spec_number = np.bincount(types, minlength=nsp).astype(np.int32)
+    spec_nuclei = np.zeros(nsp, np.int32)
+    nucl_number = np.array([cfg.n_at], np.int32)
+    jh, _ = j_rdf.zero_hist(jr, jnp.float64)
+    jh, _ = j_rdf.rdf_sample(jcfg, jr, jnp.asarray(pos), jnp.asarray(types),
+                             jnp.asarray(spec_number),
+                             jnp.asarray(spec_nuclei),
+                             jnp.asarray(nucl_number), jh, None)
+    tpos, ttypes = torch.as_tensor(pos), torch.as_tensor(types)
+    counts = rdf.rdf_counts_cells(cfg, rc, tpos, ttypes)
+    h, _ = rdf.zero_hist(rc, torch.float64)
+    h, _ = rdf.rdf_sample(cfg, rc, tpos, ttypes,
+                          torch.as_tensor(spec_number),
+                          torch.as_tensor(spec_nuclei),
+                          torch.as_tensor(nucl_number), h, None)
+    iu, ju = np.triu_indices(nsp)
+    w = 2.0 * cfg.volume / (spec_number[iu] * spec_number[ju])
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.round(np.asarray(jh) / w[None, :]))
+    assert counts.sum() > 1000
+    np.testing.assert_array_equal(h.numpy(), np.asarray(jh))
+    # the candidate sweep finds every in-range pair the all-pairs one does
+    # (no cell overflows at this size)
+    np.testing.assert_array_equal(
+        counts.numpy(), rdf.rdf_counts_allpairs(cfg, rc, tpos, ttypes).numpy())

@@ -19,7 +19,8 @@ from aztotmd_tpu_torch.__main__ import main
 from aztotmd_tpu_torch.runtime.checkpoint import load_checkpoint
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
 from aztotmd_tpu_torch.runtime.step import make_multi_step
-from aztotmd_tpu_torch.systems import write_surkov_cluster_deck
+from aztotmd_tpu_torch.systems import (write_nanoclusters_deck,
+                                       write_surkov_cluster_deck)
 
 # The tier-1 run puts several pytest workers on the machine's cores; one
 # intra-op thread per worker keeps torch from oversubscribing them (these
@@ -34,6 +35,15 @@ def deck(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("surkov_run"))
     write_surkov_cluster_deck(d, n_atoms=240, box=18.0, steps=400,
                               n_equil=100)
+    return d
+
+
+@pytest.fixture(scope="module")
+def nose_deck(tmp_path_factory):
+    """Three 128-atom Ar LJ clusters, Nose-Hoover (nanoclusters' shape)."""
+    d = str(tmp_path_factory.mktemp("nose_clusters"))
+    write_nanoclusters_deck(d, n_clusters=3, per=128, box=50.0,
+                            min_sep=25.0, steps=200)
     return d
 
 
@@ -107,28 +117,67 @@ def test_checkpoints_resume_across_packages(deck, tmp_path):
 
 _NO_JAX = """
 import importlib.abc, sys
+BLOCKED = ("jax", "jaxlib", "aztotmd_tpu")
 class _Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib"):
-            raise ImportError("jax is blocked: " + name)
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, _Block())
 from aztotmd_tpu_torch.__main__ import main
-r = main(["run", sys.argv[1], "--cpu", "--steps", "4", "-o", sys.argv[2],
+from aztotmd_tpu_torch.runtime.runner import MDRunner
+from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+r = main(["run", sys.argv[1], "--cpu", "--steps", "4", "-o", sys.argv[3],
           "--quiet"])
 assert int(r.state.step) == 4
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
+# the block-sparse engine with Nose-Hoover (forced: auto picks it only
+# above 4,096 atoms)
+sysd = load_deck_dir(sys.argv[2], pair_engine="sparse")
+assert sysd["cfg"].pair_engine == "sparse"
+r = MDRunner(sysd, out_dir=sys.argv[3] + "_sparse", quiet=True)
+r.run(4)
+r.finalize()
+assert int(r.state.step) == 4 and float(r.state.chit) != 0.0
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("NO_JAX_OK")
 """
 
 
-def test_port_cli_runs_with_jax_blocked(deck, tmp_path):
+def test_port_cli_runs_with_jax_blocked(deck, nose_deck, tmp_path):
+    """The CLI on the Surkov deck and the runner on a sparse Nose-Hoover
+    deck, with jax and the JAX package unimportable."""
     res = subprocess.run(
-        [sys.executable, "-c", _NO_JAX, deck, str(tmp_path / "out")],
+        [sys.executable, "-c", _NO_JAX, deck, nose_deck,
+         str(tmp_path / "out")],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout
+
+
+def test_sparse_regrow_warns_and_grows(nose_deck, tmp_path, capsys):
+    """A run started with sparse_pair_cap below the worklist it needs
+    warns at the first stat row and grows the capacity by the JAX
+    runner's formula, round_up(need + max(64, need // 4), 64)."""
+    import dataclasses
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    sysd = load_deck_dir(nose_deck, pair_engine="sparse")
+    cfg = sysd["cfg"]
+    need = int(make_multi_step(cfg, sysd["aux"])(sysd["state"], sysd["ff"],
+                                                 1).cell_overflow)
+    assert need > 1
+    sysd["cfg"] = dataclasses.replace(cfg, sparse_pair_cap=1)
+    runner = MDRunner(sysd, out_dir=str(tmp_path), quiet=True)
+    runner.run(200)
+    grown = -(-(need + max(64, need // 4)) // 64) * 64
+    assert runner.cfg.sparse_pair_cap == grown
+    err = capsys.readouterr().err
+    assert (f"WARNING: sparse tile-pair count {need} exceeded capacity 1; "
+            f"rebuilding with pair_cap={grown}") in err
+    # a second stat row with the grown capacity does not warn again
+    runner.run(400)
+    assert "WARNING" not in capsys.readouterr().err
+    assert runner.cfg.sparse_pair_cap == grown
 
 
 def test_cli_without_gpu_or_cpu_flag_fails_clearly(deck, tmp_path,

@@ -87,3 +87,62 @@ def test_slice_deck_shape_stays_finite_300_steps(small_deck):
     from aztotmd_tpu import units
     t_kin = 2.0 * float(st.energies.kin) / (units.KB * cfg.deg_free)
     assert 0.0 < t_kin < 3.0 * cfg.temp
+
+
+@pytest.fixture(scope="module")
+def nose_deck(tmp_path_factory):
+    """Three 128-atom Ar LJ clusters in a 50 A box, Nose-Hoover 90 K (the
+    nanoclusters deck's writer, cut in size)."""
+    from aztotmd_tpu_torch.systems import write_nanoclusters_deck
+    d = str(tmp_path_factory.mktemp("nose_clusters"))
+    write_nanoclusters_deck(d, n_clusters=3, per=128, box=50.0,
+                            min_sep=25.0, steps=40)
+    return d
+
+
+def test_nose_apply_matches_jax_f64(nose_deck):
+    """One Nose-Hoover pass on numpy-seeded inputs, rel 1e-12 (the same
+    f64 operations in the same order)."""
+    from aztotmd_tpu.ops.thermostat import nose_apply as j_nose_apply
+    from aztotmd_tpu_torch.ops.thermostat import nose_apply
+    cfg = load_deck_dir(nose_deck, dtype="f64")["cfg"]
+    assert cfg.rqmass > 0.0
+    rng = np.random.default_rng(8)
+    vel = rng.normal(0.0, 3.0, (cfg.n_at, 3))
+    for kin, chit, consint in ((0.7 * cfg.te_kin, 0.02, -1e-3),
+                               (1.6 * cfg.te_kin, -0.05, 4e-3)):
+        f64 = lambda v: torch.tensor(v, dtype=torch.float64)
+        got = nose_apply(cfg, torch.as_tensor(vel), f64(kin), f64(chit),
+                         f64(consint))
+        ref = j_nose_apply(cfg, vel, np.float64(kin), np.float64(chit),
+                           np.float64(consint))
+        for a, b in zip(got, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-12,
+                                       atol=0)
+
+
+def test_20_nose_steps_sparse_engine_f64_match_jax(nose_deck):
+    """20 f64 steps with the engine forced to "sparse" in both packages
+    (auto picks it only above 4,096 atoms): JAX's f64 route is its XLA
+    cell-block engine, the port's the plain block-sparse pass.  The same
+    f64 physics: positions atol 1e-8 A, energies and the Nose-Hoover
+    chit/consint rel 1e-8."""
+    j = j_load_deck_dir(nose_deck, dtype="f64", pair_engine="sparse")
+    p = load_deck_dir(nose_deck, dtype="f64", pair_engine="sparse")
+    assert p["cfg"].pair_engine == j["cfg"].pair_engine == "sparse"
+    js = j_make_multi_step(j["cfg"], j["aux"])(j["state"], j["ff"], 20)
+    got = convert.state_to_numpy(
+        make_multi_step(p["cfg"], p["aux"])(p["state"], p["ff"], 20))
+    assert int(got["step"]) == 20
+    np.testing.assert_allclose(got["pos"], np.asarray(js.pos), rtol=0,
+                               atol=1e-8)
+    for k in ("kin", "vdw", "pot", "tot"):
+        assert float(got["energies"][k]) == pytest.approx(
+            float(getattr(js.energies, k)), rel=1e-8), k
+    for k in ("chit", "consint"):
+        assert float(got[k]) != 0.0
+        assert float(got[k]) == pytest.approx(float(getattr(js, k)),
+                                              rel=1e-8), k
+    # the port's f64 monitor is the worklist length (JAX's: cell occupancy)
+    from aztotmd_tpu_torch.ops.sparse import tile_shape
+    assert 0 < int(got["cell_overflow"]) <= tile_shape(p["cfg"])[1] ** 2
