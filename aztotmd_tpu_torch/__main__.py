@@ -49,6 +49,9 @@ def main(argv=None):
     r.add_argument("--resume", default=None,
                    help="checkpoint.npz to resume from (from either "
                         "package)")
+    r.add_argument("--no-bond-equil-hack", action="store_true",
+                   help="disable the reference's reactive-bond "
+                        "velocity-zeroing equilibration hack")
 
     b = sub.add_parser("bench", parents=[common],
                        help="benchmark a deck (steps/sec)")
@@ -62,7 +65,8 @@ def main(argv=None):
         from .runtime.runner import MDRunner
         from .runtime.setup import load_deck_dir
         sysd = load_deck_dir(args.deck, dtype=args.dtype, seed=args.seed,
-                             device=device)
+                             device=device,
+                             bond_equil_hack=not args.no_bond_equil_hack)
         if args.resume:
             from .runtime.checkpoint import load_checkpoint
             sysd["state"] = load_checkpoint(args.resume, sysd["state"])

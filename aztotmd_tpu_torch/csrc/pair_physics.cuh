@@ -14,10 +14,19 @@
 //   multiplied into dx, dy, dz; energies take weight 0.5 per ordered pair.
 // The caller masks self pairs and padding before calling pair_accumulate.
 // Build without fast-math: the plain PyTorch versions are the reference.
+//
+// Bind/jump candidates (the kernels' candidate instantiations) compare r2
+// exactly with the plain version's, so their r2 comes from min_image_r2_rn,
+// which rounds every operation on its own in the plain version's order
+// (nvcc would otherwise contract the min-image and the r2 sum into FMAs),
+// and pair_physics then takes that r2.  A candidate minimum keeps its r2
+// and an int64 key that orders ties; cand_update keeps the least
+// (r2, key).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 namespace aztotmd {
 
@@ -128,32 +137,65 @@ __device__ __forceinline__ void coul_pair(const PairConsts& c, float r2i,
     }
 }
 
-// Stage the (nsp*nsp, 8) parameter rows [p0..p4, kqq, r2cut, unused] and
+// Stage the (nsp*nsp, 8) parameter rows [p0..p4, kqq, r2cut, bind r2] and
 // the (nsp*nsp,) kind table into shared memory (kinds right after the
-// rows).  The caller synchronises before the first read.
+// rows), and with `donacc` the (nsp,) donor/acceptor bits after the kinds.
+// The caller synchronises before the first read.
 __device__ __forceinline__ void load_tables(float* s_tab, const float* params,
-                                            const int* kinds, int npair) {
+                                            const int* kinds, int npair,
+                                            const int* donacc = nullptr,
+                                            int nsp = 0) {
     int* s_kind = reinterpret_cast<int*>(s_tab + npair * 8);
     for (int k = threadIdx.x; k < npair * 8; k += blockDim.x)
         s_tab[k] = params[k];
     for (int k = threadIdx.x; k < npair; k += blockDim.x)
         s_kind[k] = kinds[k];
+    if (donacc != nullptr)
+        for (int k = threadIdx.x; k < nsp; k += blockDim.x)
+            s_kind[npair + k] = donacc[k];
 }
 
-// One ordered pair of two distinct real atoms, displacement d = r_i - r_j
-// before the min-image: adds its force to (fx, fy, fz) and half its
-// energies to ev, ec.
-__device__ __forceinline__ void pair_accumulate(
-        const PairConsts& c, const float* s_tab, float dx, float dy,
-        float dz, int ti, int tj, float rai, float raj,
+// Shared-memory bytes of load_tables (with the donor/acceptor bits).
+inline size_t table_bytes(int nsp, bool donacc) {
+    return (static_cast<size_t>(nsp) * nsp * 9 + (donacc ? nsp : 0))
+           * sizeof(float);
+}
+
+// Min-image r2 with every operation rounded on its own (no contraction),
+// in the plain version's order; the displacement is wrapped in place.
+__device__ __forceinline__ float min_image_r2_rn(const PairConsts& c,
+                                                 float& dx, float& dy,
+                                                 float& dz) {
+    dx = __fsub_rn(dx, __fmul_rn(c.bx, rintf(__fmul_rn(dx, c.ibx))));
+    dy = __fsub_rn(dy, __fmul_rn(c.by, rintf(__fmul_rn(dy, c.iby))));
+    dz = __fsub_rn(dz, __fmul_rn(c.bz, rintf(__fmul_rn(dz, c.ibz))));
+    return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                     __fmul_rn(dz, dz));
+}
+
+// A running candidate minimum: the least (r2, key) seen so far.
+struct CandMin {
+    float r2 = INFINITY;
+    long long key = 0x7fffffffffffffffLL;
+};
+
+__device__ __forceinline__ void cand_update(CandMin& m, float r2,
+                                            long long key) {
+    if (r2 < m.r2 || (r2 == m.r2 && key < m.key)) {
+        m.r2 = r2;
+        m.key = key;
+    }
+}
+
+// One ordered pair in range (r2 <= r2_max) with its min-image
+// displacement: adds its force to (fx, fy, fz) and half its energies to
+// ev, ec.
+__device__ __forceinline__ void pair_physics(
+        const PairConsts& c, const float* s_tab, float r2, float dx,
+        float dy, float dz, int ti, int tj, float rai, float raj,
         float& fx, float& fy, float& fz, float& ev, float& ec) {
     const int* s_kind = reinterpret_cast<const int*>(
         s_tab + c.nsp * c.nsp * 8);
-    dx = dx - c.bx * rintf(dx * c.ibx);
-    dy = dy - c.by * rintf(dy * c.iby);
-    dz = dz - c.bz * rintf(dz * c.ibz);
-    const float r2 = dx * dx + dy * dy + dz * dz;
-    if (!(r2 <= c.r2_max)) return;
     const float ri = rsqrtf(r2);
     const float r2i = ri * ri;
     const float rr = r2 * ri;
@@ -178,6 +220,57 @@ __device__ __forceinline__ void pair_accumulate(
     fx += fsum * dx;
     fy += fsum * dy;
     fz += fsum * dz;
+}
+
+// One ordered pair of two distinct real atoms, displacement d = r_i - r_j
+// before the min-image: adds its force to (fx, fy, fz) and half its
+// energies to ev, ec.
+__device__ __forceinline__ void pair_accumulate(
+        const PairConsts& c, const float* s_tab, float dx, float dy,
+        float dz, int ti, int tj, float rai, float raj,
+        float& fx, float& fy, float& fz, float& ev, float& ec) {
+    dx = dx - c.bx * rintf(dx * c.ibx);
+    dy = dy - c.by * rintf(dy * c.iby);
+    dz = dz - c.bz * rintf(dz * c.ibz);
+    const float r2 = dx * dx + dy * dy + dz * dz;
+    if (!(r2 <= c.r2_max)) return;
+    pair_physics(c, s_tab, r2, dx, dy, dz, ti, tj, rai, raj,
+                 fx, fy, fz, ev, ec);
+}
+
+// Bind/jump candidate test of one ordered pair in range, r2 from
+// min_image_r2_rn (pallas_pair.py::_tile_physics): a bind candidate is
+// within the species pair's bind r2 (parameter column 7, 0 for pairs that
+// do not bond) and, with parents, neither atom is the other's parent; a
+// jump candidate is within r2_elec, a donor row's acceptor (m[1]) or an
+// acceptor row's donor (m[2]).  `di`, `dj` are the rows' donor/acceptor
+// bits.
+template <bool BIND, bool JUMP, bool PAR>
+__device__ __forceinline__ void cand_pair(
+        const float* s_tab, int nsp, float r2, long long key, int ti,
+        int tj, int di, int dj, int gi, int gj, int pi, int pj,
+        float r2_elec, CandMin* m) {
+    if (BIND) {
+        if (r2 <= s_tab[(ti * nsp + tj) * 8 + 7]
+                && (!PAR || (pi != gj && pj != gi)))
+            cand_update(m[0], r2, key);
+    }
+    if (JUMP) {
+        if (r2 <= r2_elec) {
+            if ((di & 1) && (dj & 2)) cand_update(m[1], r2, key);
+            if ((di & 2) && (dj & 1)) cand_update(m[2], r2, key);
+        }
+    }
+}
+
+// Writes the three minima of slot `o` of a (3, n_split, n_rows) output.
+__device__ __forceinline__ void cand_store(const CandMin* m, float* r2,
+                                           long long* key, size_t o,
+                                           size_t plane) {
+    for (int q = 0; q < 3; ++q) {
+        r2[q * plane + o] = m[q].r2;
+        key[q * plane + o] = m[q].key;
+    }
 }
 
 }  // namespace aztotmd

@@ -1,7 +1,8 @@
 """Dense O(N^2) pair pass: the hand-written CUDA kernel and its plain
-PyTorch version (port of ``aztotmd_tpu/ops/pallas_pair.py``: the
-non-reactive branch of ``pair_forces_allpairs`` with ``_allpairs_kernel``
-and ``_tile_physics``, and the engine choice of ``pair_forces_pallas``).
+PyTorch version (port of ``aztotmd_tpu/ops/pallas_pair.py``:
+``pair_forces_allpairs`` with ``_allpairs_kernel`` and ``_tile_physics``,
+its fused bind/jump candidates included, and the engine choice of
+``pair_forces_pallas``).
 
 Kernel: ``csrc/allpairs.cu``, CUDA C++ for sm_90a, bound through a plain
 C interface and ``ctypes``.  It replaces the TPU kernel
@@ -13,6 +14,16 @@ it reads O(N) bytes.  The design keeps everything per pair in registers
 tiles in shared memory and splits the j range over enough blocks to
 fill the SMs at N ~ 4k; see the note at the top of the source.
 
+Bind/jump candidates (``want_bind``, ``want_jump``) are running row
+minima of r2 kept beside the forces: the nearest bonding partner (a
+bonding species pair within its bind radius, not each other's parent)
+and the nearest jump partner of each role within ``r2_elec``.  Ties go
+as in the TPU kernel, which visits j tiles of ``cand_tile`` atoms in
+order and the species pairs in order within a tile: to the earliest
+tile, then the lowest species, then the lowest id.  Every minimum
+carries that order as an int64 key ``(tile * nsp + species) * N + id``,
+so the kernel's per-split minima merge exactly.
+
 Routing: a CPU tensor goes to the plain version, in f32 or f64; a CUDA
 tensor launches the kernel or raises.  The kernel is f32 only, so an f64
 run on the card raises (the JAX package sends f64 to XLA instead of its
@@ -23,6 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -32,11 +44,14 @@ from ..io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
                         VDW_ELIN, VDW_LJ, VDW_SURK)
 
 from . import cuda_build
-from .pairs import MX_FRC, PairResult, no_candidates
+from .pairs import (MX_FRC, PairResult, jump_roles, keyed_row_min,
+                    pair_result)
 
-# launches of csrc/allpairs.cu made by pair_forces_allpairs (a plain int;
-# tools that check the main path reset and read it)
+# launches of csrc/allpairs.cu made by pair_forces_allpairs, without
+# candidates (K1) and with them (K1-cand); plain ints that tools checking
+# the main path reset and read
 launches = 0
+cand_launches = 0
 
 _SM_TARGET_BLOCKS = 2 * 132      # two resident blocks per H100 SM
 
@@ -57,14 +72,23 @@ def block_cost(cfg) -> int:
     return len(g.stencil) * g.cap * g.cap * g.n_cell
 
 
-def pair_forces_dense(cfg, ff, pos, types, radii=None) -> PairResult:
+def cand_tile(n: int) -> int:
+    """j-tile width of the TPU kernel's candidate pass, which sets the
+    order of ties (``pair_forces_allpairs``: T = min(512, round_up(N,
+    128)), capped at 256 with candidates)."""
+    return min(256, _round_up(max(n, 1), 128))
+
+
+def pair_forces_dense(cfg, ff, pos, types, radii=None, parents=None,
+                      want_bind=False, want_jump=False) -> PairResult:
     """The ``pallas`` engine's pair pass: the dense all-pairs pass when it
     undercuts the modeled cell-block cost, as ``pair_forces_pallas`` picks."""
     if cfg.pair_engine != "pallas" or allpairs_cost(cfg) >= block_cost(cfg):
         raise NotImplementedError(
             "this deck needs the stacked cell-block pair kernel "
             "(ROADMAP.md: modules to port, 'K3 + cellblock')")
-    return pair_forces_allpairs(cfg, ff, pos, types, radii)
+    return pair_forces_allpairs(cfg, ff, pos, types, radii, parents,
+                                want_bind, want_jump)
 
 
 # --------------------------------------------------------------------------
@@ -186,7 +210,50 @@ def pair_terms(cfg, tabs, r2, inr, ti, tj, rai, raj):
     return torch.clamp(fsum, -MX_FRC, MX_FRC), ev, ec
 
 
+def bind_table(ff, dt):
+    """(nsp*nsp,) squared bind radius of each species pair, 0 where the
+    pair does not bond (column 7 of the kernel's parameter rows)."""
+    return (ff.bind_r2 * (ff.bonding_matr != 0)).reshape(-1).to(dt)
+
+
+def plain_candidates(cfg, ff, r2, inr, ti, tj, gi, gj, key, pari, parj,
+                     want_bind, want_jump):
+    """Row minima over the last axis of the bind and per-role jump
+    candidates of a block of ordered pairs, as ``_tile_physics``.
+
+    ``inr`` marks the pairs in range; ``ti``/``tj``, the global ids
+    ``gi``/``gj``, the tie ``key`` and the parents ``pari``/``parj``
+    (None without) broadcast against ``r2``.  Returns (bind, jump):
+    bind a (min r2, key) pair, jump its (donor-row, acceptor-row) pair,
+    None where not wanted."""
+    bind = jump = None
+    if want_bind:
+        can = inr & (r2 <= bind_table(ff, r2.dtype)[(ti * cfg.n_spec
+                                                       + tj).long()])
+        if pari is not None:
+            can = can & (pari != gj) & (parj != gi)
+        bind = keyed_row_min(r2, can, key)
+    if want_jump:
+        don_i, acc_i = jump_roles(ff, ti)
+        don_j, acc_j = jump_roles(ff, tj)
+        ej = inr & (r2 <= cfg.r2_elec)
+        jump = (keyed_row_min(r2, ej & don_i & acc_j, key),
+                keyed_row_min(r2, ej & acc_i & don_j, key))
+    return bind, jump
+
+
+def _cat_minima(parts):
+    """Join per-chunk (m, k) row minima, or pairs of them."""
+    if parts[0] is None:
+        return None
+    if isinstance(parts[0][0], tuple):
+        return tuple(_cat_minima([p[q] for p in parts]) for q in range(2))
+    return (torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts]))
+
+
 def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
+                               parents=None, want_bind=False,
+                               want_jump=False,
                                rows: int | None = None) -> PairResult:
     """What the kernel computes, in plain PyTorch, ``rows`` i atoms at a
     time so a 4k x 4k pass fits in memory (f32 or f64, see
@@ -195,15 +262,18 @@ def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
     dt = pos.dtype
     dev = pos.device
     use_radii = bool(cfg.use_radii and radii is not None)
+    use_par = bool(want_bind and parents is not None)
     tabs = plain_tables(cfg, ff, dt)
     box = torch.tensor(cfg.box, dtype=dt, device=dev)
     ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
     if rows is None:
         rows = max(1, (1 << 22) // max(N, 1))
     gj = torch.arange(N, device=dev)
+    key = ((gj // cand_tile(N)) * cfg.n_spec + types.long()) * N + gj
     frc = torch.zeros((N, 3), dtype=dt, device=dev)
     ev_sum = torch.zeros((), dtype=dt, device=dev)
     ec_sum = torch.zeros((), dtype=dt, device=dev)
+    binds, jumps = [], []
     for i0 in range(0, N, rows):
         i1 = min(N, i0 + rows)
         d = []
@@ -214,8 +284,9 @@ def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
         r2 = dx * dx + dy * dy + dz * dz
         gi = torch.arange(i0, i1, device=dev)[:, None]
         inr = (r2 <= cfg.r2_max) & (gi != gj[None, :])
+        ti, tj = types[i0:i1, None], types[None, :]
         fsum, ev, ec = pair_terms(
-            cfg, tabs, r2, inr, types[i0:i1, None], types[None, :],
+            cfg, tabs, r2, inr, ti, tj,
             radii[i0:i1, None] if use_radii else None,
             radii[None, :] if use_radii else None)
         ev_sum = ev_sum + ev.sum()
@@ -223,40 +294,48 @@ def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
         frc[i0:i1, 0] = torch.sum(fsum * dx, dim=1)
         frc[i0:i1, 1] = torch.sum(fsum * dy, dim=1)
         frc[i0:i1, 2] = torch.sum(fsum * dz, dim=1)
-    return _result(N, frc, ev_sum, ec_sum)
+        b, j = plain_candidates(
+            cfg, ff, r2, inr, ti, tj, gi, gj[None, :], key[None, :],
+            parents[i0:i1, None] if use_par else None,
+            parents[None, :] if use_par else None, want_bind, want_jump)
+        binds.append(b)
+        jumps.append(j)
+    return pair_result(frc, ev_sum, ec_sum, _zero_occ(dev), ff, types,
+                       _cat_minima(binds), _cat_minima(jumps))
 
 
-def _result(N, frc, ev, ec) -> PairResult:
-    idx, r2n = no_candidates(N, frc.dtype, frc.device)
-    return PairResult(frc=frc, eng_vdw=ev, eng_coul=ec,
-                      max_occ=torch.zeros((), dtype=torch.int32,
-                                          device=frc.device),
-                      bind_idx=idx, bind_r2=r2n, jump_idx=idx.clone(),
-                      jump_r2=r2n.clone())
+def _zero_occ(dev):
+    return torch.zeros((), dtype=torch.int32, device=dev)
 
 
 # --------------------------------------------------------------------------
 # the kernel
 
 
-def pair_forces_allpairs(cfg, ff, pos, types, radii=None) -> PairResult:
+def pair_forces_allpairs(cfg, ff, pos, types, radii=None, parents=None,
+                         want_bind=False, want_jump=False) -> PairResult:
     """Dense pair pass: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
     if pos.device.type == "cpu":
-        return pair_forces_allpairs_plain(cfg, ff, pos, types, radii)
+        return pair_forces_allpairs_plain(cfg, ff, pos, types, radii,
+                                          parents, want_bind, want_jump)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    return _allpairs_cuda(cfg, ff, pos, types, radii)
+    return _allpairs_cuda(cfg, ff, pos, types, radii, parents, want_bind,
+                          want_jump)
 
 
-def kernel_tables(cfg, ff, device):
-    """(nsp*nsp, 8) f32 parameter rows [p0..p4, kqq, r2cut, 0] and the
-    (nsp*nsp,) int32 kind table, as the kernel reads them."""
+def kernel_tables(cfg, ff, device, want_bind=False):
+    """(nsp*nsp, 8) f32 parameter rows [p0..p4, kqq, r2cut, bind r2 (0
+    without ``want_bind``)] and the (nsp*nsp,) int32 kind table, as the
+    kernels read them."""
     nsp = cfg.n_spec
     prm = torch.zeros((nsp * nsp, 8), dtype=torch.float32, device=device)
     prm[:, 0:5] = ff.vdw_p.reshape(-1, 5).to(torch.float32)
     prm[:, 5] = (ff.chprod.reshape(-1) * cfg.coul_scale).to(torch.float32)
     prm[:, 6] = ff.vdw_r2cut.reshape(-1).to(torch.float32)
+    if want_bind:
+        prm[:, 7] = bind_table(ff, torch.float32)
     kinds = torch.tensor([k for row in cfg.vdw_kind_table for k in row],
                          dtype=torch.int32, device=device)
     return prm, kinds
@@ -266,21 +345,76 @@ def kernel_consts(cfg) -> list:
     """The f32 scalars of ``PairConsts`` (csrc/pair_physics.cuh): box,
     its reciprocal rounded to f32 as the JAX kernels do, r2_max and the
     Coulomb constants."""
-    f32 = lambda v: float(torch.tensor(v, dtype=torch.float32))
     return ([f32(b) for b in cfg.box] + [f32(1.0 / b) for b in cfg.box]
             + [f32(cfg.r2_max), f32(cfg.alpha), f32(cfg.daipi2),
                f32(cfg.fennel_c1), f32(cfg.fennel_c2), f32(cfg.r_real)])
+
+
+def f32(v) -> float:
+    """``v`` rounded to f32."""
+    return float(torch.tensor(v, dtype=torch.float32))
+
+
+@dataclass
+class CandArgs:
+    """Inputs of a candidate pass: the (nsp,) int32 donor/acceptor bits,
+    the (N,) int32 parents in the kernel's atom order (None: no parent
+    test) and which minima to keep."""
+    donacc: torch.Tensor
+    parents: torch.Tensor | None
+    want_bind: bool
+    want_jump: bool
+
+    def c_args(self, cfg, tie: int) -> list:
+        """want_bind, want_jump, use_par, the kernel's tie-order integer
+        (K1: its tie tile width, K4: N) and r2_elec, in C order."""
+        return [int(self.want_bind), int(self.want_jump),
+                int(self.parents is not None), tie, f32(cfg.r2_elec)]
+
+
+def cand_args(cfg, ff, parents, want_bind, want_jump, dev):
+    """CandArgs of a pass, or None without candidates (checks parents)."""
+    if not (want_bind or want_jump):
+        return None
+    par = parents if want_bind else None
+    if par is not None:
+        check_tensor("parents", par, torch.int32, (cfg.n_at,), dev)
+    return CandArgs(ff.spec_donacc.to(device=dev, dtype=torch.int32)
+                    .contiguous(), par, want_bind, want_jump)
+
+
+def merge_splits(cand_r2, cand_key, q):
+    """Minimum q (0 bind, 1 jump donor row, 2 jump acceptor row) over the
+    kernel's splits: (min r2, key) per row, exact since the key orders
+    ties."""
+    m = cand_r2[q].T
+    return keyed_row_min(m, torch.isfinite(m), cand_key[q].T)
+
+
+def split_candidates(c: CandArgs | None, cand_r2, cand_key):
+    """(bind, jump) row minima of a kernel launch, for ``pair_result``."""
+    if c is None:
+        return None, None
+    bind = merge_splits(cand_r2, cand_key, 0) if c.want_bind else None
+    jump = ((merge_splits(cand_r2, cand_key, 1),
+             merge_splits(cand_r2, cand_key, 2)) if c.want_jump else None)
+    return bind, jump
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_CAND_C = [_P, _P, _I, _I, _I, _I, _F, _P, _P]   # CandArgs + outputs
 
 
 def _lib():
     lib = cuda_build.load("allpairs")
     fn = lib.aztotmd_allpairs_f32
     if fn.argtypes is None:
-        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I,
-                       F, F, F, F, F, F, F, F, F, F, F, F,
-                       P, P, P, P]
+        fn.argtypes = ([_P] * 5 + [_I] * 5 + [_F] * 12 + [_P] * 4)
         fn.restype = ctypes.c_int
+        cf = lib.aztotmd_allpairs_cand_f32
+        cf.argtypes = ([_P] * 5 + [_I] * 5 + [_F] * 12 + [_P] * 3
+                       + _CAND_C + [_P])
+        cf.restype = ctypes.c_int
         lib.aztotmd_allpairs_tile.restype = ctypes.c_int
     return lib
 
@@ -297,7 +431,8 @@ def check_tensor(name, t, dtype, shape, device):
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _allpairs_cuda(cfg, ff, pos, types, radii) -> PairResult:
+def _allpairs_cuda(cfg, ff, pos, types, radii, parents, want_bind,
+                   want_jump) -> PairResult:
     N = cfg.n_at
     dev = pos.device
     if pos.dtype != torch.float32:
@@ -311,16 +446,21 @@ def _allpairs_cuda(cfg, ff, pos, types, radii) -> PairResult:
     check_tensor("types", types, torch.int32, (N,), dev)
     if use_radii:
         check_tensor("radii", radii, torch.float32, (N,), dev)
-    frc_p, ev_p, ec_p = launch(cfg, *kernel_tables(cfg, ff, dev), pos,
-                               types, radii if use_radii else None)
-    return _result(N, frc_p.sum(0), ev_p.sum(), ec_p.sum())
+    c = cand_args(cfg, ff, parents, want_bind, want_jump, dev)
+    frc_p, ev_p, ec_p, cr2, ckey = launch(
+        cfg, *kernel_tables(cfg, ff, dev, want_bind), pos, types,
+        radii if use_radii else None, c)
+    return pair_result(frc_p.sum(0), ev_p.sum(), ec_p.sum(), _zero_occ(dev),
+                       ff, types, *split_candidates(c, cr2, ckey))
 
 
-def launch(cfg, prm, kinds, pos, types, radii):
+def launch(cfg, prm, kinds, pos, types, radii, cand: CandArgs | None = None):
     """Launch csrc/allpairs.cu on checked inputs (``radii`` None without
     radii) and return its (n_split, N, 3) force and (n_split, N) energy
-    partial rows.  Counts the launch."""
-    global launches
+    partial rows, and with ``cand`` its (3, n_split, N) f32 r2 and int64
+    key partial minima (bind, jump donor row, jump acceptor row; else
+    None).  Counts the launch as K1 or, with ``cand``, K1-cand."""
+    global launches, cand_launches
     N = cfg.n_at
     dev = pos.device
     lib = _lib()
@@ -330,16 +470,30 @@ def launch(cfg, prm, kinds, pos, types, radii):
     frc_p = torch.empty((n_split, N, 3), dtype=torch.float32, device=dev)
     ev_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)
     ec_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)
+    cr2 = ckey = None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if N:
-        err = lib.aztotmd_allpairs_f32(
-            pos.data_ptr(), types.data_ptr(),
-            radii.data_ptr() if radii is not None else None,
-            prm.data_ptr(), kinds.data_ptr(), cfg.n_spec, N, n_split,
-            int(radii is not None), int(cfg.elec_type), *kernel_consts(cfg),
-            frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(), stream)
-        if err != 0:
-            raise RuntimeError(f"allpairs kernel launch failed: CUDA error "
-                               f"{err}")
+    if not N:
+        return frc_p, ev_p, ec_p, cr2, ckey
+    common = [pos.data_ptr(), types.data_ptr(),
+              radii.data_ptr() if radii is not None else None,
+              prm.data_ptr(), kinds.data_ptr(), cfg.n_spec, N, n_split,
+              int(radii is not None), int(cfg.elec_type),
+              *kernel_consts(cfg), frc_p.data_ptr(), ev_p.data_ptr(),
+              ec_p.data_ptr()]
+    if cand is None:
+        err = lib.aztotmd_allpairs_f32(*common, stream)
+    else:
+        cr2 = torch.empty((3, n_split, N), dtype=torch.float32, device=dev)
+        ckey = torch.empty((3, n_split, N), dtype=torch.int64, device=dev)
+        err = lib.aztotmd_allpairs_cand_f32(
+            *common, cand.donacc.data_ptr(),
+            cand.parents.data_ptr() if cand.parents is not None else None,
+            *cand.c_args(cfg, cand_tile(N)), cr2.data_ptr(),
+            ckey.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"allpairs kernel launch failed: CUDA error {err}")
+    if cand is None:
         launches += 1
-    return frc_p, ev_p, ec_p
+    else:
+        cand_launches += 1
+    return frc_p, ev_p, ec_p, cr2, ckey

@@ -1,7 +1,14 @@
-"""Pair-pass result and the O(N^2) oracle (port of
-``aztotmd_tpu/ops/pairs.py``: ``PairResult``, ``min_image``,
-``all_pairs_forces``).  The oracle builds the full (N, N) matrices; the
-engines are checked against it.
+"""Pair-pass result, the O(N^2) oracle and the bind/jump candidate
+selection (port of ``aztotmd_tpu/ops/pairs.py``: ``PairResult``,
+``min_image``, ``all_pairs_forces``, ``bind_jump_candidates``,
+``bind_jump_candidates_rows``, ``_jump_candidates``, ``_row_argmin``).
+The oracle builds the full (N, N) matrices; the engines are checked
+against it.  The candidate selection is the try_to_bind / try_to_jump
+registration of the reference's pair kernel as row minima: a bond
+candidate is the nearest atom in bonding range of a bonding species
+pair that is not already the row's parent (nor has the row as its
+parent); a jump candidate is a donor row's nearest acceptor or an
+acceptor row's nearest donor within ``r2_elec``.
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ import torch
 
 from ..io.control import ELEC_NONE
 
+from . import cell_list as cl
 from .elec import coul_eval
 from .vdw import vdw_eval
 
@@ -39,6 +47,132 @@ def no_candidates(n: int, dtype, device):
 def min_image(delta, cfg):
     box = torch.as_tensor(cfg.box, dtype=delta.dtype, device=delta.device)
     return delta - box * torch.round(delta / box)
+
+
+def bind_jump_candidates(cfg, ff, pos, types, parents=None,
+                         want_bind=True, want_jump=True):
+    """Bind/jump candidates of every atom over the cell-list candidate
+    matrix, without the force work: (bind_idx, bind_r2, jump_idx,
+    jump_r2), sentinel id N and r2 inf."""
+    N = cfg.n_at
+    table, _ = cl.build_cell_table(cfg, pos)
+    own = torch.arange(N, dtype=torch.int32, device=pos.device)
+    return bind_jump_candidates_rows(
+        cfg, ff, table, pos, types, parents, pos, own, types, parents,
+        want_bind=want_bind, want_jump=want_jump)
+
+
+def bind_jump_candidates_rows(cfg, ff, table, pos, types, parents,
+                              row_pos, row_own, row_types, row_parents,
+                              want_bind=True, want_jump=True):
+    """Candidate selection for a set of rows against the cell table
+    ``table`` built over the global ``pos``.  ``row_own`` is the global
+    id of each row (N for a dead row)."""
+    N = cfg.n_at
+    dt = pos.dtype
+    dev = pos.device
+    nsp = cfg.n_spec
+    coords = cl.cell_coords(cfg, row_pos)
+    cand = cl.gather_candidates(cfg, table, coords)          # (R, M)
+    cl_ = cand.long()
+    pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=dt, device=dev)])
+    types_p = torch.cat([types, torch.zeros(1, dtype=types.dtype,
+                                            device=dev)])
+    delta = min_image(row_pos[:, None, :] - pos_p[cl_], cfg)
+    r2 = torch.sum(delta * delta, dim=-1)
+    own = row_own[:, None]
+    valid = (cand != N) & (cand != own) & (own != N)
+    tj = types_p[cl_]
+    R = row_pos.shape[0]
+    none_idx = torch.full((R,), N, dtype=torch.int32, device=dev)
+    none_r2 = torch.full((R,), float("inf"), dtype=dt, device=dev)
+    bind_idx, bind_r2 = none_idx, none_r2
+    if want_bind:
+        tpair = (row_types[:, None] * nsp + tj).long()
+        can = ((ff.bonding_matr.reshape(-1)[tpair] != 0) & valid
+               & (r2 <= ff.bind_r2.reshape(-1)[tpair]))
+        if parents is not None:
+            par_p = torch.cat([parents, torch.full((1,), -1,
+                                                   dtype=parents.dtype,
+                                                   device=dev)])
+            can = can & (row_parents[:, None] != cand) & (par_p[cl_] != own)
+        bind_idx, bind_r2 = _row_argmin(cand, r2, can, N)
+    jump_idx, jump_r2 = none_idx.clone(), none_r2.clone()
+    if want_jump:
+        jump_idx, jump_r2 = _jump_candidates(cfg, ff, row_types, tj, cand,
+                                             r2, valid, sentinel=N)
+    return bind_idx, bind_r2, jump_idx, jump_r2
+
+
+def jump_roles(ff, types):
+    """(donor, acceptor) bool masks of species ids ``types``."""
+    da = ff.spec_donacc[types.long()]
+    return (da & 1) != 0, (da & 2) != 0
+
+
+def _jump_candidates(cfg, ff, types, tj, cand, r2, valid, sentinel=None):
+    """Per-role jump candidates: a donor row takes its nearest acceptor,
+    any other row its nearest donor (both within r2_elec)."""
+    N = types.shape[0] if sentinel is None else sentinel
+    don_i, acc_i = jump_roles(ff, types)
+    don_j, acc_j = jump_roles(ff, tj)
+    rng = valid & (r2 <= cfg.r2_elec)
+    idx_d, r2_d = _row_argmin(cand, r2, don_i[:, None] & acc_j & rng, N)
+    idx_a, r2_a = _row_argmin(cand, r2, acc_i[:, None] & don_j & rng, N)
+    return (torch.where(don_i, idx_d, idx_a),
+            torch.where(don_i, r2_d, r2_a))
+
+
+def _row_argmin(cand, r2, mask, sentinel):
+    """Nearest masked candidate per row: (idx, r2); sentinel when none.
+    Ties go to the first column, as ``jnp.argmin``."""
+    r2m = torch.where(mask, r2, torch.full_like(r2, float("inf")))
+    j = torch.argmin(r2m, dim=1, keepdim=True)
+    best_r2 = torch.gather(r2m, 1, j)[:, 0]
+    best_id = torch.where(torch.isfinite(best_r2),
+                          torch.gather(cand, 1, j)[:, 0].to(torch.int32),
+                          sentinel)
+    return best_id.to(torch.int32), best_r2
+
+
+def keyed_row_min(r2, mask, key):
+    """Row minimum of ``r2`` over ``mask`` with ties broken by the least
+    int64 ``key``: (min r2, its key), r2 inf and key -1 for empty rows."""
+    r2m = torch.where(mask, r2, torch.full_like(r2, float("inf")))
+    m = torch.amin(r2m, dim=-1)
+    big = torch.iinfo(torch.int64).max
+    k = torch.amin(torch.where(mask & (r2m == m[..., None]), key, big),
+                   dim=-1)
+    return m, torch.where(k == big, -1, k)
+
+
+def candidate_ids(m, k, N: int, dtype):
+    """(min r2, key) row minima whose key ends in ``* N + id`` -> (N,)
+    int32 ids and r2 in ``dtype``, sentinel id N where there is none."""
+    return (torch.where(torch.isfinite(m), k % N, N).to(torch.int32),
+            m.to(dtype))
+
+
+def pair_result(frc, ev, ec, max_occ, ff=None, types=None, bind=None,
+                jump=None) -> PairResult:
+    """PairResult of a pass; ``bind`` is its (min r2, key) row minima,
+    ``jump`` the (donor-row, acceptor-row) pair of them, None when the
+    pass did not look for them."""
+    N = frc.shape[0]
+    dt = frc.dtype
+    bind_idx, bind_r2 = no_candidates(N, dt, frc.device)
+    jump_idx, jump_r2 = bind_idx.clone(), bind_r2.clone()
+    if bind is not None:
+        bind_idx, bind_r2 = candidate_ids(*bind, N, dt)
+    if jump is not None:
+        jd_idx, jd_r2 = candidate_ids(*jump[0], N, dt)
+        ja_idx, ja_r2 = candidate_ids(*jump[1], N, dt)
+        don_row = jump_roles(ff, types)[0]
+        jump_idx = torch.where(don_row, jd_idx, ja_idx)
+        jump_r2 = torch.where(don_row, jd_r2, ja_r2)
+    return PairResult(frc=frc, eng_vdw=ev, eng_coul=ec, max_occ=max_occ,
+                      bind_idx=bind_idx, bind_r2=bind_r2,
+                      jump_idx=jump_idx, jump_r2=jump_r2)
 
 
 def all_pairs_forces(cfg, ff, pos, types, radii=None) -> PairResult:

@@ -1,7 +1,7 @@
 """Morton block-sparse pair pass: the hand-written CUDA kernel and its plain
-PyTorch version (port of ``aztotmd_tpu/ops/pallas_sparse.py``: the
-non-reactive branch of ``pair_forces_sparse`` with ``morton_codes``,
-``_tile_worklist`` and ``_sparse_kernel``).
+PyTorch version (port of ``aztotmd_tpu/ops/pallas_sparse.py``:
+``pair_forces_sparse`` with ``morton_codes``, ``_tile_worklist`` and
+``_sparse_kernel``, its fused bind/jump candidates included).
 
 Atoms are sorted by the Morton code of their fine-grid cell, cut into
 tiles of T slots, and a tile pair interacts when the periodic min-image
@@ -20,6 +20,13 @@ n_need * T^2, not by memory; see the note at the top of the source.  The
 worklist, its CSR row offsets and the sort are built here in torch
 without a host synchronisation.
 
+Bind/jump candidates are the dense pass's (``ops/allpairs.py``) over the
+worklist, with the parents carried in the sorted table.  The TPU kernel
+visits a row's entries in worklist order, ascending j tile, and breaks
+ties inside a tile by species, then global id; the minima carry that
+order as the key ``(jt * nsp + species) * N + id`` and are un-sorted to
+atom order.
+
 Routing: a CPU tensor goes to the plain version, in f32 or f64; a CUDA
 tensor launches the kernel or raises.  The kernel is f32 only.  The JAX
 package sends f64 to its XLA cell-block engine instead
@@ -30,6 +37,7 @@ the CPU, whose ``max_occ`` is still the worklist length.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from dataclasses import dataclass
 
@@ -38,13 +46,17 @@ import torch
 
 from ..core.config import _morton_dims, _part1by2, _round_up
 from . import cuda_build
-from .allpairs import (_SM_TARGET_BLOCKS, check_tensor, kernel_consts,
-                       kernel_tables, pair_terms, plain_tables)
-from .pairs import PairResult, no_candidates
+from .allpairs import (_CAND_C, _SM_TARGET_BLOCKS, CandArgs, cand_args,
+                       check_tensor, kernel_consts, kernel_tables,
+                       pair_terms, plain_candidates, plain_tables,
+                       split_candidates)
+from .pairs import PairResult, pair_result
 
-# launches of csrc/sparse.cu made by pair_forces_sparse (a plain int;
-# tools that check the main path reset and read it)
+# launches of csrc/sparse.cu made by pair_forces_sparse, without
+# candidates (K4) and with them (K4-cand); plain ints that tools checking
+# the main path reset and read
 launches = 0
+cand_launches = 0
 
 _MAX_TILE = 256          # one thread per i slot (MAX_T in csrc/sparse.cu)
 
@@ -127,6 +139,7 @@ class SortedTiles:
     gid: torch.Tensor         # (n_t*T,) int32 atom id, -1 on padding
     types: torch.Tensor       # (n_t*T,) int32
     radii: torch.Tensor       # (n_t*T,) 1 on padding and without radii
+    parents: torch.Tensor | None   # (n_t*T,) int32, -1 on padding
     it: torch.Tensor          # (pair_cap,) int32 worklist
     jt: torch.Tensor
     vp: torch.Tensor
@@ -147,14 +160,11 @@ def tile_shape(cfg, tile=None, pair_cap=None):
     return T, n_t, max(n_t, min(int(pair_cap), n_t * n_t))
 
 
-def sort_tiles(cfg, pos, types, radii=None, tile=None,
-               pair_cap=None) -> SortedTiles:
-    """Sort, pad and tile the atoms and build the worklist and its CSR
-    row offsets (no host synchronisation)."""
-    if (cfg.use_bnd == 2 and cfg.use_linkage) or cfg.ejtype:
-        raise NotImplementedError(
-            "bind/jump candidates of the sparse pass are not ported yet "
-            "(ROADMAP.md: modules to port, item 4)")
+def sort_tiles(cfg, pos, types, radii=None, tile=None, pair_cap=None,
+               parents=None) -> SortedTiles:
+    """Sort, pad and tile the atoms (and ``parents``, when given) and
+    build the worklist and its CSR row offsets (no host
+    synchronisation)."""
     N = cfg.n_at
     dt = pos.dtype
     dev = pos.device
@@ -176,6 +186,7 @@ def sort_tiles(cfg, pos, types, radii=None, tile=None,
     # radius 1.0 on padding keeps the Surkov 1/(k1*ra + k2*rb) term finite
     ra = (padded(radii.to(dt), 1.0) if cfg.use_radii and radii is not None
           else torch.ones(n_t * T, dtype=dt, device=dev))
+    par = padded(parents.to(torch.int32), -1) if parents is not None else None
     it, jt, vp, n_need = _tile_worklist(
         cfg.box, cfg.r2_max, x, y, z, (gid >= 0).to(torch.int32), n_t, T,
         pair_cap)
@@ -183,32 +194,64 @@ def sort_tiles(cfg, pos, types, radii=None, tile=None,
     counts.scatter_add_(0, it.long(), vp)
     row_ptr = torch.cat([torch.zeros(1, dtype=torch.int32, device=dev),
                          torch.cumsum(counts, 0, dtype=torch.int32)])
-    return SortedTiles(T, n_t, pair_cap, perm, x, y, z, gid, ts, ra, it, jt,
-                       vp, n_need, row_ptr)
+    return SortedTiles(T, n_t, pair_cap, perm, x, y, z, gid, ts, ra, par,
+                       it, jt, vp, n_need, row_ptr)
 
 
-def _result(S: SortedTiles, frc_s, ev, ec) -> PairResult:
-    """Un-sort the (n_t*T, 3) slot forces back to atom order."""
+def _result(S: SortedTiles, frc_s, ev, ec, ff=None, types=None, bind=None,
+            jump=None) -> PairResult:
+    """Un-sort the (n_t*T, 3) slot forces and the (min r2, key) slot
+    minima of the candidates back to atom order."""
     N = S.perm.shape[0]
     frc = torch.zeros((N, 3), dtype=frc_s.dtype, device=frc_s.device)
     frc.index_copy_(0, S.perm, frc_s[:N])
-    idx, r2n = no_candidates(N, frc.dtype, frc.device)
-    return PairResult(frc=frc, eng_vdw=ev, eng_coul=ec, max_occ=S.n_need,
-                      bind_idx=idx, bind_r2=r2n, jump_idx=idx.clone(),
-                      jump_r2=r2n.clone())
+
+    def unsort(mk):
+        out = []
+        for a in mk:
+            o = torch.empty(N, dtype=a.dtype, device=a.device)
+            o[S.perm] = a[:N]
+            out.append(o)
+        return tuple(out)
+
+    if bind is not None:
+        bind = unsort(bind)
+    if jump is not None:
+        jump = (unsort(jump[0]), unsort(jump[1]))
+    return pair_result(frc, ev, ec, S.n_need, ff, types, bind, jump)
+
+
+def _slot_minima(parts, S: SortedTiles, dt):
+    """Merge per-entry (P, T) row minima of the worklist chunks into the
+    (n_t*T,) slot minima on (r2, key)."""
+    m = torch.cat([p[0] for p in parts]).reshape(-1)
+    k = torch.cat([p[1] for p in parts]).reshape(-1)
+    dev = m.device
+    slot = (S.it.long()[:, None] * S.T
+            + torch.arange(S.T, device=dev)[None, :]).reshape(-1)
+    n = S.n_t * S.T
+    best = torch.full((n,), float("inf"), dtype=dt, device=dev)
+    best = best.scatter_reduce(0, slot, m, "amin")
+    big = torch.iinfo(torch.int64).max
+    kk = torch.where(torch.isfinite(m) & (m == best[slot]), k, big)
+    bk = torch.full((n,), big, dtype=torch.int64, device=dev)
+    return best, bk.scatter_reduce(0, slot, kk, "amin")
 
 
 # --------------------------------------------------------------------------
 # plain PyTorch version
 
 
-def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, tile=None,
+def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, parents=None,
+                             want_bind=False, want_jump=False, tile=None,
                              pair_cap=None) -> PairResult:
     """What the kernel computes, in plain PyTorch: the worklist's entries
     in chunks of P, gathered into (P, T, T) tile pairs (~1M slot pairs)
     and added into the i tiles with ``index_add_`` (f32 or f64, see
     ``allpairs.pair_terms``).  Tiles no entry visits stay exactly zero."""
-    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap)
+    use_par = bool(want_bind and parents is not None)
+    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap,
+                   parents if use_par else None)
     dt = pos.dtype
     dev = pos.device
     T, n_t = S.T, S.n_t
@@ -218,7 +261,10 @@ def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, tile=None,
     ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
     cols = [a.reshape(n_t, T) for a in (S.x, S.y, S.z, S.gid, S.types,
                                         S.radii)]
+    if use_par:
+        cols.append(S.parents.reshape(n_t, T))
     acc = torch.zeros((5, n_t, T), dtype=dt, device=dev)   # fx fy fz ev ec
+    binds, jumps = [], []
     P = max(1, (1 << 20) // (T * T))
     for c0 in range(0, S.pair_cap, P):
         it = S.it[c0:c0 + P].long()
@@ -234,33 +280,48 @@ def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, tile=None,
         gi, gj = ci[3], cj[3]
         vm = ((S.vp[c0:c0 + P] > 0)[:, None, None] & (gi >= 0) & (gj >= 0)
               & (gi != gj))
-        fsum, ev, ec = pair_terms(cfg, tabs, r2, vm & (r2 <= cfg.r2_max),
-                                  ci[4], cj[4],
+        inr = vm & (r2 <= cfg.r2_max)
+        fsum, ev, ec = pair_terms(cfg, tabs, r2, inr, ci[4], cj[4],
                                   ci[5] if use_radii else None,
                                   cj[5] if use_radii else None)
         rows = torch.stack([torch.sum(fsum * dx, -1), torch.sum(fsum * dy, -1),
                             torch.sum(fsum * dz, -1), ev, ec])
         acc.index_add_(1, it, rows)
+        if want_bind or want_jump:
+            key = ((jt[:, None, None] * cfg.n_spec + cj[4].long())
+                   * cfg.n_at + gj.long())
+            b, j = plain_candidates(
+                cfg, ff, r2, inr, ci[4], cj[4], gi, gj, key,
+                ci[6] if use_par else None, cj[6] if use_par else None,
+                want_bind, want_jump)
+            binds.append(b)
+            jumps.append(j)
+    bind = _slot_minima(binds, S, dt) if want_bind else None
+    jump = ((_slot_minima([j[0] for j in jumps], S, dt),
+             _slot_minima([j[1] for j in jumps], S, dt))
+            if want_jump else None)
     return _result(S, acc[:3].reshape(3, n_t * T).T, acc[3].sum(),
-                   acc[4].sum())
+                   acc[4].sum(), ff, types, bind, jump)
 
 
 # --------------------------------------------------------------------------
 # the kernel
 
 
-def pair_forces_sparse(cfg, ff, pos, types, radii=None, tile=None,
+def pair_forces_sparse(cfg, ff, pos, types, radii=None, parents=None,
+                       want_bind=False, want_jump=False, tile=None,
                        pair_cap=None) -> PairResult:
     """Morton block-sparse pair pass: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors.  ``max_occ`` carries the worklist
     length needed; above the capacity the forces of this call are
     truncated and the runner regrows."""
     if pos.device.type == "cpu":
-        return pair_forces_sparse_plain(cfg, ff, pos, types, radii, tile,
-                                        pair_cap)
+        return pair_forces_sparse_plain(cfg, ff, pos, types, radii, parents,
+                                        want_bind, want_jump, tile, pair_cap)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    return _sparse_cuda(cfg, ff, pos, types, radii, tile, pair_cap)
+    return _sparse_cuda(cfg, ff, pos, types, radii, parents, want_bind,
+                        want_jump, tile, pair_cap)
 
 
 def _lib():
@@ -270,10 +331,15 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = ([P] * 10 + [I] * 6 + [F] * 12 + [P] * 4)
         fn.restype = ctypes.c_int
+        cf = lib.aztotmd_sparse_cand_f32
+        cf.argtypes = ([P] * 10 + [I] * 6 + [F] * 12 + [P] * 3 + _CAND_C
+                       + [P])
+        cf.restype = ctypes.c_int
     return lib
 
 
-def _sparse_cuda(cfg, ff, pos, types, radii, tile, pair_cap) -> PairResult:
+def _sparse_cuda(cfg, ff, pos, types, radii, parents, want_bind, want_jump,
+                 tile, pair_cap) -> PairResult:
     N = cfg.n_at
     dev = pos.device
     if pos.dtype != torch.float32:
@@ -286,16 +352,24 @@ def _sparse_cuda(cfg, ff, pos, types, radii, tile, pair_cap) -> PairResult:
     check_tensor("types", types, torch.int32, (N,), dev)
     if cfg.use_radii and radii is not None:
         check_tensor("radii", radii, torch.float32, (N,), dev)
-    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap)
-    frc_p, ev_p, ec_p = launch(cfg, *kernel_tables(cfg, ff, dev), S)
-    return _result(S, frc_p.sum(0), ev_p.sum(), ec_p.sum())
+    c = cand_args(cfg, ff, parents, want_bind, want_jump, dev)
+    S = sort_tiles(cfg, pos, types, radii, tile, pair_cap,
+                   c.parents if c is not None else None)
+    if c is not None:
+        c = dataclasses.replace(c, parents=S.parents)
+    frc_p, ev_p, ec_p, cr2, ckey = launch(
+        cfg, *kernel_tables(cfg, ff, dev, want_bind), S, c)
+    return _result(S, frc_p.sum(0), ev_p.sum(), ec_p.sum(), ff, types,
+                   *split_candidates(c, cr2, ckey))
 
 
-def launch(cfg, prm, kinds, S: SortedTiles):
+def launch(cfg, prm, kinds, S: SortedTiles, cand: CandArgs | None = None):
     """Launch csrc/sparse.cu on sorted f32 tiles and return its
-    (n_split, n_t*T, 3) force and (n_split, n_t*T) energy partial rows.
-    Counts the launch."""
-    global launches
+    (n_split, n_t*T, 3) force and (n_split, n_t*T) energy partial rows,
+    and with ``cand`` (parents sorted as the tiles) its (3, n_split,
+    n_t*T) r2 and key partial minima (else None).  Counts the launch as
+    K4 or, with ``cand``, K4-cand."""
+    global launches, cand_launches
     dev = S.x.device
     n_t, T = S.n_t, S.T
     if T > _MAX_TILE:
@@ -308,14 +382,29 @@ def launch(cfg, prm, kinds, S: SortedTiles):
     ev_p = torch.empty((n_split, n_t * T), dtype=torch.float32, device=dev)
     ec_p = torch.empty((n_split, n_t * T), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.aztotmd_sparse_f32(
-        S.x.data_ptr(), S.y.data_ptr(), S.z.data_ptr(), S.gid.data_ptr(),
-        S.types.data_ptr(), S.radii.data_ptr(), S.row_ptr.data_ptr(),
-        S.jt.data_ptr(), prm.data_ptr(), kinds.data_ptr(),
-        cfg.n_spec, n_t, T, n_split, int(cfg.use_radii),
-        int(cfg.elec_type), *kernel_consts(cfg),
-        frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(), stream)
+    common = [S.x.data_ptr(), S.y.data_ptr(), S.z.data_ptr(),
+              S.gid.data_ptr(), S.types.data_ptr(), S.radii.data_ptr(),
+              S.row_ptr.data_ptr(), S.jt.data_ptr(), prm.data_ptr(),
+              kinds.data_ptr(), cfg.n_spec, n_t, T, n_split,
+              int(cfg.use_radii), int(cfg.elec_type), *kernel_consts(cfg),
+              frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr()]
+    cr2 = ckey = None
+    if cand is None:
+        err = lib.aztotmd_sparse_f32(*common, stream)
+    else:
+        cr2 = torch.empty((3, n_split, n_t * T), dtype=torch.float32,
+                          device=dev)
+        ckey = torch.empty((3, n_split, n_t * T), dtype=torch.int64,
+                           device=dev)
+        err = lib.aztotmd_sparse_cand_f32(
+            *common, cand.donacc.data_ptr(),
+            cand.parents.data_ptr() if cand.parents is not None else None,
+            *cand.c_args(cfg, cfg.n_at), cr2.data_ptr(), ckey.data_ptr(),
+            stream)
     if err != 0:
         raise RuntimeError(f"sparse kernel launch failed: CUDA error {err}")
-    launches += 1
-    return frc_p, ev_p, ec_p
+    if cand is None:
+        launches += 1
+    else:
+        cand_launches += 1
+    return frc_p, ev_p, ec_p, cr2, ckey

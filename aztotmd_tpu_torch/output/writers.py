@@ -97,6 +97,28 @@ class StatWriter(_FileWriter):
         self.fh.write("\t".join(cols) + "\n")
 
 
+class BondStatWriter(_FileWriter):
+    """stat_bnd.dat (cuStat.cu:332-344; row layout from
+    prepare_stat_addr :266-278): tot_bnd then per bond type (from 1)
+    count / mean length / mean lifetime."""
+
+    def __init__(self, path, fld, append: bool = False):
+        super().__init__(path, append)
+        h = "time\tstep\ttot_bnd"
+        for b in fld.bonds[1:]:
+            s1 = fld.species[b.spec1].name
+            s2 = fld.species[b.spec2].name
+            h += f"\tcnt{s1}-{s2}\tleng{s1}-{s2}\ttime{s1}-{s2}"
+        self.write_header(h + "\n")
+
+    def write_row(self, time, step, n_bond, bt_count, bt_r_mean, bt_lt_mean):
+        cols = [_f(time), str(int(step)), str(int(n_bond))]
+        for k in range(1, len(bt_count)):
+            cols += [str(int(bt_count[k])), _f(bt_r_mean[k]),
+                     _f(bt_lt_mean[k])]
+        self.fh.write("\t".join(cols) + "\n")
+
+
 class MsdWriter(_FileWriter):
     """msd.dat (cuStat.cu:345-350; prepare_stat_addr :280-289): per
     species the six box-crossing counters px nx py ny pz nz."""
@@ -115,6 +137,19 @@ class MsdWriter(_FileWriter):
                 cols += [str(int(cross_pos[i, k])),
                          str(int(cross_neg[i, k]))]
         self.fh.write("\t".join(cols) + "\n")
+
+
+class JumpWriter(_FileWriter):
+    """jumps.dat (cuStat.cu:353-358; prepare_stat_addr :292-297):
+    nTot / pos / neg electron-jump counters."""
+
+    def __init__(self, path, append: bool = False):
+        super().__init__(path, append)
+        self.write_header("time\tstep\tnTot\tpos\tneg\n")
+
+    def write_row(self, time, step, n_jump, jump_pos, jump_neg):
+        self.fh.write(f"{_f(time)}\t{int(step)}\t{int(n_jump)}"
+                      f"\t{int(jump_pos)}\t{int(jump_neg)}\n")
 
 
 class TrajWriter(_FileWriter):
@@ -428,3 +463,43 @@ def write_ncn(path, fld, ctl, types, pos, box):
         for v in range(mx - mn + 1):
             f.write("\t".join([str(mn + v)] + [str(out[p, v])
                                                for p in range(n)]) + "\n")
+
+
+def write_bondlist(path, at1, at2, btypes):
+    """revbonds.txt (bonds.cpp:112-123 save_bondlist)."""
+    with open(path, "w") as f:
+        f.write(f"{len(at1)}\n")
+        for a, b, t in zip(at1, at2, btypes):
+            f.write(f"{int(a)} {int(b)} {int(t)}\n")
+
+
+def write_bond_lengths(path, fld, at1, at2, btypes, pos, box, n_bin=100):
+    """lengths.dat (bonds.cpp ``bond_out``): histogram of bond lengths
+    per bond type between its r2min and r2max."""
+    box = np.asarray(box)
+    nbt = len(fld.bonds)
+    rmin = np.array([np.sqrt(b.r2min) if b.r2min > 0 else 0.0
+                     for b in fld.bonds])
+    rmax = np.array([np.sqrt(b.r2max) if np.isfinite(b.r2max)
+                     and b.r2max < 1e17 else 3.0 for b in fld.bonds])
+    hist = np.zeros((nbt, n_bin), np.int64)
+    d = pos[at1] - pos[at2]
+    d -= box * np.round(d / box)
+    r = np.sqrt(np.sum(d * d, axis=1))
+    for k in range(1, nbt):
+        m = btypes == k
+        if not m.any():
+            continue
+        e = np.clip(((r[m] - rmin[k]) / max(rmax[k] - rmin[k], 1e-9)
+                     * n_bin).astype(int), 0, n_bin - 1)
+        np.add.at(hist[k], e, 1)
+    with open(path, "w") as f:
+        names = [f"{fld.species[b.spec1].name}-{fld.species[b.spec2].name}"
+                 for b in fld.bonds[1:]]
+        f.write("r\t" + "\t".join(names) + "\n")
+        for i in range(n_bin):
+            row = []
+            for k in range(1, nbt):
+                rr = rmin[k] + (i + 0.5) * (rmax[k] - rmin[k]) / n_bin
+                row.append(_f(rr) + "\t" + str(hist[k, i]))
+            f.write("\t".join(row) + "\n")

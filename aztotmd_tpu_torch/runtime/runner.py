@@ -6,7 +6,9 @@ Steps run in chunks sized to the greatest common divisor of the output
 periods, so every sampling step lands on a chunk boundary.  RDF samples
 are taken inside the chunk every ``fr_rdf`` steps, with the JAX runner's
 sample steps and its reset of the histogram after 500 samples.  The
-output files and their rows are the JAX runner's.  At each stat row the
+output files and their rows are the JAX runner's, with stat_bnd.dat and
+jumps.dat for reactive decks and revbonds.txt and lengths.dat at the
+end of a run with bonds.  At each stat row the
 runner reads the block-sparse engine's worklist monitor and regrows its
 capacity (``_check_overflow``).  The JAX package's on-device stat ring,
 mesh, debug and profile paths are not ported.
@@ -88,7 +90,11 @@ class MDRunner:
                                    cfg.tstat_type == TSTAT_RADI,
                                    cfg.use_bnd != 0, cfg.use_angl != 0,
                                    append=append)
+        self.w_bnd = (W.BondStatWriter(j("stat_bnd.dat"), fld, append=append)
+                      if cfg.use_bnd else None)
         self.w_msd = W.MsdWriter(j("msd.dat"), fld, append=append)
+        self.w_jmp = (W.JumpWriter(j("jumps.dat"), append=append)
+                      if cfg.ejtype else None)
         self.w_traj = (W.TrajWriter(j("traj.dat"), fld, types_h)
                        if self.p_traj else None)
         self.w_bindtraj = None
@@ -195,12 +201,21 @@ class MDRunner:
             cross_pos = st.cross_pos.cpu().numpy()
             cross_neg = st.cross_neg.cpu().numpy()
             pos = st.pos.cpu().numpy()
+            n_bond = int(st.n_bond)
             self.w_stat.write_row(t, step, eng, pos_mom, neg_mom, pressure,
                                   st.spec_number.cpu().numpy())
+            if self.w_bnd:
+                self.w_bnd.write_row(t, step, n_bond,
+                                     st.bt_count.cpu().numpy(),
+                                     st.bt_r_mean.cpu().numpy(),
+                                     st.bt_lt_mean.cpu().numpy())
             self.w_msd.write_row(t, step, cross_pos, cross_neg)
+            if self.w_jmp:
+                self.w_jmp.write_row(t, step, int(st.n_jump),
+                                     int(st.jump_pos), int(st.jump_neg))
             self.w_msdd.write_row(t, step, pos, cross_neg, cross_pos)
             if not self.quiet:
-                self._console(step, eng, float(pos[0, 0]), pressure)
+                self._console(step, eng, float(pos[0, 0]), pressure, n_bond)
             self._check_overflow()
         self._sample_rest(step)
 
@@ -276,10 +291,14 @@ class MDRunner:
             save_checkpoint(os.path.join(self.out_dir, "checkpoint.npz"),
                             st, {"step": step})
 
-    def _console(self, step, eng, x1, pressure):
+    def _console(self, step, eng, x1, pressure, n_bond):
         parts = [f"{step} x1={x1:.2f}"]
         if self.cfg.elec_type:
             parts.append(f"C1={eng['coul1']:.3G}, C2={eng['coul2']:.3G}")
+        if self.cfg.use_bnd == 2:
+            parts.append(f"nBnd={n_bond}")
+        if self.cfg.use_bnd:
+            parts.append(f"bndEng={eng['bond']:.3G}")
         parts.append(f"Kin={eng['kin']:.3G} Vdw={eng['vdw']:.3G} "
                      f"Tot={eng['tot']:.3G} P={pressure:.0f}")
         if self.cfg.tstat_type == TSTAT_RADI:
@@ -311,8 +330,9 @@ class MDRunner:
         st = self.state
         fld, ctl, cfg = self.fld, self.ctl, self.cfg
         j = lambda p: os.path.join(self.out_dir, p)
-        for w in (self.w_stat, self.w_msd, self.w_traj, self.w_bindtraj,
-                  self.w_hist, self.w_vaf, self.w_msdd):
+        for w in (self.w_stat, self.w_bnd, self.w_msd, self.w_jmp,
+                  self.w_traj, self.w_bindtraj, self.w_hist, self.w_vaf,
+                  self.w_msdd):
             if w:
                 w.close()
         self._write_rdf(j("rdf.dat"), final=True)
@@ -322,6 +342,14 @@ class MDRunner:
         types = st.types.cpu().numpy()
         names = [fld.species[t].name for t in types]
         W.write_atoms_xyz(j("revcon.xyz"), names, pos, cfg.box)
+        if cfg.use_bnd:
+            nb = int(st.n_bond)
+            at1 = st.bond_at1[:nb].cpu().numpy()
+            at2 = st.bond_at2[:nb].cpu().numpy()
+            bt = st.bond_type[:nb].cpu().numpy()
+            W.write_bondlist(j("revbonds.txt"), at1, at2, bt)
+            W.write_bond_lengths(j("lengths.dat"), fld, at1, at2, bt, pos,
+                                 cfg.box)
         W.write_velocities(j("velocities.dat"), fld, types, vel)
         if cfg.tstat_type == TSTAT_RADI:
             W.write_thermal_chars(j("tchars.dat"), fld, types,

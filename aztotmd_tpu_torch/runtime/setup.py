@@ -7,6 +7,7 @@ same order, so both packages start from the same state.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -41,11 +42,13 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
                  dtype: str = "f32", seed: int = 12345,
                  target_occupancy: float = 4.0, max_cells: int = 1 << 21,
                  extras: dict | None = None, pair_engine: str = "auto",
-                 device=None):
+                 bond_equil_hack: bool = True, device=None):
     """Returns (cfg, ff, state, aux) with tensors on ``device``.
 
     ``extras`` receives host init byproducts (``vel0``, the NumPy initial
-    velocities).
+    velocities).  ``bond_equil_hack`` False turns off the reference's
+    zeroing of the velocities of reactive bond partners near force
+    equilibrium (``cfg.bond_equil_hack``).
     """
     n_at = atoms.n_atoms
     types = np.array([fld.spec_id(nm) for nm in atoms.names])
@@ -59,6 +62,8 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
                            target_occupancy=target_occupancy,
                            max_cells=max_cells, pos=atoms.pos,
                            pair_engine=pair_engine)
+    if not bond_equil_hack:
+        cfg = dataclasses.replace(cfg, bond_equil_hack=False)
     tdt = cfg.torch_dtype
     ff = build_forcefield(fld, ctl.t_step, eps=ctl.elec.eps, dtype=tdt,
                           device=device)

@@ -3,10 +3,12 @@ without a neighbor list: the dense "pallas" engine and the block-sparse
 "sparse" engine).
 
 Stage order as in the JAX package:
-  [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE) -> pair forces
-  -> verlet2 -> apply_tstat -> energies and pressure
-Bonds, Ewald reciprocal space, bond creation, electron jumps and angles
-are not ported yet; a deck that needs one raises.
+  [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE, touched reset)
+  -> [bond forces, reactive repair and mutation] -> pair forces (+ bind
+  and jump candidates) -> [bond creation] -> [electron jumps] -> verlet2
+  -> apply_tstat -> energies and pressure -> [bond means]
+Ewald reciprocal space and angles are not ported yet; a deck that needs
+one raises.  No stage synchronises with the host.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ import torch
 from ..io.control import ELEC_EWALD, TSTAT_NOSE
 
 from ..core.state import Energies, MDState
+from ..ops import bonds as ops_bonds
+from ..ops import ejump as ops_ejump
 from ..ops import integrate as integ
 from ..ops import thermostat as tstat
 from ..ops.allpairs import pair_forces_dense
@@ -39,11 +43,9 @@ def _check_supported(cfg):
     if cfg.pair_engine not in PAIR_ENGINES:
         missing.append(f"pair engine {cfg.pair_engine!r} ('neighbor "
                        "engine (case study 1)' or 'K3 + cellblock')")
-    if cfg.use_bnd or cfg.use_angl:
-        missing.append("bonds/angles ('bonds/angles + K1's bind/jump "
-                       "candidates')")
-    if cfg.ejtype:
-        missing.append("electron jumps ('ejump')")
+    if cfg.use_angl:
+        missing.append("valence angles ('angles, with the neighbor "
+                       "engine')")
     if cfg.elec_type == ELEC_EWALD:
         missing.append("Ewald reciprocal space ('Ewald')")
     if missing:
@@ -62,6 +64,8 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
     _check_supported(cfg)
     aux = aux or StepAux()
     pair_fn = pair_fn or PAIR_ENGINES[cfg.pair_engine]
+    want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
+    want_jump = cfg.ejtype != 0
 
     def step(state: MDState, ff) -> MDState:
         fdt = state.pos.dtype
@@ -78,9 +82,16 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
         upd, eng_field = integ.verlet1(cfg, ff, state)
         state = state.replace(**upd, touched=torch.zeros_like(state.touched))
 
-        # --- pair forces ---
+        # --- bond forces (+ reactive repair and mutation) ---
+        eng_bond = torch.zeros((), dtype=fdt, device=dev)
+        if cfg.use_bnd:
+            state, eng_bond = ops_bonds.apply_bonds(cfg, ff, state)
+
+        # --- pair forces and bind/jump candidates ---
         pr = pair_fn(cfg, ff, state.pos, state.types,
-                     radii=state.radii if cfg.use_radii else None)
+                     radii=state.radii if cfg.use_radii else None,
+                     parents=state.parents, want_bind=want_bind,
+                     want_jump=want_jump)
         state = state.replace(
             frc=state.frc + pr.frc,
             cell_overflow=torch.maximum(state.cell_overflow, pr.max_occ))
@@ -88,6 +99,15 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
         eng_coul2 = torch.zeros((), dtype=fdt, device=dev)
         eng_coul3 = torch.full((), cfg.eng_ewald_const, dtype=fdt,
                                device=dev)
+
+        # --- new bonds from the candidates ---
+        if want_bind:
+            state = ops_bonds.create_bonds(cfg, ff, state, pr.bind_idx,
+                                           pr.bind_r2)
+
+        # --- electron jumps ---
+        if want_jump:
+            state = _jumps(cfg, ff, state, pr.jump_idx)
 
         # --- verlet 2nd stage ---
         vel2, eng_kin = integ.verlet2(cfg, ff, state.vel, state.frc,
@@ -109,19 +129,42 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
 
         # --- energies and pressure ---
         zero = torch.zeros((), dtype=fdt, device=dev)
-        pot = eng_coul1 + eng_coul2 + eng_coul3 + pr.eng_vdw
+        pot = eng_coul1 + eng_coul2 + eng_coul3 + pr.eng_vdw + eng_bond
         energies = Energies(
             kin=eng_kin.to(fdt), vdw=pr.eng_vdw.to(fdt),
             coul1=eng_coul1.to(fdt), coul2=eng_coul2, coul3=eng_coul3,
-            bond=zero, angle=zero.clone(), temp=eng_temp.to(fdt),
+            bond=eng_bond.to(fdt), angle=zero, temp=eng_temp.to(fdt),
             field=eng_field.to(fdt), pot=pot.to(fdt),
             tot=(pot + eng_kin).to(fdt))
         pres, buf_p, buf_n, i_mom = integ.pressure_update(cfg, state)
+        if cfg.use_bnd:
+            state = ops_bonds.bond_means(cfg, state)
         return state.replace(energies=energies, pressure=pres,
                              mom_buf_pos=buf_p, mom_buf_neg=buf_n,
                              i_mom=i_mom, step=state.step + 1)
 
     return step
+
+
+def _jumps(cfg, ff, state, jump_idx):
+    """The step's jump passes over this step's candidates, gated by the
+    jump frequency f: f < 0 runs one pass every |f| steps (masking its
+    acceptance, so the step does not wait on the host), 0 < f <= 4 runs
+    max(f, 1) passes and f > 4 runs f passes; each pass sees the types
+    the one before mutated."""
+    nbr = None
+    if not cfg.use_bnd and cfg.n_at > 8192 and cfg.grid is not None:
+        # positions do not change across the passes: build the
+        # environment sweep's candidate list once
+        nbr = ops_ejump.env_candidates(cfg, state.pos)
+    f = int(cfg.ejump_freq)
+    if f < 0:
+        return ops_ejump.do_jumps(cfg, ff, state, jump_idx,
+                                  active=(state.step % (-f)) == 0,
+                                  nbr_idx=nbr)
+    for _ in range(max(f, 1)):
+        state = ops_ejump.do_jumps(cfg, ff, state, jump_idx, nbr_idx=nbr)
+    return state
 
 
 def make_multi_step(cfg, aux: StepAux | None = None, pair_fn=None):

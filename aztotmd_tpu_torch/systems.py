@@ -3,8 +3,13 @@
 ``write_surkov_cluster_deck`` writes the dense Surkov cluster deck that
 the port's slice runs (``examples/surkov_cluster/``): one species with the
 radius-dependent Surkov potential and the radiative thermostat, packed
-into a sub-cube of a periodic box.  ``write_lj_deck`` writes the same
-argon deck as ``aztotmd_tpu.systems.write_lj_deck``, without JAX.
+into a sub-cube of a periodic box.  ``write_nanoclusters_deck``,
+``write_reactive_polymer_deck`` and ``write_ejump_redox_deck`` write the
+committed examples of those names byte for byte at their defaults (they
+were made by ``tools/make_examples.py``) and smaller decks of the same
+shape for tests; ``tile_deck`` replicates a deck k x k x k at the same
+density.  ``write_lj_deck`` writes the same argon deck as
+``aztotmd_tpu.systems.write_lj_deck``, without JAX.
 """
 
 from __future__ import annotations
@@ -15,9 +20,11 @@ import os
 import numpy as np
 
 from . import units
-from .io.control import ControlSpec, ElecSpec, TStatSpec
+from .io.atoms import parse_atoms_file
+from .io.control import JUMP_METR, ControlSpec, ElecSpec, TStatSpec
 from .io.field import (_VDW_ABBR, VDW_LJ, VDW_SURK, FieldSpec, SpeciesSpec,
-                       VdWSpec)
+                       VdWSpec, parse_field)
+from .output.writers import write_atoms_xyz
 
 # Surkov parameters: C1=75, C2=8, ki=kj=1 put the pair minimum near 1.4 A
 # for radii ~0.577 (r_min = 7 C1 a^5 / (3 C2) for equal radii a).
@@ -138,6 +145,155 @@ red-ox 0
 vdw 1
 Ar\tAr\tlnjs\t6.0\t0.0104\t2.5
 """)
+
+
+def write_reactive_polymer_deck(path, n_side: int = 8, steps: int = 20000,
+                                seed: int = 13):
+    """Write the reactive A/B deck of ``examples/reactive_polymer/``: a
+    jittered n_side^3 lattice (spacing 2.5 A) of A and B atoms, LJ pairs
+    with rcut 5 A, no Coulomb, no bonds at the start; A-B bonds form
+    within 1.8 A (linkage) and break past 2.5 A; Nose-Hoover 400 K."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    box = n_side * 2.5
+    g = np.arange(n_side) * 2.5 + 1.25
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos = (pos + rng.uniform(-0.5, 0.5, pos.shape)) % box
+    names = ["A", "B"] * (len(pos) // 2)
+    rng.shuffle(names)
+    write_atoms_xyz(os.path.join(path, "atoms.xyz"), names, pos, (box,) * 3)
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.0005 ps
+nstep {steps}
+nequil 500
+eqfreq 100
+temperature 400.0\tnose\t0.2
+init_vel\tgaus
+
+permittivity 1.0
+elec\tnone
+
+rdf\t6.0 0.05\t100\t0\t-nucl
+stat\t100
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write("""spec 2
+A\tA\t20.0\t0.0\t0.0
+B\tB\t20.0\t0.0\t0.0
+red-ox 0
+vdw 3
+A\tA\tlnjs\t5.0\t0.008\t2.4
+A\tB\tlnjs\t5.0\t0.006\t2.3
+B\tB\tlnjs\t5.0\t0.008\t2.4
+bonds 1
+1 A B harm 12.0 1.5 con br 2.5 A B
+linkage 1
+A B 1.8 1
+""")
+
+
+# ejump_redox field: Fe2+ donates to Fe3+ (red-ox line), Buckingham pairs
+# with rcut 8 A
+EJUMP_FIELD = """spec 3
+Fe2\tFe\t55.8\t2.0\t0.6
+Fe3\tFe\t55.8\t3.0\t0.0
+O\tO\t16.0\t-2.0\t0.0
+red-ox 1
+2 Fe3 Fe2
+vdw 4
+Fe2\tO\tbuck\t8.0\t1200.0\t0.31\t0.0
+Fe3\tO\tbuck\t8.0\t1500.0\t0.29\t0.0
+O\tO\tbuck\t8.0\t22764.0\t0.149\t27.88
+Fe2\tFe3\tbuck\t8.0\t800.0\t0.3\t0.0
+"""
+
+
+def write_ejump_redox_deck(path, n_side: int = 8, n_fe2: int = 96,
+                           n_fe3: int = 64, n_o: int = 192,
+                           steps: int = 10000, seed: int = 11):
+    """Write the redox deck of ``examples/ejump_redox/``: Fe2+, Fe3+ and
+    O2- on a jittered n_side^3 lattice (spacing 3 A; the first
+    n_fe2 + n_fe3 + n_o sites after a shuffle of the names), direct
+    Coulomb with rcut 8 A and permittivity 4, Metropolis electron jumps
+    within 3 A five passes a step, Nose-Hoover 600 K."""
+    os.makedirs(path, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    box = n_side * 3.0
+    g = np.arange(n_side) * 3.0 + 1.5
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos = (pos + rng.uniform(-0.4, 0.4, pos.shape)) % box
+    names = ["Fe2"] * n_fe2 + ["Fe3"] * n_fe3 + ["O"] * n_o
+    rng.shuffle(names)
+    pos = pos[:len(names)]
+    write_atoms_xyz(os.path.join(path, "atoms.xyz"), names, pos, (box,) * 3)
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.001 ps
+nstep {steps}
+nequil 500
+eqfreq 100
+temperature 600.0\tnose\t0.3
+init_vel\tgaus
+
+permittivity 4.0
+elec\tdir\t8.0
+
+eJump\t5\t3.0\tmetr
+
+rdf\t8.0 0.05\t100\t0\t-nucl
+stat\t100
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write(EJUMP_FIELD)
+
+
+def tile_deck(src, dst, k: int):
+    """Replicate the deck in ``src`` k x k x k into ``dst`` at the same
+    density: the atoms of image (a, b, c) are shifted by (a, b, c) box
+    lengths, images in that order; control.txt and field.txt are copied.
+    Decks with bond or angle lists are refused."""
+    for name in ("bonds.txt", "angles.txt"):
+        if os.path.exists(os.path.join(src, name)):
+            raise ValueError(f"tile_deck: {name} is not replicated")
+    atoms = parse_atoms_file(os.path.join(src, "atoms.xyz"))
+    box = np.asarray(atoms.box, np.float64)
+    pos = np.asarray(atoms.pos, np.float64)
+    shifts = [np.array([a, b, c]) * box for a in range(k) for b in range(k)
+              for c in range(k)]
+    os.makedirs(dst, exist_ok=True)
+    write_atoms_xyz(os.path.join(dst, "atoms.xyz"),
+                    list(atoms.names) * len(shifts),
+                    np.concatenate([pos + sh for sh in shifts]), box * k)
+    for name in ("control.txt", "field.txt"):
+        with open(os.path.join(src, name)) as f:
+            text = f.read()
+        with open(os.path.join(dst, name), "w") as f:
+            f.write(text)
+
+
+def reactive_specs(n_atoms: int = 300, seed: int = 3):
+    """A three-species system for the candidate checks: the ejump_redox
+    species and pairs (Fe2 donates to Fe3) with an Fe3-O bond type that
+    forms within 2.4 A, on a jittered lattice of spacing 3 A in a box of
+    at least 16 A; direct Coulomb and jumps within 3 A.
+    Returns (ctl, fld, box, pos, types, None) as host specs."""
+    rng = np.random.default_rng(seed)
+    n_side = max(6, int(math.ceil(n_atoms ** (1.0 / 3.0))))
+    box = 3.0 * n_side
+    g = np.arange(n_side) * 3.0 + 1.5
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    keep = np.sort(rng.permutation(len(sites))[:n_atoms])
+    pos = (sites[keep] + rng.uniform(-0.6, 0.6, (n_atoms, 3))) % box
+    fld = parse_field(EJUMP_FIELD + """bonds 1
+1 Fe3 O harm 12.0 1.9 con br 3.0 Fe3 O
+linkage 1
+Fe3 O 2.4 1
+""")
+    ctl = ControlSpec(t_step=0.001, n_step=1,
+                      tstat=TStatSpec(type=0, temp=600.0),
+                      elec=ElecSpec(type=1, r_real=8.0, eps=4.0),
+                      ejump=5, ejtype=JUMP_METR, r_elec=3.0)
+    types = np.asarray(rng.integers(0, 3, n_atoms), np.int32)
+    return ctl, fld, box, pos, types, None
 
 
 def write_lj_deck(path, n_side=9, box=40.0, steps=300, seed=5):
@@ -288,7 +444,8 @@ def pair_system(specs, dtype: str = "f32", device=None,
     tdt = torch.float64 if dtype == "f64" else torch.float32
     cfg = build_sim_config(ctl, fld, (box, box, box), len(pos), dtype=dtype,
                            pos=pos, pair_engine=pair_engine)
-    ff = build_forcefield(fld, ctl.t_step, dtype=tdt, device=device)
+    ff = build_forcefield(fld, ctl.t_step, eps=ctl.elec.eps, dtype=tdt,
+                          device=device)
     t = lambda a, d: torch.as_tensor(np.asarray(a), dtype=d, device=device)
     return (cfg, ff, t(pos, tdt), t(types, torch.int32),
             t(rad, tdt) if rad is not None else None)

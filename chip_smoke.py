@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--out DIR]
 
 Run from the root of a checkout.  It builds the port's CUDA kernels
-(csrc/allpairs.cu, K1, and csrc/sparse.cu, K4) for sm_90a from the
-checkout, one nvcc each, in parallel, and then, for each kernel, checks
-it against its plain PyTorch version on the card:
+(csrc/allpairs.cu: K1 and K1-cand, the dense pass without and with the
+fused bind/jump candidates; csrc/sparse.cu: K4 and K4-cand, the Morton
+block-sparse pass) for sm_90a from the checkout, one nvcc each, in
+parallel, and then, for each kernel, checks it against its plain
+PyTorch version on the card:
   K1, the dense pair pass: the Surkov slice deck's 4,000-atom state,
       every VdW family, three species with direct/Ewald/Fennel Coulomb
       and radii, ragged N;
@@ -14,16 +16,28 @@ it against its plain PyTorch version on the card:
       state (T=256, pair_cap 1,536), multi-cluster systems with 1-3
       species, direct/Ewald/Fennel and radii, ragged N (N not a multiple
       of T, and N < T) and a truncated worklist (max_occ equal, tiles no
-      entry visits exactly zero).
-It drives each kernel's path through the ``run`` CLI, with every launch
-count set to 0 just before and read just after: examples/surkov_cluster
-(K1) and examples/nanoclusters (K4, Nose-Hoover, cell-list RDF), and
+      entry visits exactly zero);
+  K1-cand: the reactive_polymer state after 300 plain steps (parents
+      set), the ejump_redox state, the three-species bind + jump system
+      with direct Coulomb, ragged N;
+  K4-cand: reactive_polymer and ejump_redox tiled 3x3x3 (13,824 and
+      9,504 atoms) on the sparse engine;
+the candidate ids equal, their r2 bitwise equal, max_occ equal.
+It drives each kernel's path, with every launch count set to 0 just
+before and read just after: through the ``run`` CLI
+examples/surkov_cluster (K1), examples/nanoclusters (K4, Nose-Hoover,
+cell-list RDF), examples/reactive_polymer and examples/ejump_redox
+(K1-cand: bonds form, break and mutate; electrons jump), and through
+the runner the two tiled decks on the sparse engine (K4-cand).  It
 checks that every pair pass went through that path's kernel, that
-stat.dat is finite and rdf.dat non-zero.  It compares 20 steps with each
-kernel against 20 steps with its plain version, and times both versions
-at the paths' sizes with CUDA events, beside a lower bound computed from
-an operation count read off csrc/pair_physics.cuh.  Any failure exits
-non-zero.  The last line of standard output is {"ok": true, "device":
+stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
+(stat_bnd.dat, jumps.dat) and revbonds.txt and lengths.dat were
+written.  It compares 20 steps with each kernel against 20 steps with
+its plain version (the reactive decks' topology and RNG words exactly),
+profiles 100 bare steps of each deck, and times the kernels, their
+wrappers and plain versions at the paths' sizes with CUDA events, beside
+a lower bound computed from an operation count read off
+csrc/pair_physics.cuh.  Any failure exits non-zero.  The last line of standard output is {"ok": true, "device":
 {...}}; the line before it lists the kernels with their launches,
 errors, times and bounds.  The runs' output files go to --out (default:
 a temporary directory that is removed).
@@ -31,6 +45,7 @@ a temporary directory that is removed).
 
 import argparse
 import concurrent.futures
+import dataclasses
 import json
 import os
 import shutil
@@ -43,11 +58,16 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SURKOV_DECK = os.path.join(HERE, "examples", "surkov_cluster")
 NANO_DECK = os.path.join(HERE, "examples", "nanoclusters")
+POLY_DECK = os.path.join(HERE, "examples", "reactive_polymer")
+EJUMP_DECK = os.path.join(HERE, "examples", "ejump_redox")
 SLICE_STEPS = 2000
+TILED_STEPS = 200        # runs of the 3x3x3 tiled reactive decks (K4-cand)
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
 ENERGY_REL = 1e-4
 TRAJ_POS_ATOL = 1e-4     # A after 20 steps, f32
 TRAJ_ENERGY_REL = 1e-4
+TOPOLOGY = ("types", "bond_at1", "bond_at2", "bond_type", "n_bond",
+            "n_jump", "rng", "parents")
 
 # Peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet; the MUFU
 # rate is 16 results per clock per SM for compute capability 9.0 at the
@@ -58,15 +78,27 @@ PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 # FP32 operations (an FMA counts 2) read off csrc/pair_physics.cuh:
 # every slot pair: displacement, min-image (mul, rint, fma) per axis, r2
 # and the cutoff test; a pair in range: r2i, rr, r2cut test, clip, energy
-# and force accumulation, plus the family's own terms; MUFU: the rsqrt,
-# and the reciprocal of Surkov's division.
+# and force accumulation, plus the family's own terms (Buckingham with
+# direct Coulomb for ejump_redox); MUFU: the rsqrt, the reciprocals and
+# Buckingham's exp.  A candidate pass adds, per pair in range, the key
+# arithmetic and the compares of cand_pair/cand_update, counted at the
+# FP32 issue rate.
 OPS_SLOT = 21
-OPS_PAIR = {"lnjs": 24, "surk": 40}
-MUFU_PAIR = {"lnjs": 1, "surk": 2}
+OPS_PAIR = {"lnjs": 24, "surk": 40, "buck+dir": 36}
+MUFU_PAIR = {"lnjs": 1, "surk": 2, "buck+dir": 3}
+OPS_CAND = 10
+
+
+_T0 = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def phase(name):
+    """A phase header with the seconds since the script started."""
+    log(f"[{time.perf_counter() - _T0:6.1f} s] {name}")
 
 
 def check(ok, what):
@@ -106,7 +138,9 @@ def build_all(cuda_build, names):
 
 
 def compare(torch, kernel, plain, name, cfg, ff, pos, types, radii, **kw):
-    """Kernel against plain on the card; returns the max abs force error."""
+    """Kernel against plain on the card; returns the max abs force error
+    and the kernel's result.  With candidates (``want_bind``/``want_jump``
+    in ``kw``) their ids must be equal and their r2 bitwise equal."""
     k = kernel(cfg, ff, pos, types, radii, **kw)
     p = plain(cfg, ff, pos, types, radii, **kw)
     torch.cuda.synchronize()
@@ -118,10 +152,18 @@ def compare(torch, kernel, plain, name, cfg, ff, pos, types, radii, **kw):
     ok = (err <= FORCE_ATOL * max(scale, 1.0)
           and abs(ev - pv) <= ENERGY_REL * abs(pv) + 1e-6
           and abs(ec - pc) <= ENERGY_REL * abs(pc) + 1e-6 and ko == po)
+    cand = ""
+    if kw.get("want_bind") or kw.get("want_jump"):
+        same = all(torch.equal(getattr(k, a), getattr(p, a)) for a in
+                   ("bind_idx", "bind_r2", "jump_idx", "jump_r2"))
+        ok = ok and same
+        cand = (f"  bind {int((k.bind_idx < cfg.n_at).sum())} jump "
+                f"{int((k.jump_idx < cfg.n_at).sum())} candidates "
+                f"{'equal' if same else 'DIFFER'}")
     log(f"  {name:34s} N={cfg.n_at:5d}  max|dF|={err:.3e} "
         f"(limit {FORCE_ATOL * max(scale, 1.0):.3e})  "
         f"Evdw {ev:.6f} vs {pv:.6f}  Ecoul {ec:.6f} vs {pc:.6f}  "
-        f"max_occ {ko} vs {po}  {'ok' if ok else 'FAIL'}")
+        f"max_occ {ko} vs {po}{cand}  {'ok' if ok else 'FAIL'}")
     check(ok, f"kernel disagrees with plain version: {name}")
     return err, k
 
@@ -140,8 +182,9 @@ def time_calls(torch, fn, n=10):
     return out
 
 
-def timed(torch, fns):
-    """Medians (ms) of each callable, warmed, in turns a, b, b, a."""
+def timed(torch, fns, n=10):
+    """Medians (ms) of each callable, warmed, in turns a, b, b, a, with
+    ``n`` calls of each per turn."""
     for fn in fns:
         for _ in range(3):
             fn()
@@ -149,7 +192,7 @@ def timed(torch, fns):
     times = [[] for _ in fns]
     for order in (range(len(fns)), reversed(range(len(fns)))):
         for i in order:
-            times[i] += time_calls(torch, fns[i])
+            times[i] += time_calls(torch, fns[i], n)
     return [statistics.median(t) for t in times]
 
 
@@ -170,21 +213,44 @@ def bound(slot_pairs, pairs, fam, nbytes):
     fp32 = (slot_pairs * OPS_SLOT + pairs * OPS_PAIR[fam]) / PEAK_FP32
     mufu = pairs * MUFU_PAIR[fam] / PEAK_MUFU
     t_bytes = nbytes / PEAK_BYTES
-    detail = (f"FP32 {fp32 * 1e3:.4f} ms, MUFU {mufu * 1e3:.4f} ms, "
-              f"bytes {t_bytes * 1e3:.5f} ms")
+    detail = (f"FP32 {fp32 * 1e3:.4g} ms, MUFU {mufu * 1e3:.4g} ms, "
+              f"bytes {t_bytes * 1e3:.4g} ms")
     which = "operations" if max(fp32, mufu) >= t_bytes else "bytes"
     return max(fp32, mufu, t_bytes) * 1e3, which, detail
 
 
-def drive(cli, torch, counters, name, deck, out, steps):
-    """One path through the run CLI with every launch count set to 0 just
-    before it; returns (runner, launches per kernel, steps/s)."""
-    for mod in counters.values():
-        mod.launches = 0
+def bound(slot_pairs, pairs, fam, nbytes, cand=False):
+    """(bound_ms, bound_by, detail) from this run's counts."""
+    fp32 = (slot_pairs * OPS_SLOT + pairs * (OPS_PAIR[fam]
+                                              + (OPS_CAND if cand else 0))
+            ) / PEAK_FP32
+    mufu = pairs * MUFU_PAIR[fam] / PEAK_MUFU
+    t_bytes = nbytes / PEAK_BYTES
+    detail = (f"FP32 {fp32 * 1e3:.4g} ms, MUFU {mufu * 1e3:.4g} ms, "
+              f"bytes {t_bytes * 1e3:.4g} ms")
+    which = "operations" if max(fp32, mufu) >= t_bytes else "bytes"
+    return max(fp32, mufu, t_bytes) * 1e3, which, detail
+
+
+def read_table(path, skip):
+    with open(path) as f:
+        return [[float(v) for v in ln.split()] for ln in f.readlines()[skip:]]
+
+
+def drive(cli, counters, name, deck, out, steps, runner_fn=None):
+    """One path through the run CLI (or ``runner_fn(out)``, which runs and
+    returns an MDRunner) with every launch count set to 0 just before it;
+    returns (runner, launches per kernel, steps/s)."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
     t0 = time.perf_counter()
-    runner = cli(["run", deck, "--steps", str(steps), "-o", out, "--quiet"])
+    if runner_fn is None:
+        runner = cli(["run", deck, "--steps", str(steps), "-o", out,
+                      "--quiet"])
+    else:
+        runner = runner_fn(out)
     wall = time.perf_counter() - t0
-    launches = {k: mod.launches for k, mod in counters.items()}
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
     rate = runner.steps_run / runner.loop_seconds
     log(f"{name} run: {runner.steps_run} steps of {runner.cfg.n_at} atoms "
         f"in {runner.loop_seconds:.2f} s loop ({wall:.2f} s with setup): "
@@ -192,10 +258,7 @@ def drive(cli, torch, counters, name, deck, out, steps):
     log(f"  kernel launches {launches}, pair-force evaluations "
         f"{runner.steps_run}")
     check(runner.steps_run == steps, f"{name} run stopped early")
-    rows = []
-    with open(os.path.join(out, "stat.dat")) as f:
-        for ln in f.readlines()[2:]:
-            rows.append([float(v) for v in ln.split()])
+    rows = read_table(os.path.join(out, "stat.dat"), 2)
     check(len(rows) == steps // runner.p_stat, f"{name} stat.dat rows")
     check(all(all(v == v and abs(v) < 1e30 for v in r) for r in rows),
           f"{name} stat.dat not finite")
@@ -208,15 +271,35 @@ def drive(cli, torch, counters, name, deck, out, steps):
     peak = max(range(len(gr)), key=gr.__getitem__)
     log(f"  rdf.dat: {len(gr)} bins, highest g={gr[peak]:.3f} at "
         f"r={(peak + 0.5) * runner.rcfg.d_rdf:.3f} A")
+    cfg = runner.cfg
+    if cfg.use_bnd:
+        bnd = read_table(os.path.join(out, "stat_bnd.dat"), 1)
+        check(len(bnd) == len(rows) and bnd[-1][2] > 0,
+              f"{name} stat_bnd.dat shows no bonds")
+        with open(os.path.join(out, "revbonds.txt")) as f:
+            n_list = int(f.readline())
+        check(n_list == int(runner.state.n_bond) and os.path.getsize(
+            os.path.join(out, "lengths.dat")) > 0,
+            f"{name} revbonds.txt / lengths.dat not written")
+        log(f"  stat_bnd.dat: n_bond {int(bnd[-1][2])} at the end, "
+            f"{int(runner.state.bt_lt_count.sum())} bonds broken or "
+            f"mutated; revbonds.txt lists {n_list}")
+    if cfg.ejtype:
+        jmp = read_table(os.path.join(out, "jumps.dat"), 1)
+        check(len(jmp) == len(rows) and jmp[-1][2] > 0,
+              f"{name} jumps.dat shows no jumps")
+        log(f"  jumps.dat: n_jump {int(jmp[-1][2])} (pos {int(jmp[-1][3])},"
+            f" neg {int(jmp[-1][4])})")
     return runner, launches, rate
 
 
 def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
-                 plain_fn):
-    """20 steps with the kernel against 20 with the plain version."""
+                 plain_fn, **load_kw):
+    """20 steps with the kernel against 20 with the plain version; the
+    reactive topology and RNG words must be equal."""
     runs = []
     for fn in (None, plain_fn):
-        d = load_deck_dir(deck, device=dev)
+        d = load_deck_dir(deck, device=dev, **load_kw)
         s = make_multi_step(d["cfg"], d["aux"], pair_fn=fn)(
             d["state"], d["ff"], 20)
         torch.cuda.synchronize()
@@ -232,16 +315,24 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
         log(f"  E{key}: {a:.6f} vs {b:.6f}")
         check(abs(a - b) <= TRAJ_ENERGY_REL * abs(b) + 1e-6,
               f"{name}: trajectory energy {key} differs")
+    if d["cfg"].use_bnd or d["cfg"].ejtype:
+        for key in TOPOLOGY:
+            check(torch.equal(getattr(runs[0], key), getattr(runs[1], key)),
+                  f"{name}: {key} differs between kernel and plain steps")
+        log(f"  topology equal: n_bond {int(runs[0].n_bond)}, n_jump "
+            f"{int(runs[0].n_jump)}, rng words equal")
     return dpos
 
 
-def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev, n=100):
+def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev, n=100,
+                  **load_kw):
     """Device busy time and the kernels that take it over ``n`` bare steps
     (no output, no RDF), from torch.profiler; "not measured" when the
-    profiler records no device activity on this machine."""
+    profiler records no device activity on this machine.  Returns the
+    device seconds per step by kernel name, or None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    d = load_deck_dir(deck, device=dev)
+    d = load_deck_dir(deck, device=dev, **load_kw)
     multi = make_multi_step(d["cfg"], d["aux"])
     state = multi(d["state"], d["ff"], 10)
     torch.cuda.synchronize()
@@ -257,16 +348,28 @@ def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev, n=100):
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() * 1e-6
     busy = sum(by_name.values())
+    tag = os.path.basename(deck)
     if busy <= 0.0:
-        log(f"profile {os.path.basename(deck)}: no device activity "
-            "recorded; device idle share not measured")
-        return
-    log(f"profile {os.path.basename(deck)}, {n} bare steps: wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms, device "
-        f"idle share {1.0 - busy / wall:.3f} (torch.profiler)")
+        log(f"profile {tag}: no device activity recorded; device idle "
+            "share not measured")
+        return None
+    log(f"profile {tag}, {n} bare steps: wall {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / n:.3f} ms/step), device busy {busy * 1e3:.1f} ms, "
+        f"device idle share {1.0 - busy / wall:.3f}, {len(prof.events())} "
+        "events (torch.profiler)")
     for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
         log(f"  {t * 1e3 / n:8.4f} ms/step  {t / busy:6.1%} of busy  "
             f"{name[:90]}")
+    return {k: v / n for k, v in by_name.items()}
+
+
+def random_parents(torch, n, dev, seed=7):
+    """Parents for 40% of n atoms, partners drawn from a seeded
+    generator (the parent test of the bind candidates)."""
+    g = torch.Generator().manual_seed(seed)
+    par = torch.randint(0, n, (n,), generator=g, dtype=torch.int32)
+    keep = torch.rand(n, generator=g) < 0.4
+    return torch.where(keep, par, -1).to(dev)
 
 
 def main(argv=None):
@@ -299,12 +402,18 @@ def main(argv=None):
     return 0
 
 
+def plain_pair(fn):
+    """A step's pair_fn that runs the plain version ``fn``."""
+    return lambda c, f, p, t, radii=None, **kw: fn(c, f, p, t, radii, **kw)
+
+
 def run(dev, out):
     """All phases on device ``dev``; returns the kernels' JSON records."""
     import torch
     from aztotmd_tpu_torch import systems
     from aztotmd_tpu_torch.__main__ import main as cli
     from aztotmd_tpu_torch.ops import allpairs, cuda_build, sparse
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
     from aztotmd_tpu_torch.runtime.step import make_multi_step
 
@@ -312,11 +421,14 @@ def run(dev, out):
     log(card)
     toolchain(torch, cuda_build)
     build_all(cuda_build, ["allpairs", "sparse"])
-    counters = {"allpairs": allpairs, "sparse": sparse}
+    counters = {"allpairs": (allpairs, "launches"),
+                "allpairs_cand": (allpairs, "cand_launches"),
+                "sparse": (sparse, "launches"),
+                "sparse_cand": (sparse, "cand_launches")}
 
     # --- K1 against its plain version ---
-    log("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "
-        "1e-4):")
+    phase("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "
+          "1e-4):")
     k1 = (allpairs.pair_forces_allpairs, allpairs.pair_forces_allpairs_plain)
     d = load_deck_dir(SURKOV_DECK, device=dev)
     st = d["state"]
@@ -334,9 +446,38 @@ def run(dev, out):
                 *systems.pair_system(systems.clustered_specs(
                     n_atoms=n, nsp=2, elec=1, radii=True), device=dev))
 
+    # --- K1-cand against its plain version ---
+    phase("K1-cand (allpairs, bind/jump candidates) vs plain (forces atol "
+        "3e-5*max|F|, energies rel 1e-4, candidate ids equal, r2 bitwise "
+        "equal):")
+    d = load_deck_dir(POLY_DECK, device=dev)
+    st = make_multi_step(d["cfg"], d["aux"], pair_fn=plain_pair(k1[1]))(
+        d["state"], d["ff"], 300)
+    check(int((st.parents >= 0).sum()) > 0, "no parents after 300 steps")
+    log(f"  reactive_polymer after 300 plain steps: n_bond "
+        f"{int(st.n_bond)}, {int((st.parents >= 0).sum())} atoms with a "
+        "parent")
+    k1c_poly = (d["cfg"], d["ff"], st.pos, st.types, None)
+    k1c_poly_kw = dict(parents=st.parents, want_bind=True)
+    k1c_err, _ = compare(torch, *k1, "reactive_polymer (bind, parents)",
+                         *k1c_poly, **k1c_poly_kw)
+    d = load_deck_dir(EJUMP_DECK, device=dev)
+    st = d["state"]
+    k1c_ej = (d["cfg"], d["ff"], st.pos, st.types, None)
+    k1c_ej_kw = dict(parents=st.parents, want_jump=True)
+    compare(torch, *k1, "ejump_redox (jump, direct Coulomb)", *k1c_ej,
+            **k1c_ej_kw)
+    for n, nm in ((1000, "nsp=3 bind + jump, direct"),
+                  (777, "ragged N=777 bind + jump")):
+        cfg, ff, pos, types, _ = systems.pair_system(
+            systems.reactive_specs(n), device=dev)
+        compare(torch, *k1, nm, cfg, ff, pos, types, None,
+                parents=random_parents(torch, n, dev), want_bind=True,
+                want_jump=True)
+
     # --- K4 against its plain version ---
-    log("K4 (sparse) vs plain (forces atol 3e-5*max|F|, energies rel 1e-4,"
-        " max_occ exact):")
+    phase("K4 (sparse) vs plain (forces atol 3e-5*max|F|, energies rel "
+          "1e-4, max_occ exact):")
     k4 = (sparse.pair_forces_sparse, sparse.pair_forces_sparse_plain)
     d = load_deck_dir(NANO_DECK, device=dev)
     st = d["state"]
@@ -368,83 +509,232 @@ def run(dev, out):
     log(f"  truncated: max_occ {int(cut.max_occ)} == need {need}; "
         f"{int(empty.sum())} unvisited tiles exactly zero")
 
-    # --- each path through the run CLI ---
-    runner, l1, surk_rate = drive(cli, torch, counters, "surkov_cluster",
-                                  SURKOV_DECK, os.path.join(out, "surkov"),
-                                  SLICE_STEPS)
-    check(l1 == {"allpairs": runner.steps_run, "sparse": 0},
-          "the Surkov run's pair passes did not all go through K1")
-    runner, l4, nano_rate = drive(cli, torch, counters, "nanoclusters",
-                                  NANO_DECK, os.path.join(out, "nano"),
-                                  SLICE_STEPS)
-    check(l4 == {"allpairs": 0, "sparse": runner.steps_run},
-          "the nanoclusters run's pair passes did not all go through K4")
-    log(f"  sparse pair_cap: {cap} at start, {runner.cfg.sparse_pair_cap} "
-        f"at end ({'regrown' if runner.cfg.sparse_pair_cap != cap else 'no regrow'}"
-        f"); worklist need at the last check {int(runner.state.cell_overflow)}")
-    log(f"steps/s on {card}: surkov_cluster {surk_rate:.1f}, nanoclusters "
-        f"{nano_rate:.1f}")
+    # --- K4-cand against its plain version, on the 3x3x3 tiled decks ---
+    phase("K4-cand (sparse, bind/jump candidates) vs plain on the decks "
+        "3x3x3 (same limits, max_occ exact):")
+    tiled = {}
+    for deck, nm in ((POLY_DECK, "reactive_polymer"),
+                     (EJUMP_DECK, "ejump_redox")):
+        tiled[nm] = os.path.join(out, f"{nm}_x3")
+        systems.tile_deck(deck, tiled[nm], 3)
+    d = load_deck_dir(tiled["reactive_polymer"], device=dev,
+                      pair_engine="sparse")
+    st = d["state"]
+    n = d["cfg"].n_at
+    k4c_poly = (d["cfg"], d["ff"], st.pos, st.types, None)
+    k4c_poly_kw = dict(parents=random_parents(torch, n, dev),
+                       want_bind=True)
+    k4c_err, k4c_res = compare(
+        torch, *k4, "reactive_polymer x3 (bind, random parents)",
+        *k4c_poly, **k4c_poly_kw)
+    d = load_deck_dir(tiled["ejump_redox"], device=dev, pair_engine="sparse")
+    st = d["state"]
+    k4c_ej = (d["cfg"], d["ff"], st.pos, st.types, None)
+    k4c_ej_kw = dict(parents=st.parents, want_jump=True)
+    compare(torch, *k4, "ejump_redox x3 (jump, direct Coulomb)", *k4c_ej,
+            **k4c_ej_kw)
+
+    # --- each path, counts set to 0 just before and read just after ---
+    phase("the decks' paths")
+    runs = {}
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK),
+                     ("reactive_polymer", POLY_DECK),
+                     ("ejump_redox", EJUMP_DECK)):
+        runs[nm] = drive(cli, counters, nm, deck, os.path.join(out, nm),
+                         SLICE_STEPS)
+
+    def sparse_run(deck):
+        def go(o):
+            r = MDRunner(load_deck_dir(deck, device=dev,
+                                       pair_engine="sparse"),
+                         out_dir=o, quiet=True)
+            r.run(TILED_STEPS)
+            r.finalize()
+            return r
+        return go
+
+    for nm in ("reactive_polymer", "ejump_redox"):
+        runs[nm + "_x3"] = drive(
+            cli, counters, f"{nm} x3 (sparse engine)", None,
+            os.path.join(out, nm + "_x3_run"), TILED_STEPS,
+            runner_fn=sparse_run(tiled[nm]))
+    expect = {"surkov_cluster": "allpairs", "nanoclusters": "sparse",
+              "reactive_polymer": "allpairs_cand",
+              "ejump_redox": "allpairs_cand",
+              "reactive_polymer_x3": "sparse_cand",
+              "ejump_redox_x3": "sparse_cand"}
+    for nm, kern in expect.items():
+        runner, launches, _ = runs[nm]
+        want = {k: (runner.steps_run if k == kern else 0) for k in counters}
+        check(launches == want, f"the {nm} run's pair passes did not all go "
+              f"through {kern}")
+    runner = runs["nanoclusters"][0]
+    log(f"  nanoclusters sparse pair_cap: {cap} at start, "
+        f"{runner.cfg.sparse_pair_cap} at end "
+        f"({'regrown' if runner.cfg.sparse_pair_cap != cap else 'no regrow'}"
+        f"); worklist need at the last check "
+        f"{int(runner.state.cell_overflow)}")
+    log(f"steps/s on {card}: " + ", ".join(
+        f"{nm} {r[2]:.1f}" for nm, r in runs.items()))
 
     # --- 20 steps with each kernel against 20 with its plain version ---
+    phase("20 kernel steps vs 20 plain steps")
     trajectories(torch, load_deck_dir, make_multi_step, "surkov_cluster",
-                 SURKOV_DECK, dev,
-                 lambda c, f, p, t, radii=None: k1[1](c, f, p, t, radii))
+                 SURKOV_DECK, dev, plain_pair(k1[1]))
     trajectories(torch, load_deck_dir, make_multi_step, "nanoclusters",
-                 NANO_DECK, dev,
-                 lambda c, f, p, t, radii=None: k4[1](c, f, p, t, radii))
+                 NANO_DECK, dev, plain_pair(k4[1]))
+    for nm, deck in (("reactive_polymer", POLY_DECK),
+                     ("ejump_redox", EJUMP_DECK)):
+        trajectories(torch, load_deck_dir, make_multi_step, nm, deck, dev,
+                     plain_pair(k1[1]))
 
     # --- where a step's time goes (the profiler adds its own cost) ---
-    for deck in (SURKOV_DECK, NANO_DECK):
-        profile_steps(torch, load_deck_dir, make_multi_step, deck, dev)
+    phase("profiles")
+    prof = {}
+    for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK):
+        prof[deck] = profile_steps(torch, load_deck_dir, make_multi_step,
+                                   deck, dev)
+    poly_x3 = tiled["reactive_polymer"]
+    prof[poly_x3] = profile_steps(torch, load_deck_dir, make_multi_step,
+                                  poly_x3, dev, pair_engine="sparse")
 
     # --- timing at the paths' sizes: wrapper, kernel alone, plain ---
-    cfg1 = k1_args[0]
-    tab1 = allpairs.kernel_tables(cfg1, k1_args[1], dev)
-    ms1, alone1, plain1 = timed(torch, [
-        lambda: k1[0](*k1_args),
-        lambda: allpairs.launch(cfg1, *tab1, *k1_args[2:]),
-        lambda: k1[1](*k1_args)])
-    cfg4 = k4_args[0]
-    tab4 = allpairs.kernel_tables(cfg4, k4_args[1], dev)
-    S4 = sparse.sort_tiles(cfg4, *k4_args[2:])
-    ms4, alone4, plain4 = timed(torch, [
-        lambda: k4[0](*k4_args),
-        lambda: sparse.launch(cfg4, *tab4, S4),
-        lambda: k4[1](*k4_args)])
-    for nm, n, a, b, c in (("K1", cfg1.n_at, ms1, alone1, plain1),
-                           ("K4", cfg4.n_at, ms4, alone4, plain4)):
-        log(f"timing {nm} N={n}: wrapper {a:.4f} ms, kernel alone {b:.4f} "
-            f"ms, plain {c:.4f} ms per call (medians of 20, CUDA events) "
-            f"on {card}")
+    phase("timing")
+    def timing(nm, fns, args, kw, alone):
+        # the plain K4-cand passes take ~0.6 s a call: fewer calls there
+        n = 10 if args[0].n_at < 9000 else 4
+        ms, ms_alone, ms_plain = timed(torch, [
+            lambda: fns[0](*args, **kw), alone,
+            lambda: fns[1](*args, **kw)], n=n)
+        log(f"timing {nm} N={args[0].n_at}: wrapper {ms:.4f} ms, kernel "
+            f"alone {ms_alone:.4f} ms, plain {ms_plain:.4f} ms per call "
+            f"(medians of {2 * n}, CUDA events) on {card}")
+        return ms, ms_alone, ms_plain
+
+    def k1_alone(args, kw):
+        cfg = args[0]
+        tab = allpairs.kernel_tables(cfg, args[1], dev,
+                                     kw.get("want_bind", False))
+        c = allpairs.cand_args(cfg, args[1], kw.get("parents"),
+                               kw.get("want_bind", False),
+                               kw.get("want_jump", False), dev)
+        return lambda: allpairs.launch(cfg, *tab, *args[2:], c)
+
+    def k4_alone(args, kw):
+        cfg = args[0]
+        tab = allpairs.kernel_tables(cfg, args[1], dev,
+                                     kw.get("want_bind", False))
+        c = allpairs.cand_args(cfg, args[1], kw.get("parents"),
+                               kw.get("want_bind", False),
+                               kw.get("want_jump", False), dev)
+        S = sparse.sort_tiles(cfg, *args[2:], parents=(
+            c.parents if c is not None else None))
+        if c is not None:
+            c = dataclasses.replace(c, parents=S.parents)
+        return lambda: sparse.launch(cfg, *tab, S, c)
+
+    times = {}
+    for key, fns, args, kw, alone in (
+            ("K1", k1, k1_args, {}, k1_alone),
+            ("K1-cand reactive_polymer", k1, k1c_poly, k1c_poly_kw,
+             k1_alone),
+            ("K1-cand ejump_redox", k1, k1c_ej, k1c_ej_kw, k1_alone),
+            ("K4", k4, k4_args, {}, k4_alone),
+            ("K4-cand reactive_polymer x3", k4, k4c_poly, k4c_poly_kw,
+             k4_alone),
+            ("K4-cand ejump_redox x3", k4, k4c_ej, k4c_ej_kw, k4_alone)):
+        times[key] = timing(key, fns, args, kw, alone(args, kw))
 
     # --- bounds from this run's inputs ---
-    pairs1 = pairs_in_range(torch, cfg1, k1_args[2])
-    b1 = bound(cfg1.n_at * (cfg1.n_at - 1), pairs1, "surk",
-               cfg1.n_at * (12 + 4 + 4 + 12) + 8)
-    pairs4 = pairs_in_range(torch, cfg4, k4_args[2])
-    slots4 = need * T * T
-    b4 = bound(slots4, pairs4, "lnjs",
-               n_t * T * 6 * 4 + (n_t + 1 + cap) * 4 + cfg4.n_at * 12 + 8)
-    log(f"bound K1: {cfg1.n_at * (cfg1.n_at - 1)} slot pairs, {pairs1} in "
-        f"range: {b1[0]:.4f} ms ({b1[2]}); computed from the operation "
-        "count of csrc/pair_physics.cuh, not from a counter")
-    log(f"bound K4: {need} tile pairs x {T}^2 = {slots4} slot pairs, "
-        f"{pairs4} in range: {b4[0]:.4f} ms ({b4[2]}); computed from the "
-        "operation count of csrc/pair_physics.cuh, not from a counter")
+    phase("bounds")
+    def k1_bound(args, fam, cand):
+        cfg = args[0]
+        pairs = pairs_in_range(torch, cfg, args[2])
+        nb = cfg.n_at * (12 + 4 + 4 + 12) + 8
+        if cand:
+            nb += cfg.n_at * (4 + 3 * (4 + 8))
+        return (cfg.n_at * (cfg.n_at - 1), pairs,
+                bound(cfg.n_at * (cfg.n_at - 1), pairs, fam, nb, cand))
 
+    def k4_bound(args, kw, fam, cand):
+        cfg = args[0]
+        T4, n_t4, cap4 = sparse.tile_shape(cfg)
+        need4 = int(k4[0](*args, **kw).max_occ)
+        pairs = pairs_in_range(torch, cfg, args[2])
+        nb = (n_t4 * T4 * 6 * 4 + (n_t4 + 1 + cap4) * 4 + cfg.n_at * 12 + 8)
+        if cand:
+            nb += n_t4 * T4 * (4 + 3 * (4 + 8))
+        return (need4 * T4 * T4, pairs,
+                bound(need4 * T4 * T4, pairs, fam, nb, cand))
+
+    bounds = {"K1": k1_bound(k1_args, "surk", False),
+              "K1-cand reactive_polymer": k1_bound(k1c_poly, "lnjs", True),
+              "K1-cand ejump_redox": k1_bound(k1c_ej, "buck+dir", True),
+              "K4": k4_bound(k4_args, {}, "lnjs", False),
+              "K4-cand reactive_polymer x3": k4_bound(k4c_poly, k4c_poly_kw,
+                                                      "lnjs", True),
+              "K4-cand ejump_redox x3": k4_bound(k4c_ej, k4c_ej_kw,
+                                                 "buck+dir", True)}
+    for key, (slots, pairs, b) in bounds.items():
+        log(f"bound {key}: {slots} slot pairs, {pairs} in range: "
+            f"{b[0]:.4g} ms ({b[2]}); computed from the operation count "
+            "of csrc/pair_physics.cuh, not from a counter")
+
+    def prof_ms(deck, kernel):
+        """Profiler device ms per step of the kernel instantiation whose
+        name holds ``kernel`` over the profiled bare steps (None when the
+        profiler saw no device activity)."""
+        by = prof.get(deck) or {}
+        t = sum(v for k, v in by.items() if kernel in k)
+        return t * 1e3 if t else None
+
+    def entry(name, source, replaces, launches, err, key, extra=None):
+        ms, alone, plain = times[key]
+        rec = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches,
+               "max_abs_err": err, "ms": ms, "kernel_ms": alone,
+               "plain_ms": plain, "bound_ms": bounds[key][2][0],
+               "bound_by": bounds[key][2][1], "library_ms": None}
+        rec.update(extra or {})
+        return rec
+
+    l = {nm: r[1] for nm, r in runs.items()}
+    k1c_launch = (l["reactive_polymer"]["allpairs_cand"]
+                  + l["ejump_redox"]["allpairs_cand"])
+    k4c_launch = (l["reactive_polymer_x3"]["sparse_cand"]
+                  + l["ejump_redox_x3"]["sparse_cand"])
+    ej1 = times["K1-cand ejump_redox"]
+    ej4 = times["K4-cand ejump_redox x3"]
     return [
-        {"name": "allpairs", "route": "cuda",
-         "source": "aztotmd_tpu_torch/csrc/allpairs.cu",
-         "replaces": "aztotmd_tpu/ops/pallas_pair.py:335",
-         "launches": l1["allpairs"], "max_abs_err": k1_err,
-         "ms": ms1, "kernel_ms": alone1, "plain_ms": plain1,
-         "bound_ms": b1[0], "bound_by": b1[1], "library_ms": None},
-        {"name": "sparse", "route": "cuda",
-         "source": "aztotmd_tpu_torch/csrc/sparse.cu",
-         "replaces": "aztotmd_tpu/ops/pallas_sparse.py:129",
-         "launches": l4["sparse"], "max_abs_err": k4_err,
-         "ms": ms4, "kernel_ms": alone4, "plain_ms": plain4,
-         "bound_ms": b4[0], "bound_by": b4[1], "library_ms": None}]
+        entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
+              "aztotmd_tpu/ops/pallas_pair.py:335",
+              l["surkov_cluster"]["allpairs"], k1_err, "K1",
+              {"profiler_ms": prof_ms(SURKOV_DECK, "allpairs_kernel<false, "
+                                      "false, false>")}),
+        entry("allpairs_cand", "aztotmd_tpu_torch/csrc/allpairs.cu",
+              "aztotmd_tpu/ops/pallas_pair.py:264", k1c_launch, k1c_err,
+              "K1-cand reactive_polymer",
+              {"profiler_ms": prof_ms(POLY_DECK, "allpairs_kernel<true, "
+                                      "false, true>"),
+               "ejump_redox": {
+                   "ms": ej1[0], "kernel_ms": ej1[1], "plain_ms": ej1[2],
+                   "bound_ms": bounds["K1-cand ejump_redox"][2][0],
+                   "profiler_ms": prof_ms(EJUMP_DECK, "allpairs_kernel<false, "
+                                          "true, false>")}}),
+        entry("sparse", "aztotmd_tpu_torch/csrc/sparse.cu",
+              "aztotmd_tpu/ops/pallas_sparse.py:129",
+              l["nanoclusters"]["sparse"], k4_err, "K4",
+              {"profiler_ms": prof_ms(NANO_DECK, "sparse_kernel<false, "
+                                      "false, false>")}),
+        entry("sparse_cand", "aztotmd_tpu_torch/csrc/sparse.cu",
+              "aztotmd_tpu/ops/pallas_sparse.py:189", k4c_launch, k4c_err,
+              "K4-cand reactive_polymer x3",
+              {"profiler_ms": prof_ms(poly_x3, "sparse_kernel<true, false, "
+                                      "true>"),
+               "ejump_redox_x3": {
+                  "ms": ej4[0], "kernel_ms": ej4[1], "plain_ms": ej4[2],
+                  "bound_ms": bounds["K4-cand ejump_redox x3"][2][0]}})]
 
 
 if __name__ == "__main__":

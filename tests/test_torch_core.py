@@ -195,3 +195,38 @@ def test_other_engines_raise_naming_roadmap_item(lj_deck):
     assert d["cfg"].pair_engine == "neighbor"
     with pytest.raises(NotImplementedError, match="neighbor engine"):
         make_step(d["cfg"], d["aux"])
+
+
+@pytest.mark.parametrize("name", ["reactive_polymer", "ejump_redox"])
+def test_reactive_deck_writers_reproduce_examples(name, tmp_path):
+    """The port's writers reproduce the committed reactive examples (made
+    by tools/make_examples.py) byte for byte at their defaults."""
+    write = {"reactive_polymer": systems.write_reactive_polymer_deck,
+             "ejump_redox": systems.write_ejump_redox_deck}[name]
+    write(str(tmp_path))
+    for f in ("atoms.xyz", "control.txt", "field.txt"):
+        assert filecmp.cmp(str(tmp_path / f),
+                           os.path.join(ROOT, "examples", name, f),
+                           shallow=False), f
+
+
+def test_tile_deck_replicates_at_the_same_density(tmp_path):
+    src = os.path.join(ROOT, "examples", "ejump_redox")
+    systems.tile_deck(src, str(tmp_path), 2)
+    a = parse_atoms_file(os.path.join(src, "atoms.xyz"))
+    b = parse_atoms_file(str(tmp_path / "atoms.xyz"))
+    assert b.n_atoms == 8 * a.n_atoms
+    np.testing.assert_allclose(b.box, 2.0 * np.asarray(a.box))
+    pa, pb = np.asarray(a.pos), np.asarray(b.pos)
+    np.testing.assert_allclose(pb[:a.n_atoms], pa, atol=1e-6)
+    np.testing.assert_allclose(pb[-a.n_atoms:], pa + np.asarray(a.box),
+                               atol=1e-5)
+    assert list(b.names[a.n_atoms:2 * a.n_atoms]) == list(a.names)
+    for f in ("control.txt", "field.txt"):
+        assert filecmp.cmp(str(tmp_path / f), os.path.join(src, f),
+                           shallow=False)
+    # the 3x tiles are the K4-cand checks' systems: the sparse engine with
+    # the deck's candidates
+    systems.tile_deck(src, str(tmp_path / "t3"), 3)
+    d = load_deck_dir(str(tmp_path / "t3"), pair_engine="sparse")
+    assert d["cfg"].n_at == 9504 and d["cfg"].ejtype

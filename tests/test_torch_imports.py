@@ -126,3 +126,55 @@ def test_copied_writers_write_equal_bytes(tmp_path, monkeypatch):
     for ext in ("xyz", "traj"):
         a = (tmp_path / f"p.{ext}").read_bytes()
         assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext
+
+
+def test_copied_bond_and_jump_writers_write_equal_bytes(tmp_path):
+    """stat_bnd.dat, jumps.dat, revbonds.txt and lengths.dat through both
+    packages' writers from the same rows, appended to as a resumed run
+    does."""
+    deck = os.path.join(ROOT, "examples", "reactive_polymer")
+    fld = p_io.parse_field_file(os.path.join(deck, "field.txt"))
+    rng = np.random.default_rng(5)
+    n, nb = 60, 25
+    pos = rng.uniform(0.0, 20.0, (n, 3))
+    at1, at2 = rng.integers(0, n, nb), rng.integers(0, n, nb)
+    bt = rng.integers(1, len(fld.bonds), nb)
+    rows = [(step, rng.integers(0, 9, 2), rng.uniform(0, 3, 2),
+             rng.uniform(0, 9, 2)) for step in (100, 200, 300, 400)]
+    for w, tag in ((p_writers, "p"), (j_writers, "j")):
+        for append, part in ((False, rows[:2]), (True, rows[2:])):
+            b = w.BondStatWriter(str(tmp_path / f"{tag}.bnd"), fld,
+                                 append=append)
+            j = w.JumpWriter(str(tmp_path / f"{tag}.jmp"), append=append)
+            for step, cnt, r_mean, lt_mean in part:
+                b.write_row(step * 5e-4, step, 7 + step, cnt, r_mean, lt_mean)
+                j.write_row(step * 1e-3, step, step // 3, step // 7, 2)
+            b.close()
+            j.close()
+        w.write_bondlist(str(tmp_path / f"{tag}.bonds"), at1, at2, bt)
+        w.write_bond_lengths(str(tmp_path / f"{tag}.len"), fld, at1, at2, bt,
+                             pos, (20.0, 20.0, 20.0))
+    for ext in ("bnd", "jmp", "bonds", "len"):
+        a = (tmp_path / f"p.{ext}").read_bytes()
+        assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext
+
+
+_SYNCS = (".item(", ".tolist(", ".cpu(", ".numpy(", "bincount", "nonzero",
+          "torch.unique", "masked_select", "repeat_interleave")
+
+
+@pytest.mark.parametrize("rel", ["ops/bonds.py", "ops/ejump.py",
+                                 "ops/jrandom.py", "runtime/step.py"])
+def test_reactive_step_code_has_no_host_sync(rel):
+    """The reactive stages run inside the step, which must not wait for
+    the device: none of the calls that copy to the host or size an output
+    from device data appears in their code (comments and docstrings
+    aside)."""
+    import io
+    import tokenize
+    with open(os.path.join(ROOT, "aztotmd_tpu_torch", rel)) as f:
+        toks = [t for t in tokenize.generate_tokens(io.StringIO(
+            f.read()).readline) if t.type not in (tokenize.COMMENT,
+                                                   tokenize.STRING)]
+    code = "".join(t.string for t in toks)
+    assert not [s for s in _SYNCS if s in code]

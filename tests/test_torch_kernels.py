@@ -171,3 +171,73 @@ def test_sparse_kernel_refuses_f64(cuda):
         sparse.pair_forces_sparse(cfg, ff, pos.double(), types,
                                   rad.double())
     assert sparse.launches == before
+
+
+# --- the candidate passes (K1-cand, K4-cand) ---
+
+def _compare_cand(kernel, plain, cfg, ff, pos, types, parents, **kw):
+    """Kernel against plain with candidates: ids equal, r2 bitwise equal,
+    forces and energies as above, max_occ equal."""
+    mod = allpairs if kernel is allpairs.pair_forces_allpairs else sparse
+    before = (mod.launches, mod.cand_launches)
+    k = kernel(cfg, ff, pos, types, None, parents, **kw)
+    assert (mod.launches, mod.cand_launches) == (before[0], before[1] + 1)
+    p = plain(cfg, ff, pos, types, None, parents, **kw)
+    torch.cuda.synchronize()
+    for name in ("bind_idx", "bind_r2", "jump_idx", "jump_r2"):
+        assert torch.equal(getattr(k, name), getattr(p, name)), name
+    kf, pf = k.frc.cpu().numpy(), p.frc.cpu().numpy()
+    np.testing.assert_allclose(kf, pf, rtol=0,
+                               atol=3e-5 * (float(np.abs(pf).max()) or 1.0))
+    for a, b in ((k.eng_vdw, p.eng_vdw), (k.eng_coul, p.eng_coul)):
+        assert float(a) == pytest.approx(float(b), rel=1e-4, abs=1e-6)
+    assert int(k.max_occ) == int(p.max_occ)
+    return k
+
+
+def _reactive(cuda, n, engine):
+    cfg, ff, pos, types, _ = systems.pair_system(
+        systems.reactive_specs(n), device=cuda, pair_engine=engine)
+    rng = np.random.default_rng(n)
+    par = np.where(rng.uniform(size=n) < 0.4, rng.integers(0, n, n), -1)
+    return cfg, ff, pos, types, torch.as_tensor(par, dtype=torch.int32,
+                                                device=cuda)
+
+
+_WANTS = [dict(want_bind=True, want_jump=True), dict(want_bind=True),
+          dict(want_jump=True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [300, 1000])
+@pytest.mark.parametrize("kw", _WANTS, ids=["both", "bind", "jump"])
+def test_cand_kernel_matches_plain(cuda, n, kw):
+    k = _compare_cand(allpairs.pair_forces_allpairs,
+                      allpairs.pair_forces_allpairs_plain,
+                      *_reactive(cuda, n, "pallas"), **kw)
+    if kw.get("want_bind"):
+        assert bool((k.bind_idx < n).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1500, 3000])
+@pytest.mark.parametrize("kw", _WANTS, ids=["both", "bind", "jump"])
+def test_sparse_cand_kernel_matches_plain(cuda, n, kw):
+    _compare_cand(sparse.pair_forces_sparse, sparse.pair_forces_sparse_plain,
+                  *_reactive(cuda, n, "sparse"), **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["reactive_polymer", "ejump_redox"])
+def test_cand_kernels_match_plain_on_example_decks(cuda, name, tmp_path):
+    d = load_deck_dir(os.path.join(ROOT, "examples", name), device=cuda)
+    cfg, st = d["cfg"], d["state"]
+    kw = dict(want_bind=cfg.use_bnd == 2, want_jump=bool(cfg.ejtype))
+    _compare_cand(allpairs.pair_forces_allpairs,
+                  allpairs.pair_forces_allpairs_plain, cfg, d["ff"], st.pos,
+                  st.types, st.parents, **kw)
+    systems.tile_deck(os.path.join(ROOT, "examples", name), str(tmp_path), 2)
+    d = load_deck_dir(str(tmp_path), device=cuda, pair_engine="sparse")
+    st = d["state"]
+    _compare_cand(sparse.pair_forces_sparse, sparse.pair_forces_sparse_plain,
+                  d["cfg"], d["ff"], st.pos, st.types, st.parents, **kw)

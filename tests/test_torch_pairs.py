@@ -125,3 +125,103 @@ def test_dense_engine_choice_raises_for_cell_block_decks():
     with pytest.raises(NotImplementedError, match="K3"):
         allpairs.pair_forces_dense(dataclasses.replace(cfg, grid=cheap),
                                    ff, pos, types)
+
+
+@pytest.mark.parametrize("n,want", [(300, "both"), (300, "bind"),
+                                    (257, "jump")])
+def test_plain_candidates_match_jax_kernel(n, want):
+    """K1-cand: the plain dense pass with bind/jump candidates (and
+    parents) against JAX's interpret kernel on the three-species system
+    with direct Coulomb, N ragged against the 128/256 tiles: candidate
+    ids exact, r2 rel 2.4e-7, forces and energies as above."""
+    from test_torch_sparse import _reactive_both, check_candidates
+    (jcfg, jff, (jp, jt, jpar)), (cfg, ff, (tp, tt, tpar)) = _reactive_both(
+        n, "pallas", seed=n)
+    kw = dict(want_bind=want != "jump", want_jump=want != "bind")
+    jr = jax.jit(lambda p, t, pa: j_allpairs(
+        jcfg, jff, p, t, parents=pa, interpret=True, **kw))(jp, jt, jpar)
+    pr = pair_forces_allpairs(cfg, ff, tp, tt, None, tpar, **kw)
+    if want == "both":
+        check_candidates(jr, pr, n)
+    for name in ("bind_idx", "jump_idx"):
+        np.testing.assert_array_equal(getattr(pr, name).numpy(),
+                                      np.asarray(getattr(jr, name)))
+    # the row chunking does not change the choice
+    again = pair_forces_allpairs_plain(cfg, ff, tp, tt, None, tpar, rows=61,
+                                       **kw)
+    for name in ("bind_idx", "jump_idx", "bind_r2", "jump_r2"):
+        assert torch.equal(getattr(again, name), getattr(pr, name)), name
+
+
+@pytest.mark.parametrize("engine", ["pallas", "sparse"])
+def test_candidate_ties_follow_the_tpu_kernel(engine):
+    """Exact r2 ties: 300 atoms on the sites of an exact 2 A lattice, so
+    each row sees several partners at the same r2 (4 and 8 A^2).  The TPU
+    kernels keep the first j tile they meet, then the lowest species,
+    then the lowest id; the plain passes give the same ids."""
+    from test_torch_sparse import _reactive_both
+    ctl, f, _, _, types, _ = systems.reactive_specs(300, seed=11)
+    rng = np.random.default_rng(11)
+    g = np.arange(9) * 2.0 + 1.0
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos = sites[np.sort(rng.permutation(len(sites))[:300])]
+    (jcfg, jff, (jp, jt, jpar)), (cfg, ff, (tp, tt, tpar)) = _reactive_both(
+        300, engine, specs=(ctl, f, 18.0, pos, types, None))
+    kw = dict(want_bind=True, want_jump=True)
+    if engine == "pallas":
+        jr = jax.jit(lambda p, t, pa: j_allpairs(
+            jcfg, jff, p, t, parents=pa, interpret=True, **kw))(jp, jt, jpar)
+        pr = pair_forces_allpairs(cfg, ff, tp, tt, None, tpar, **kw)
+    else:
+        from aztotmd_tpu.ops.pallas_sparse import pair_forces_sparse as js
+        from aztotmd_tpu_torch.ops.sparse import pair_forces_sparse
+        jr = jax.jit(lambda p, t, pa: js(
+            jcfg, jff, p, t, parents=pa, interpret=True, tile=128, **kw))(
+            jp, jt, jpar)
+        pr = pair_forces_sparse(cfg, ff, tp, tt, None, tpar, tile=128, **kw)
+    r2 = pr.bind_r2.numpy()
+    assert np.sum(r2 == 4.0) > 20          # many rows choose among ties
+    for name in ("bind_idx", "jump_idx", "bind_r2", "jump_r2"):
+        np.testing.assert_array_equal(getattr(pr, name).numpy(),
+                                      np.asarray(getattr(jr, name)), name)
+    from aztotmd_tpu_torch.ops.pairs import keyed_row_min
+    m, k = keyed_row_min(torch.tensor([[4.0, 1.0, 1.0, 2.0]]),
+                         torch.tensor([[True, True, True, False]]),
+                         torch.tensor([[9, 7, 5, 1]]))
+    assert float(m) == 1.0 and int(k) == 5
+
+
+def test_standalone_candidates_match_jax():
+    """``bind_jump_candidates`` (the cell-list selection without the
+    force work) against JAX's on the three-species system in f64, with
+    parents: ids exact, r2 rel 1e-12; and the same ids as the dense
+    pass's candidates."""
+    from aztotmd_tpu_torch.ops.pairs import bind_jump_candidates
+    n = 400
+    specs = systems.reactive_specs(n, seed=5)
+    ctl, f, box, pos, types, _ = specs
+    jcfg = j_build_sim_config(ctl, f, (box,) * 3, n, dtype="f64", pos=pos,
+                              pair_engine="pallas")
+    jff = j_build_forcefield(f, ctl.t_step, eps=ctl.elec.eps,
+                             dtype=np.float64)
+    cfg, ff, tp, tt, _ = systems.pair_system(specs, "f64")
+    rng = np.random.default_rng(6)
+    par = np.where(rng.uniform(size=n) < 0.4, rng.integers(0, n, n),
+                   -1).astype(np.int32)
+    jr = j_pairs.bind_jump_candidates(jcfg, jff, jnp.asarray(pos),
+                                      jnp.asarray(types), jnp.asarray(par))
+    pr = pairs.bind_jump_candidates(cfg, ff, tp, tt, torch.as_tensor(par))
+    for a, b in zip(pr, jr):
+        b = np.asarray(b)
+        if b.dtype.kind == "i":
+            np.testing.assert_array_equal(a.numpy(), b)
+            assert 0 < int(np.sum(b < n))
+        else:
+            fin = np.isfinite(b)
+            np.testing.assert_array_equal(np.isfinite(a.numpy()), fin)
+            np.testing.assert_allclose(a.numpy()[fin], b[fin], rtol=1e-12)
+    dense = pair_forces_allpairs_plain(cfg, ff, tp, tt, None,
+                                       torch.as_tensor(par), want_bind=True,
+                                       want_jump=True)
+    assert torch.equal(dense.bind_idx, pr[0])
+    assert torch.equal(dense.jump_idx, pr[2])

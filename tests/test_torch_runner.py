@@ -19,7 +19,9 @@ from aztotmd_tpu_torch.__main__ import main
 from aztotmd_tpu_torch.runtime.checkpoint import load_checkpoint
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
 from aztotmd_tpu_torch.runtime.step import make_multi_step
-from aztotmd_tpu_torch.systems import (write_nanoclusters_deck,
+from aztotmd_tpu_torch.systems import (write_ejump_redox_deck,
+                                       write_nanoclusters_deck,
+                                       write_reactive_polymer_deck,
                                        write_surkov_cluster_deck)
 
 # The tier-1 run puts several pytest workers on the machine's cores; one
@@ -45,6 +47,18 @@ def nose_deck(tmp_path_factory):
     write_nanoclusters_deck(d, n_clusters=3, per=128, box=50.0,
                             min_sep=25.0, steps=200)
     return d
+
+
+@pytest.fixture(scope="module")
+def reactive_decks(tmp_path_factory):
+    """The two reactive examples' writers cut to 216 and 176 atoms (the
+    smallest cuts that keep the dense pair engine)."""
+    d = tmp_path_factory.mktemp("reactive")
+    rp, ej = str(d / "reactive_polymer"), str(d / "ejump_redox")
+    write_reactive_polymer_deck(rp, n_side=6, steps=100)
+    write_ejump_redox_deck(ej, n_side=6, n_fe2=48, n_fe3=32, n_o=96,
+                           steps=100)
+    return rp, ej
 
 
 def _table(path):
@@ -78,6 +92,69 @@ def test_run_cli_matches_jax_cli(deck, tmp_path, monkeypatch):
     assert _table(os.path.join(out_t, "rdf.dat"))[:, 1].max() > 0.0
     for name in ("revcon.xyz", "velocities.dat", "tchars.dat"):
         assert os.path.getsize(os.path.join(out_t, name)) > 0
+
+
+@pytest.mark.parametrize("which", [0, 1], ids=["reactive_polymer",
+                                              "ejump_redox"])
+def test_reactive_run_cli_matches_jax_cli(reactive_decks, which, tmp_path,
+                                          monkeypatch):
+    """stat.dat, stat_bnd.dat or jumps.dat, msd.dat and rdf.dat of f64
+    runs of the cut reactive decks from both CLIs, rtol 1e-8, and
+    revbonds.txt and lengths.dat equal byte for byte."""
+    deck = reactive_decks[which]
+    out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    runner = main(["run", deck, "--cpu", "--dtype", "f64", "-o", out_t,
+                   "--quiet"])
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
+    j_main(["--cpu", "run", deck, "-o", out_j, "--dtype", "f64", "--quiet"])
+    extra = ("stat_bnd.dat",) if which == 0 else ("jumps.dat",)
+    for name in ("stat.dat", "msd.dat", "rdf.dat") + extra:
+        a, b = _table(os.path.join(out_t, name)), _table(
+            os.path.join(out_j, name))
+        assert a.shape == b.shape and a.size, name
+        np.testing.assert_allclose(a, b, rtol=1e-8, err_msg=name)
+    if which == 0:
+        assert int(runner.state.n_bond) > 0
+        assert _table(os.path.join(out_t, "stat_bnd.dat"))[-1, 2] > 0
+        for name in ("revbonds.txt", "lengths.dat"):
+            with open(os.path.join(out_t, name)) as f, \
+                    open(os.path.join(out_j, name)) as g:
+                assert f.read() == g.read(), name
+    else:
+        assert int(runner.state.n_jump) > 0
+        assert _table(os.path.join(out_t, "jumps.dat"))[-1, 2] > 0
+        assert not os.path.exists(os.path.join(out_t, "stat_bnd.dat"))
+
+
+def test_reactive_checkpoint_resumes_across_packages(reactive_decks,
+                                                     tmp_path):
+    """A reactive_polymer checkpoint with bonds formed: the bond table,
+    n_bond, statistics, parents, nbonds and RNG words pass through the
+    other package unchanged, and both continue with the same topology."""
+    deck = reactive_decks[0]
+    out = str(tmp_path / "ck")
+    main(["run", deck, "--cpu", "--dtype", "f64", "-o", out, "--quiet",
+          "--steps", "20", "--checkpoint-every", "20"])
+    ck = os.path.join(out, "checkpoint.npz")
+    j = j_load_deck_dir(deck, dtype="f64")
+    js = j_load_ckpt(ck, j["state"])
+    p = load_deck_dir(deck, dtype="f64")
+    ps = load_checkpoint(ck, p["state"])
+    assert int(ps.n_bond) > 0 and int(js.n_bond) == int(ps.n_bond)
+    js = j_make_multi_step(j["cfg"], j["aux"])(js, j["ff"], 10)
+    ps = make_multi_step(p["cfg"], p["aux"])(ps, p["ff"], 10)
+    got = convert.state_to_numpy(ps)
+    for name in ("types", "bond_at1", "bond_at2", "bond_type", "n_bond",
+                 "parents", "nbonds", "bt_count", "bt_r_count", "rng"):
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(js, name)),
+                                      err_msg=name)
+    ck2 = str(tmp_path / "jax_ck.npz")
+    j_save_ckpt(ck2, js, {"step": 30})
+    back = convert.state_to_numpy(load_checkpoint(ck2, p["state"]))
+    for name, arr in back.items():
+        if name != "energies":
+            np.testing.assert_array_equal(arr, np.asarray(getattr(js, name)),
+                                          err_msg=name)
 
 
 def test_checkpoints_resume_across_packages(deck, tmp_path):
@@ -124,6 +201,8 @@ class _Block(importlib.abc.MetaPathFinder):
             raise ImportError("blocked: " + name)
         return None
 sys.meta_path.insert(0, _Block())
+import torch
+torch.set_num_threads(1)
 from aztotmd_tpu_torch.__main__ import main
 from aztotmd_tpu_torch.runtime.runner import MDRunner
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
@@ -138,18 +217,25 @@ r = MDRunner(sysd, out_dir=sys.argv[3] + "_sparse", quiet=True)
 r.run(4)
 r.finalize()
 assert int(r.state.step) == 4 and float(r.state.chit) != 0.0
+# the reactive decks: bonds, electron jumps and their outputs
+for deck in sys.argv[4:]:
+    r = main(["run", deck, "--cpu", "--steps", "20", "-o",
+              sys.argv[3] + "_r", "--quiet", "--no-bond-equil-hack"])
+    assert int(r.state.n_bond) + int(r.state.n_jump) > 0
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 assert not bad, bad
 print("NO_JAX_OK")
 """
 
 
-def test_port_cli_runs_with_jax_blocked(deck, nose_deck, tmp_path):
-    """The CLI on the Surkov deck and the runner on a sparse Nose-Hoover
-    deck, with jax and the JAX package unimportable."""
+def test_port_cli_runs_with_jax_blocked(deck, nose_deck, reactive_decks,
+                                        tmp_path):
+    """The CLI on the Surkov deck and the reactive decks and the runner on
+    a sparse Nose-Hoover deck, with jax and the JAX package
+    unimportable."""
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, deck, nose_deck,
-         str(tmp_path / "out")],
+         str(tmp_path / "out"), *reactive_decks],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout

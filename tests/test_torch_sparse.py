@@ -167,10 +167,63 @@ def test_plain_f64_matches_jax_f64_route():
     assert float(pr.eng_coul) == pytest.approx(float(jr.eng_coul), rel=1e-9)
 
 
-def test_candidate_decks_raise_naming_roadmap_item(lj_pair):
-    import dataclasses
-    (_, _, _), (cfg, ff, targs) = lj_pair
-    for kw in (dict(ejtype=1), dict(use_bnd=2, use_linkage=1)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            sparse.pair_forces_sparse(dataclasses.replace(cfg, **kw), ff,
-                                      *targs)
+def _reactive_both(n_atoms, engine, seed=3, specs=None):
+    """(JAX cfg, ff, arrays) and (port cfg, ff, tensors) of the
+    three-species bind/jump system (or ``specs``), with random parents
+    (40% of atoms)."""
+    specs = specs or systems.reactive_specs(n_atoms, seed=seed)
+    ctl, f, box, pos, types, _ = specs
+    jcfg = j_build_sim_config(ctl, f, (box, box, box), n_atoms, dtype="f32",
+                              pos=pos, pair_engine=engine)
+    jff = j_build_forcefield(f, ctl.t_step, eps=ctl.elec.eps,
+                             dtype=np.float32)
+    cfg, ff, tp, tt, _ = systems.pair_system(specs, pair_engine=engine)
+    rng = np.random.default_rng(seed + 1)
+    par = np.where(rng.uniform(size=n_atoms) < 0.4,
+                   rng.integers(0, n_atoms, n_atoms), -1).astype(np.int32)
+    return ((jcfg, jff, (jnp.asarray(np.float32(pos)), jnp.asarray(types),
+                         jnp.asarray(par))),
+            (cfg, ff, (tp, tt, torch.as_tensor(par))))
+
+
+def check_candidates(jr, pr, n):
+    """Candidate ids exact (and present), r2 rel 2.4e-7 (two f32 ulps:
+    the r2 sums are taken with other roundings), forces and energies as
+    ``_check_f32``."""
+    for name in ("bind", "jump"):
+        ji = np.asarray(getattr(jr, name + "_idx"))
+        np.testing.assert_array_equal(getattr(pr, name + "_idx").numpy(), ji)
+        assert 0 < int(np.sum(ji < n)) < n, name
+        jr2 = np.asarray(getattr(jr, name + "_r2"))
+        pr2 = getattr(pr, name + "_r2").numpy()
+        np.testing.assert_array_equal(np.isfinite(pr2), ji < n)
+        fin = ji < n
+        np.testing.assert_allclose(pr2[fin], jr2[fin], rtol=2.4e-7, atol=0)
+    jf = np.asarray(jr.frc)
+    np.testing.assert_allclose(pr.frc.numpy(), jf, rtol=0,
+                               atol=3e-5 * float(np.abs(jf).max()))
+    for k in ("eng_vdw", "eng_coul"):
+        assert float(getattr(pr, k)) == pytest.approx(
+            float(getattr(jr, k)), rel=1e-4), k
+
+
+@pytest.mark.parametrize("want", ["jump", "both"])
+def test_plain_candidates_match_jax_kernel(want):
+    """K4-cand: the plain sparse pass with bind/jump candidates against
+    JAX's interpret kernel on a 1,200-atom system (T=128): candidate ids
+    exact, max_occ exact."""
+    n = 1200
+    (jcfg, jff, (jp, jt, jpar)), (cfg, ff, (tp, tt, tpar)) = _reactive_both(
+        n, "sparse")
+    kw = dict(want_bind=want != "jump", want_jump=want != "bind")
+    jr = jax.jit(lambda p, t, pa: j_sparse.pair_forces_sparse(
+        jcfg, jff, p, t, parents=pa, interpret=True, tile=TILE, **kw))(
+        jp, jt, jpar)
+    pr = sparse.pair_forces_sparse(cfg, ff, tp, tt, None, tpar, tile=TILE,
+                                   **kw)
+    assert int(pr.max_occ) == int(jr.max_occ)
+    if want == "both":
+        check_candidates(jr, pr, n)
+    for name in ("bind_idx", "jump_idx"):
+        np.testing.assert_array_equal(getattr(pr, name).numpy(),
+                                      np.asarray(getattr(jr, name)))

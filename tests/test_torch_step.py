@@ -1,8 +1,12 @@
-"""Whole MD steps of the port against the JAX package on a ~300-atom
+"""Whole MD steps of the port against the JAX package: a ~300-atom
 clustered Surkov deck from the slice deck's writer (radiative thermostat,
-equilibration rescale at step 0).  The thermostat noise is a pure
-function of (seed, step, atom id), so the trajectories match step for
+equilibration rescale at step 0), Nose-Hoover clusters on the sparse
+engine, and the reactive examples (bond formation, electron jumps).  The
+thermostat noise is a pure function of (seed, step, atom id) and the
+jump draws are JAX's threefry, so the trajectories match step for
 step."""
+
+import os
 
 import numpy as np
 import pytest
@@ -20,6 +24,7 @@ from aztotmd_tpu_torch.systems import write_surkov_cluster_deck
 # systems are a few hundred atoms).
 torch.set_num_threads(1)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ENG = ("kin", "vdw", "temp", "pot", "tot")
 
 
@@ -146,3 +151,51 @@ def test_20_nose_steps_sparse_engine_f64_match_jax(nose_deck):
     # the port's f64 monitor is the worklist length (JAX's: cell occupancy)
     from aztotmd_tpu_torch.ops.sparse import tile_shape
     assert 0 < int(got["cell_overflow"]) <= tile_shape(p["cfg"])[1] ** 2
+
+
+_TOPOLOGY = ("types", "bond_at1", "bond_at2", "bond_type", "bond_start",
+             "n_bond", "n_jump", "jump_pos", "jump_neg", "rng", "parents",
+             "nbonds", "bt_count", "bt_r_count", "bt_lt_count", "touched",
+             "spec_number")
+
+
+def _reactive_run(deck, dtype, n):
+    j = j_load_deck_dir(deck, dtype=dtype)
+    p = load_deck_dir(deck, dtype=dtype)
+    assert p["cfg"].pair_engine == j["cfg"].pair_engine == "pallas"
+    js = j_make_multi_step(j["cfg"], j["aux"])(j["state"], j["ff"], n)
+    got = convert.state_to_numpy(
+        make_multi_step(p["cfg"], p["aux"])(p["state"], p["ff"], n))
+    for name in _TOPOLOGY:
+        np.testing.assert_array_equal(got[name], np.asarray(getattr(js, name)),
+                                      err_msg=name)
+    return got, js
+
+
+@pytest.mark.parametrize("name", ["reactive_polymer", "ejump_redox"])
+def test_20_reactive_steps_f64_match_jax(name):
+    """The example decks at full size: 20 f64 steps against JAX, whose f64
+    route is its XLA cell-block engine.  Bonds form on reactive_polymer
+    and electrons jump on ejump_redox from the first steps; topology and
+    RNG words exact, positions atol 1e-8 A, energies rel 1e-8."""
+    got, js = _reactive_run(f"{ROOT}/examples/{name}", "f64", 20)
+    assert int(got["n_bond"]) > 0 if name == "reactive_polymer" \
+        else int(got["n_jump"]) > 0
+    np.testing.assert_allclose(got["pos"], np.asarray(js.pos), rtol=0,
+                               atol=1e-8)
+    for k in ("kin", "vdw", "coul1", "bond", "pot", "tot"):
+        assert float(got["energies"][k]) == pytest.approx(
+            float(getattr(js.energies, k)), rel=1e-8, abs=1e-12), k
+    np.testing.assert_allclose(got["bt_r_mean"], np.asarray(js.bt_r_mean),
+                               rtol=1e-8)
+
+
+@pytest.mark.parametrize("name", ["reactive_polymer", "ejump_redox"])
+def test_5_reactive_steps_f32_match_jax_interpret_kernel(name):
+    """5 f32 steps against JAX's interpret K1 with its fused bind/jump
+    candidates: topology exact, positions atol 1e-5 A."""
+    got, js = _reactive_run(f"{ROOT}/examples/{name}", "f32", 5)
+    assert int(got["n_bond"]) > 0 if name == "reactive_polymer" \
+        else int(got["n_jump"]) > 0
+    np.testing.assert_allclose(got["pos"], np.asarray(js.pos), rtol=0,
+                               atol=1e-5)
