@@ -85,7 +85,7 @@ def main(argv=None):
     import torch
 
     from .runtime.setup import load_deck_dir
-    from .runtime.step import make_step
+    from .runtime.step import make_step, torch_engine_reason
     sysd = load_deck_dir(args.deck, dtype=args.dtype, device=device)
     step = make_step(sysd["cfg"], sysd["aux"])
     state, ff = sysd["state"], sysd["ff"]
@@ -105,6 +105,10 @@ def main(argv=None):
     res = {"steps_per_sec": args.steps / secs, "n_at": sysd["cfg"].n_at,
            "device": (torch.cuda.get_device_name(device)
                       if device.type == "cuda" else "cpu")}
+    if device.type == "cuda":
+        # why the pair pass is torch ops and no kernel, or null
+        res["torch_engine"] = torch_engine_reason(sysd["cfg"],
+                                                  sysd["state"].pos.dtype)
     print(json.dumps(res))
     return res
 

@@ -6,9 +6,9 @@ code (Python and NumPy).  Besides the config itself this module carries
 the NumPy host helpers that the engine auto-selection needs:
 ``make_block_grid`` (``aztotmd_tpu/ops/cellblock.py``) and
 ``morton_codes`` / ``estimate_sparse_pairs``
-(``aztotmd_tpu/ops/pallas_sparse.py``).  Those engines are not ported
-yet, but their cost models decide which engine a deck gets, and that
-choice must agree with the JAX package on every deck.
+(``aztotmd_tpu/ops/pallas_sparse.py``).  Their cost models decide which
+engine a deck gets, and that choice must agree with the JAX package on
+every deck.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-// Per-pair physics shared by the port's pair kernels (allpairs.cu, sparse.cu),
-// f32.  Device code of aztotmd_tpu/ops/pallas_pair.py::_tile_physics with
+// Per-pair physics shared by the port's pair kernels (allpairs.cu, sparse.cu,
+// cellblock.cu), f32.  Device code of aztotmd_tpu/ops/pallas_pair.py::_tile_physics with
 // _vdw_pair, _coul_pair and _erfc, for one ordered pair (i, j):
 //   min-image displacement (round half to even, rintf, with 1/box rounded
 //   to f32 as the JAX package does); pairs with r2 > r2_max are skipped (the

@@ -1,8 +1,9 @@
 """Dense O(N^2) pair pass: the hand-written CUDA kernel and its plain
 PyTorch version (port of ``aztotmd_tpu/ops/pallas_pair.py``:
 ``pair_forces_allpairs`` with ``_allpairs_kernel`` and ``_tile_physics``,
-its fused bind/jump candidates included, and the engine choice of
-``pair_forces_pallas``).
+its fused bind/jump candidates included, and the dispatcher
+``pair_forces_pallas``, which sends a pass to this kernel, to the stacked
+cell-block kernel or to the cell-block engine of ``ops/cellblock.py``).
 
 Kernel: ``csrc/allpairs.cu``, CUDA C++ for sm_90a, bound through a plain
 C interface and ``ctypes``.  It replaces the TPU kernel
@@ -24,10 +25,10 @@ tile, then the lowest species, then the lowest id.  Every minimum
 carries that order as an int64 key ``(tile * nsp + species) * N + id``,
 so the kernel's per-split minima merge exactly.
 
-Routing: a CPU tensor goes to the plain version, in f32 or f64; a CUDA
-tensor launches the kernel or raises.  The kernel is f32 only, so an f64
-run on the card raises (the JAX package sends f64 to XLA instead of its
-Pallas kernels, ``pallas_pair.py:732``; the port's f64 route is the CPU).
+Routing of ``pair_forces_allpairs``: a CPU tensor goes to the plain
+version, in f32 or f64; a CUDA tensor launches the kernel or raises.  The
+kernel is f32 only.  The dispatcher sends f64 to the cell-block engine on
+either device, as the JAX package does (``pallas_pair.py:732``).
 """
 
 from __future__ import annotations
@@ -79,16 +80,36 @@ def cand_tile(n: int) -> int:
     return min(256, _round_up(max(n, 1), 128))
 
 
-def pair_forces_dense(cfg, ff, pos, types, radii=None, parents=None,
-                      want_bind=False, want_jump=False) -> PairResult:
-    """The ``pallas`` engine's pair pass: the dense all-pairs pass when it
-    undercuts the modeled cell-block cost, as ``pair_forces_pallas`` picks."""
-    if cfg.pair_engine != "pallas" or allpairs_cost(cfg) >= block_cost(cfg):
-        raise NotImplementedError(
-            "this deck needs the stacked cell-block pair kernel "
-            "(ROADMAP.md: modules to port, 'K3 + cellblock')")
-    return pair_forces_allpairs(cfg, ff, pos, types, radii, parents,
-                                want_bind, want_jump)
+def pallas_branch(cfg, dtype, want_bind=False, want_jump=False) -> str:
+    """The pass the ``pallas`` engine takes, in ``pair_forces_pallas``'s
+    order of tests: "block" for f64; "allpairs" (K1) when the padded N^2
+    undercuts the modeled cell-block cost; "block" for bind/jump
+    candidates, a grid under three cells a side or a stencil beyond +-1
+    cell; else "stacked" (K3)."""
+    from .cellblock import stacked_ok
+    if dtype == torch.float64:
+        return "block"
+    if allpairs_cost(cfg) < block_cost(cfg):
+        return "allpairs"
+    if want_bind or want_jump or not stacked_ok(cfg.grid):
+        return "block"
+    return "stacked"
+
+
+def pair_forces_pallas(cfg, ff, pos, types, radii=None, parents=None,
+                       want_bind=False, want_jump=False) -> PairResult:
+    """The ``pallas`` engine's pair pass (``pair_forces_pallas`` of the JAX
+    package): the dense all-pairs pass, the stacked cell-block pass or the
+    cell-block engine, as ``pallas_branch`` picks."""
+    from . import cellblock
+    branch = pallas_branch(cfg, pos.dtype, want_bind, want_jump)
+    if branch == "allpairs":
+        return pair_forces_allpairs(cfg, ff, pos, types, radii, parents,
+                                    want_bind, want_jump)
+    if branch == "stacked":
+        return cellblock.pair_forces_stacked(cfg, ff, pos, types, radii)
+    return cellblock.pair_forces_block(cfg, ff, pos, types, radii, parents,
+                                       want_bind, want_jump)
 
 
 # --------------------------------------------------------------------------
@@ -437,7 +458,8 @@ def _allpairs_cuda(cfg, ff, pos, types, radii, parents, want_bind,
     dev = pos.device
     if pos.dtype != torch.float32:
         raise TypeError("the all-pairs CUDA kernel is f32 only; got "
-                        f"{pos.dtype} (f64 runs on the CPU: --cpu)")
+                        f"{pos.dtype} (the engines send f64 to the cell-block "
+                        "engine)")
     if cfg.n_spec > 32:
         raise ValueError(f"the all-pairs kernel takes at most 32 species "
                          f"(shared-memory table), got {cfg.n_spec}")

@@ -27,11 +27,11 @@ ties inside a tile by species, then global id; the minima carry that
 order as the key ``(jt * nsp + species) * N + id`` and are un-sorted to
 atom order.
 
-Routing: a CPU tensor goes to the plain version, in f32 or f64; a CUDA
-tensor launches the kernel or raises.  The kernel is f32 only.  The JAX
-package sends f64 to its XLA cell-block engine instead
-(``pallas_sparse.py:252``); the port's f64 route is the plain version on
-the CPU, whose ``max_occ`` is still the worklist length.
+Routing: f64 goes to the cell-block engine (``ops/cellblock.py``) on
+either device, as in the JAX package (``pallas_sparse.py:252``), so in f64
+``max_occ`` is cell occupancy.  An f32 CPU tensor goes to the plain
+version; an f32 CUDA tensor launches the kernel or raises.  The kernel is
+f32 only.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ from .allpairs import (_CAND_C, _SM_TARGET_BLOCKS, CandArgs, cand_args,
                        check_tensor, kernel_consts, kernel_tables,
                        pair_terms, plain_candidates, plain_tables,
                        split_candidates)
+from .cellblock import pair_forces_block
 from .pairs import PairResult, pair_result
 
 # launches of csrc/sparse.cu made by pair_forces_sparse, without
@@ -312,9 +313,13 @@ def pair_forces_sparse(cfg, ff, pos, types, radii=None, parents=None,
                        want_bind=False, want_jump=False, tile=None,
                        pair_cap=None) -> PairResult:
     """Morton block-sparse pair pass: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors.  ``max_occ`` carries the worklist
-    length needed; above the capacity the forces of this call are
-    truncated and the runner regrows."""
+    the plain version for CPU tensors, the cell-block engine for f64.
+    In f32 ``max_occ`` carries the worklist length needed; above the
+    capacity the forces of this call are truncated and the runner
+    regrows."""
+    if pos.dtype == torch.float64:
+        return pair_forces_block(cfg, ff, pos, types, radii, parents,
+                                 want_bind, want_jump)
     if pos.device.type == "cpu":
         return pair_forces_sparse_plain(cfg, ff, pos, types, radii, parents,
                                         want_bind, want_jump, tile, pair_cap)
@@ -344,7 +349,8 @@ def _sparse_cuda(cfg, ff, pos, types, radii, parents, want_bind, want_jump,
     dev = pos.device
     if pos.dtype != torch.float32:
         raise TypeError("the sparse CUDA kernel is f32 only; got "
-                        f"{pos.dtype} (f64 runs on the CPU: --cpu)")
+                        f"{pos.dtype} (pair_forces_sparse sends f64 to the "
+                        "cell-block engine)")
     if cfg.n_spec > 32:
         raise ValueError(f"the sparse kernel takes at most 32 species "
                          f"(shared-memory table), got {cfg.n_spec}")

@@ -9,8 +9,9 @@ sample steps and its reset of the histogram after 500 samples.  The
 output files and their rows are the JAX runner's, with stat_bnd.dat and
 jumps.dat for reactive decks and revbonds.txt and lengths.dat at the
 end of a run with bonds.  At each stat row the
-runner reads the block-sparse engine's worklist monitor and regrows its
-capacity (``_check_overflow``).  The JAX package's on-device stat ring,
+runner reads the engine's capacity monitor (the block-sparse worklist
+length or the fullest cell's occupancy) and regrows the capacity
+(``_check_overflow``).  The JAX package's on-device stat ring,
 mesh, debug and profile paths are not ported.
 """
 
@@ -32,7 +33,7 @@ from ..output import writers as W
 from ..core.config import _round_up
 from ..ops import rdf as ops_rdf
 from .checkpoint import save_checkpoint
-from .step import make_multi_step
+from .step import make_multi_step, torch_engine_reason
 
 _ENG_KEYS = ("tot", "kin", "vdw", "coul1", "coul2", "bond", "angle", "temp")
 
@@ -136,9 +137,23 @@ class MDRunner:
                 nucl_number.astype(np.int32), device=self.device)
 
         self.multi = make_multi_step(cfg, self.aux)
+        self._route_note = None
+        self._note_route()
         self.loop_seconds = 0.0
         self.steps_run = 0
         self._t0 = time.time()
+
+    def _note_route(self):
+        """One line on stderr when a run on the card will take the torch
+        cell-block engine instead of a kernel, with the reason; again only
+        when a regrow changes it."""
+        note = None
+        if self.device.type == "cuda":
+            note = torch_engine_reason(self.cfg, self.state.pos.dtype)
+        if note and note != self._route_note:
+            print("NOTE: the pair pass runs the torch cell-block engine on "
+                  f"the card, not a CUDA kernel: {note}", file=sys.stderr)
+        self._route_note = note
 
     # ------------------------------------------------------------------
     def run(self, n_steps: int | None = None):
@@ -220,22 +235,39 @@ class MDRunner:
         self._sample_rest(step)
 
     def _check_overflow(self):
-        """Block-sparse engine: ``cell_overflow`` carries the tile-pair
-        worklist length the steps needed.  Past ``sparse_pair_cap`` those
-        steps lost tile pairs, so grow the capacity (the JAX runner's
-        formula and warning) and rebuild the step.  Unlike the JAX
-        package, whose f64 route is the cell-block engine, the port's f64
-        route runs the same worklist, so this holds in f64 too."""
-        if self.cfg.pair_engine != "sparse":
+        """The capacity monitors, read at stat rows, with the JAX
+        runner's formulas and warnings; a regrow rebuilds the step.
+
+        Block-sparse engine in f32: ``cell_overflow`` carries the
+        tile-pair worklist length the steps needed; past
+        ``sparse_pair_cap`` those steps lost tile pairs.  Every other
+        case (the block engine, the pallas engine, and the sparse engine
+        in f64, which runs the cell-block engine): ``cell_overflow`` is
+        the fullest cell's occupancy (0 from the dense pass); past
+        ``grid.cap`` those steps dropped atoms.  A new ``cap`` changes
+        the modeled block cost, so the pallas dispatcher may take
+        another branch afterwards."""
+        cfg = self.cfg
+        if cfg.pair_engine == "sparse" and cfg.dtype != "f64":
+            need = int(self.state.cell_overflow)
+            if need > cfg.sparse_pair_cap:
+                new_cap = _round_up(need + max(64, need // 4), 64)
+                print(f"WARNING: sparse tile-pair count {need} exceeded "
+                      f"capacity {cfg.sparse_pair_cap}; rebuilding with "
+                      f"pair_cap={new_cap}", file=sys.stderr)
+                self.cfg = dataclasses.replace(cfg, sparse_pair_cap=new_cap)
+                self.multi = make_multi_step(self.cfg, self.aux)
             return
-        need = int(self.state.cell_overflow)
-        if need > self.cfg.sparse_pair_cap:
-            new_cap = _round_up(need + max(64, need // 4), 64)
-            print(f"WARNING: sparse tile-pair count {need} exceeded "
-                  f"capacity {self.cfg.sparse_pair_cap}; rebuilding with "
-                  f"pair_cap={new_cap}", file=sys.stderr)
-            self.cfg = dataclasses.replace(self.cfg, sparse_pair_cap=new_cap)
+        occ = int(self.state.cell_overflow)
+        if occ > cfg.grid.cap:
+            new_cap = _round_up(occ + max(2, occ // 4), 4)
+            print(f"WARNING: cell occupancy {occ} exceeded capacity "
+                  f"{cfg.grid.cap}; rebuilding with cap={new_cap}",
+                  file=sys.stderr)
+            self.cfg = dataclasses.replace(
+                cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
             self.multi = make_multi_step(self.cfg, self.aux)
+            self._note_route()
 
     def _sample_rest(self, step: int):
         """Non-stat sampling: hist/vaf/rdf/traj/revcon/checkpoint."""

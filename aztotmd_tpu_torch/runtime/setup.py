@@ -1,8 +1,8 @@
 """System assembly: parsed decks -> (SimConfig, ForceField, MDState, aux)
-(port of ``aztotmd_tpu/runtime/setup.py``; the Ewald k-tables and
-constant wait for their ROADMAP item, and ``make_step`` refuses an Ewald
-deck until then).  Host init is NumPy with the JAX package's draws in the
-same order, so both packages start from the same state.
+(port of ``aztotmd_tpu/runtime/setup.py``, with the Ewald k-vector
+table and constant energy of an Ewald deck).  Host init is NumPy with
+the JAX package's draws in the same order, so both packages start from
+the same state.
 """
 
 from __future__ import annotations
@@ -15,13 +15,14 @@ import torch
 
 from ..io import (parse_atoms_file, parse_control_file,
                   parse_device_cfg_dir, parse_field_file)
-from ..io.control import (INITVEL_CONST, INITVEL_ENG,
+from ..io.control import (ELEC_EWALD, INITVEL_CONST, INITVEL_ENG,
                           INITVEL_GAUSS, TSTAT_RADI, ControlSpec)
 from ..io.toplists import parse_anglelist_file, parse_bondlist_file
 
 from ..core.config import build_sim_config
 from ..core.ffield import build_forcefield
 from ..core.state import init_state
+from ..ops.elec import ewald_self_energy, make_kvectors
 from ..ops.thermostat import sample_photon_energies
 from .step import StepAux
 
@@ -64,6 +65,11 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
                            pair_engine=pair_engine)
     if not bond_equil_hack:
         cfg = dataclasses.replace(cfg, bond_equil_hack=False)
+    if ctl.elec.type == ELEC_EWALD:
+        # the constant part of the Ewald sum needs the atoms' charges
+        q = np.array([fld.species[t].charge for t in types])
+        cfg = dataclasses.replace(
+            cfg, eng_ewald_const=ewald_self_energy(q, cfg))
     tdt = cfg.torch_dtype
     ff = build_forcefield(fld, ctl.t_step, eps=ctl.elec.eps, dtype=tdt,
                           device=device)
@@ -93,6 +99,11 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
     if cfg.tstat_type == TSTAT_RADI:
         ph = sample_photon_energies(n_at, ctl.tstat.temp, rng)
         aux = StepAux(photons=torch.as_tensor(ph, dtype=tdt, device=device))
+    if cfg.elec_type == ELEC_EWALD:
+        rk, w = make_kvectors(cfg)
+        aux = StepAux(photons=aux.photons,
+                      rk=torch.as_tensor(rk, dtype=tdt, device=device),
+                      kweights=torch.as_tensor(w, dtype=tdt, device=device))
     return cfg, ff, state, aux
 
 

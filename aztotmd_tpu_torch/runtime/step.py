@@ -1,13 +1,15 @@
 """The MD step (port of ``aztotmd_tpu/runtime/step.py`` for engines
-without a neighbor list: the dense "pallas" engine and the block-sparse
-"sparse" engine).
+without a neighbor list: the "pallas" engine (dense all-pairs or stacked
+cell-block pass), the block-sparse "sparse" engine and the cell-block
+"block" engine).
 
 Stage order as in the JAX package:
   [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE, touched reset)
   -> [bond forces, reactive repair and mutation] -> pair forces (+ bind
-  and jump candidates) -> [bond creation] -> [electron jumps] -> verlet2
-  -> apply_tstat -> energies and pressure -> [bond means]
-Ewald reciprocal space and angles are not ported yet; a deck that needs
+  and jump candidates) -> [Ewald reciprocal space] -> [bond creation]
+  -> [electron jumps] -> verlet2 -> apply_tstat -> energies and pressure
+  -> [bond means]
+The Verlet-list engine and angles are not ported yet; a deck that needs
 one raises.  No stage synchronises with the host.
 """
 
@@ -24,17 +26,22 @@ from ..ops import bonds as ops_bonds
 from ..ops import ejump as ops_ejump
 from ..ops import integrate as integ
 from ..ops import thermostat as tstat
-from ..ops.allpairs import pair_forces_dense
+from ..ops.allpairs import pair_forces_pallas, pallas_branch
+from ..ops.cellblock import pair_forces_block
+from ..ops.elec import ewald_recip
 from ..ops.sparse import pair_forces_sparse
 
 # the pair pass of each ported engine
-PAIR_ENGINES = {"pallas": pair_forces_dense, "sparse": pair_forces_sparse}
+PAIR_ENGINES = {"pallas": pair_forces_pallas, "sparse": pair_forces_sparse,
+                "block": pair_forces_block}
 
 
 @dataclasses.dataclass(frozen=True)
 class StepAux:
     """Static auxiliary device data used by the step."""
     photons: torch.Tensor | None = None    # (N,) photon energies
+    rk: torch.Tensor | None = None         # (K, 3) Ewald k-vectors
+    kweights: torch.Tensor | None = None   # (K,) exp(-k^2/4a^2)/k^2
 
 
 def _check_supported(cfg):
@@ -42,23 +49,43 @@ def _check_supported(cfg):
     missing = []
     if cfg.pair_engine not in PAIR_ENGINES:
         missing.append(f"pair engine {cfg.pair_engine!r} ('neighbor "
-                       "engine (case study 1)' or 'K3 + cellblock')")
+                       "engine (case study 1)')")
     if cfg.use_angl:
         missing.append("valence angles ('angles, with the neighbor "
                        "engine')")
-    if cfg.elec_type == ELEC_EWALD:
-        missing.append("Ewald reciprocal space ('Ewald')")
     if missing:
         raise NotImplementedError(
             "not ported yet (ROADMAP.md: modules to port): "
             + "; ".join(missing))
 
 
+def torch_engine_reason(cfg, dtype) -> str | None:
+    """Why this configuration's pair pass is the cell-block engine (torch
+    ops, thousands of small launches a pass on the card) rather than a
+    CUDA kernel, or None when a kernel runs it.  ``dtype`` is the state's
+    floating type."""
+    if cfg.pair_engine == "block":
+        return 'the deck selects the "block" engine'
+    if dtype == torch.float64:
+        return "the kernels are f32 only and f64 takes the cell-block engine"
+    if cfg.pair_engine == "pallas":
+        want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
+        want_jump = cfg.ejtype != 0
+        if pallas_branch(cfg, dtype, want_bind, want_jump) == "block":
+            if want_bind or want_jump:
+                return ("the stacked cell-block kernel has no bind/jump "
+                        "candidates")
+            return (f"the grid {cfg.grid.dims} with {len(cfg.grid.stencil)} "
+                    "stencil offsets is outside the stacked cell-block "
+                    "kernel (3 cells a side, offsets within +-1)")
+    return None
+
+
 def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
     """Build step(state, ff) -> state.
 
     ``pair_fn`` replaces the engine's pair pass (same signature as
-    ``ops.allpairs.pair_forces_dense``); checks use it to run the plain
+    ``ops.allpairs.pair_forces_pallas``); checks use it to run the plain
     version on the card.
     """
     _check_supported(cfg)
@@ -99,6 +126,14 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
         eng_coul2 = torch.zeros((), dtype=fdt, device=dev)
         eng_coul3 = torch.full((), cfg.eng_ewald_const, dtype=fdt,
                                device=dev)
+
+        # --- Ewald reciprocal space ---
+        if cfg.elec_type == ELEC_EWALD:
+            frc_r, eng_r = ewald_recip(cfg, state.pos,
+                                       ff.spec_charge[state.types.long()],
+                                       aux.rk, aux.kweights)
+            state = state.replace(frc=state.frc + frc_r)
+            eng_coul2 = eng_r.to(fdt)
 
         # --- new bonds from the candidates ---
         if want_bind:

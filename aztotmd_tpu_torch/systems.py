@@ -10,6 +10,9 @@ were made by ``tools/make_examples.py``) and smaller decks of the same
 shape for tests; ``tile_deck`` replicates a deck k x k x k at the same
 density.  ``write_lj_deck`` writes the same argon deck as
 ``aztotmd_tpu.systems.write_lj_deck``, without JAX.
+``write_liquid_argon_deck`` writes ``examples/liquid_argon/``, the uniform
+LJ liquid that the cell-block engines run; ``liquid_argon_specs`` is the
+same system at test sizes.
 """
 
 from __future__ import annotations
@@ -296,6 +299,98 @@ Fe3 O 2.4 1
     return ctl, fld, box, pos, types, None
 
 
+# argon LJ parameters (the reference's case study 1 field)
+AR_EPS = 0.01006        # eV
+AR_SIG = 3.3952         # A
+
+
+def lattice_positions(n_atoms: int, density: float,
+                      jitter: float = 0.05, seed: int = 0):
+    """Jittered cubic lattice filling a cubic box at the number density
+    ``density`` (atoms/A^3), as ``aztotmd_tpu.systems.lattice_positions``:
+    (positions wrapped into the box, box length)."""
+    rng = np.random.default_rng(seed)
+    box = (n_atoms / density) ** (1.0 / 3.0)
+    n_side = int(np.ceil(n_atoms ** (1.0 / 3.0)))
+    spacing = box / n_side
+    g = (np.arange(n_side) + 0.5) * spacing
+    pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
+    pos = pos[:n_atoms] + rng.uniform(-jitter, jitter, (n_atoms, 3)) * spacing
+    return pos % box, box
+
+
+def write_liquid_argon_deck(path, n_side: int = 32, density: float = 0.021,
+                            rcut: float = 8.5, steps: int = 10000,
+                            seed: int = 7):
+    """Write the liquid-argon deck of ``examples/liquid_argon/``:
+    n_side^3 Ar atoms on a jittered cubic lattice at ``density`` atoms/A^3
+    (32,768 atoms in a 115.987 A box at the liquid's 0.021), LJ with
+    eps 0.01006 eV and sigma 3.3952 A cut at ``rcut`` (2.5 sigma), no
+    Coulomb, Nose-Hoover at 90 K, dt 1 fs, stat and an RDF sample (to
+    10 A in 0.05 A bins) every 200 steps.  A uniform liquid: the engine
+    auto-selection takes it to the cell-block engine."""
+    os.makedirs(path, exist_ok=True)
+    n = n_side ** 3
+    pos, box = lattice_positions(n, density, seed=seed)
+    with open(os.path.join(path, "atoms.xyz"), "w") as f:
+        f.write(f"{n}\n1 {box:.6f} {box:.6f} {box:.6f}\n")
+        for p in pos:
+            f.write(f"Ar\t{p[0]:.6f}\t{p[1]:.6f}\t{p[2]:.6f}\n")
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.001 ps
+nstep {steps}
+nequil 500
+eqfreq 100
+temperature 90.0\tnose\t0.5
+init_vel\tgaus
+
+permittivity 1.0
+elec\tnone
+
+rdf\t10.0 0.05\t200\t0\t-nucl
+stat\t200
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write(f"""spec 1
+Ar\tAr\t39.948\t0.0\t0.0
+red-ox 0
+vdw 1
+Ar\tAr\tlnjs\t{rcut}\t{AR_EPS}\t{AR_SIG}
+""")
+
+
+def liquid_argon_specs(n_atoms: int = 2048, density: float = 0.012,
+                       rcut: float = 4.0, seed: int = 17, nsp: int = 1,
+                       elec: int = 0, radii: bool = False):
+    """A uniform fluid on ``lattice_positions`` for the cell-block
+    checks: argon LJ (the system of ``aztotmd_tpu.systems.build_lj_argon``)
+    or, with ``nsp``/``elec``/``radii``, the species and pairs of
+    ``_pair_field`` on the same positions.  Returns (ctl, fld, box, pos,
+    types, radii-or-None) as host specs."""
+    pos, box = lattice_positions(n_atoms, density, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if nsp == 1 and not elec and not radii:
+        f = FieldSpec()
+        f.species = [SpeciesSpec(name="Ar", nuclei=0,
+                                 mass=39.9 * units.M_SCALE, charge=0.0,
+                                 energy=0.0)]
+        f.nnames = ["Ar"]
+        f.nnumbers = [0]
+        f.pairpots = [VdWSpec(type=VDW_LJ, spec1=0, spec2=0,
+                              r2cut=rcut * rcut, p0=4 * AR_EPS,
+                              p1=AR_SIG * AR_SIG, p2=24 * AR_EPS)]
+        f.vdw_index = [[0]]
+        f.maxRvdw = rcut
+        ctl = ControlSpec(t_step=0.001, n_step=100,
+                          tstat=TStatSpec(type=0, temp=120.0, tau=0.5),
+                          elec=ElecSpec(type=0))
+    else:
+        ctl, f = _pair_field(nsp, elec, radii, rcut)
+    types = np.asarray(rng.integers(0, nsp, n_atoms), np.int32)
+    rad = 0.577 + 0.1 * rng.uniform(size=n_atoms) if radii else None
+    return ctl, f, box, pos, types, rad
+
+
 def write_lj_deck(path, n_side=9, box=40.0, steps=300, seed=5):
     """Write the small Ar LJ deck (radiative thermostat + RDF) that
     ``aztotmd_tpu.systems.write_lj_deck`` writes, byte for byte."""
@@ -435,8 +530,9 @@ def family_specs(fam: str):
 def pair_system(specs, dtype: str = "f32", device=None,
                 pair_engine: str = "pallas"):
     """(cfg, ff, pos, types, radii) tensors of host specs for a pair
-    pass, the engine forced to ``pair_engine`` ("pallas" for the dense
-    kernel, "sparse" for the block-sparse one)."""
+    pass, the engine forced to ``pair_engine`` ("pallas" for the dense or
+    stacked cell-block kernel, "sparse" for the block-sparse one, "block"
+    for the cell-block engine)."""
     import torch
     from .core.config import build_sim_config
     from .core.ffield import build_forcefield
@@ -453,5 +549,9 @@ def pair_system(specs, dtype: str = "f32", device=None,
 
 if __name__ == "__main__":
     import sys
-    write_surkov_cluster_deck(sys.argv[1] if len(sys.argv) > 1
-                              else os.path.join("examples", "surkov_cluster"))
+    dest = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        "examples", "surkov_cluster")
+    if os.path.basename(os.path.normpath(dest)) == "liquid_argon":
+        write_liquid_argon_deck(dest)
+    else:
+        write_surkov_cluster_deck(dest)

@@ -6,9 +6,9 @@
 Run from the root of a checkout.  It builds the port's CUDA kernels
 (csrc/allpairs.cu: K1 and K1-cand, the dense pass without and with the
 fused bind/jump candidates; csrc/sparse.cu: K4 and K4-cand, the Morton
-block-sparse pass) for sm_90a from the checkout, one nvcc each, in
-parallel, and then, for each kernel, checks it against its plain
-PyTorch version on the card:
+block-sparse pass; csrc/cellblock.cu: K3, the stacked cell-block pass)
+for sm_90a from the checkout, one nvcc each, in parallel, and then, for
+each kernel, checks it against its plain PyTorch version on the card:
   K1, the dense pair pass: the Surkov slice deck's 4,000-atom state,
       every VdW family, three species with direct/Ewald/Fennel Coulomb
       and radii, ragged N;
@@ -17,6 +17,10 @@ PyTorch version on the card:
       species, direct/Ewald/Fennel and radii, ragged N (N not a multiple
       of T, and N < T) and a truncated worklist (max_occ equal, tiles no
       entry visits exactly zero);
+  K3, the stacked cell-block pass: the liquid_argon deck's 32,768-atom
+      state (13^3 cells of 46 slots), two species with Fennel Coulomb,
+      Surkov with radii, and a capacity below the fullest cell (dropped
+      atoms get zero force on both sides, max_occ equal);
   K1-cand: the reactive_polymer state after 300 plain steps (parents
       set), the ejump_redox state, the three-species bind + jump system
       with direct Coulomb, ragged N;
@@ -27,14 +31,17 @@ It drives each kernel's path, with every launch count set to 0 just
 before and read just after: through the ``run`` CLI
 examples/surkov_cluster (K1), examples/nanoclusters (K4, Nose-Hoover,
 cell-list RDF), examples/reactive_polymer and examples/ejump_redox
-(K1-cand: bonds form, break and mutate; electrons jump), and through
-the runner the two tiled decks on the sparse engine (K4-cand).  It
+(K1-cand: bonds form, break and mutate; electrons jump) and
+examples/molten_salt (K1 plus the Ewald reciprocal sum), and through
+the runner the two tiled decks on the sparse engine (K4-cand) and
+examples/liquid_argon on the pallas engine (K3); liquid_argon also runs
+through the CLI on "auto", the cell-block engine in torch ops.  It
 checks that every pair pass went through that path's kernel, that
 stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
 (stat_bnd.dat, jumps.dat) and revbonds.txt and lengths.dat were
 written.  It compares 20 steps with each kernel against 20 steps with
 its plain version (the reactive decks' topology and RNG words exactly),
-profiles 100 bare steps of each deck, and times the kernels, their
+profiles bare steps of each deck, and times the kernels, their
 wrappers and plain versions at the paths' sizes with CUDA events, beside
 a lower bound computed from an operation count read off
 csrc/pair_physics.cuh.  Any failure exits non-zero.  The last line of standard output is {"ok": true, "device":
@@ -60,8 +67,13 @@ SURKOV_DECK = os.path.join(HERE, "examples", "surkov_cluster")
 NANO_DECK = os.path.join(HERE, "examples", "nanoclusters")
 POLY_DECK = os.path.join(HERE, "examples", "reactive_polymer")
 EJUMP_DECK = os.path.join(HERE, "examples", "ejump_redox")
-SLICE_STEPS = 2000
-TILED_STEPS = 200        # runs of the 3x3x3 tiled reactive decks (K4-cand)
+ARGON_DECK = os.path.join(HERE, "examples", "liquid_argon")
+SALT_DECK = os.path.join(HERE, "examples", "molten_salt")
+SLICE_STEPS = 1000       # the four decks of the earlier slices
+NEW_STEPS = 2000         # liquid_argon on K3, molten_salt
+TILED_STEPS = 200        # the 3x3x3 tiled reactive decks (K4-cand), and
+                         # liquid_argon on the torch cell-block engine
+PROFILE_STEPS = 50
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
 ENERGY_REL = 1e-4
 TRAJ_POS_ATOL = 1e-4     # A after 20 steps, f32
@@ -84,8 +96,11 @@ PEAK_BYTES = 3.35e12     # HBM3 bytes/s
 # arithmetic and the compares of cand_pair/cand_update, counted at the
 # FP32 issue rate.
 OPS_SLOT = 21
-OPS_PAIR = {"lnjs": 24, "surk": 40, "buck+dir": 36}
-MUFU_PAIR = {"lnjs": 1, "surk": 2, "buck+dir": 3}
+# K3 shifts the neighbor cells by the periodic image when it stages them,
+# so a slot pair costs the displacement, r2 and the cutoff test only
+OPS_SLOT_SHIFTED = 9
+OPS_PAIR = {"lnjs": 24, "surk": 40, "buck+dir": 36, "bmhs+ewald": 62}
+MUFU_PAIR = {"lnjs": 1, "surk": 2, "buck+dir": 3, "bmhs+ewald": 4}
 OPS_CAND = 10
 
 
@@ -208,23 +223,18 @@ def pairs_in_range(torch, cfg, pos, rows=1024):
     return n - cfg.n_at                    # the self pairs have r2 = 0
 
 
-def bound(slot_pairs, pairs, fam, nbytes):
-    """(bound_ms, bound_by, detail) from this run's counts."""
-    fp32 = (slot_pairs * OPS_SLOT + pairs * OPS_PAIR[fam]) / PEAK_FP32
-    mufu = pairs * MUFU_PAIR[fam] / PEAK_MUFU
-    t_bytes = nbytes / PEAK_BYTES
-    detail = (f"FP32 {fp32 * 1e3:.4g} ms, MUFU {mufu * 1e3:.4g} ms, "
-              f"bytes {t_bytes * 1e3:.4g} ms")
-    which = "operations" if max(fp32, mufu) >= t_bytes else "bytes"
-    return max(fp32, mufu, t_bytes) * 1e3, which, detail
-
-
 def bound(slot_pairs, pairs, fam, nbytes, cand=False):
     """(bound_ms, bound_by, detail) from this run's counts."""
     fp32 = (slot_pairs * OPS_SLOT + pairs * (OPS_PAIR[fam]
-                                              + (OPS_CAND if cand else 0))
+                                             + (OPS_CAND if cand else 0))
             ) / PEAK_FP32
     mufu = pairs * MUFU_PAIR[fam] / PEAK_MUFU
+    return bound_of(fp32, mufu, nbytes)
+
+
+def bound_of(fp32, mufu, nbytes):
+    """(bound_ms, bound_by, detail) of FP32 seconds, MUFU seconds and the
+    bytes moved."""
     t_bytes = nbytes / PEAK_BYTES
     detail = (f"FP32 {fp32 * 1e3:.4g} ms, MUFU {mufu * 1e3:.4g} ms, "
               f"bytes {t_bytes * 1e3:.4g} ms")
@@ -324,8 +334,8 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
     return dpos
 
 
-def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev, n=100,
-                  **load_kw):
+def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev,
+                  n=PROFILE_STEPS, **load_kw):
     """Device busy time and the kernels that take it over ``n`` bare steps
     (no output, no RDF), from torch.profiler; "not measured" when the
     profiler records no device activity on this machine.  Returns the
@@ -412,7 +422,8 @@ def run(dev, out):
     import torch
     from aztotmd_tpu_torch import systems
     from aztotmd_tpu_torch.__main__ import main as cli
-    from aztotmd_tpu_torch.ops import allpairs, cuda_build, sparse
+    from aztotmd_tpu_torch.ops import allpairs, cellblock, cuda_build, sparse
+    from aztotmd_tpu_torch.ops.elec import ewald_recip
     from aztotmd_tpu_torch.runtime.runner import MDRunner
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
     from aztotmd_tpu_torch.runtime.step import make_multi_step
@@ -420,11 +431,12 @@ def run(dev, out):
     card = card_line()
     log(card)
     toolchain(torch, cuda_build)
-    build_all(cuda_build, ["allpairs", "sparse"])
+    build_all(cuda_build, ["allpairs", "sparse", "cellblock"])
     counters = {"allpairs": (allpairs, "launches"),
                 "allpairs_cand": (allpairs, "cand_launches"),
                 "sparse": (sparse, "launches"),
-                "sparse_cand": (sparse, "cand_launches")}
+                "sparse_cand": (sparse, "cand_launches"),
+                "cellblock": (cellblock, "launches")}
 
     # --- K1 against its plain version ---
     phase("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "
@@ -534,6 +546,42 @@ def run(dev, out):
     compare(torch, *k4, "ejump_redox x3 (jump, direct Coulomb)", *k4c_ej,
             **k4c_ej_kw)
 
+    # --- K3 against its plain version ---
+    phase("K3 (cellblock, stacked pass) vs plain (forces atol "
+          "3e-5*max|F|, energies rel 1e-4, max_occ exact):")
+    k3 = (cellblock.pair_forces_stacked, cellblock.pair_forces_stacked_plain)
+    d = load_deck_dir(ARGON_DECK, device=dev, pair_engine="pallas")
+    st = d["state"]
+    g = d["cfg"].grid
+    check(allpairs.pallas_branch(d["cfg"], torch.float32) == "stacked",
+          "liquid_argon on the pallas engine does not take the stacked pass")
+    log(f"  liquid_argon: grid {g.dims} cap {g.cap}, "
+        f"{len(cellblock.full_stencil(g))} cells a block, half-stencil slot "
+        f"pairs {14 * g.cap * g.cap * g.n_cell}")
+    k3_args = (d["cfg"], d["ff"], st.pos, st.types, None)
+    k3_err, k3_res = compare(torch, *k3, "liquid_argon deck", *k3_args)
+    fluid = lambda **kw: systems.pair_system(
+        systems.liquid_argon_specs(**kw), device=dev)
+    compare(torch, *k3, "nsp=2 Fennel", *fluid(nsp=2, elec=3))
+    compare(torch, *k3, "nsp=3 Ewald real + radii",
+            *fluid(nsp=3, elec=2, radii=True))
+    compare(torch, *k3, "Surkov + radii", *fluid(radii=True))
+    compare(torch, *k3, "ragged N=5000, rcut 8.5",
+            *fluid(n_atoms=5000, density=0.021, rcut=8.5))
+    occ = int(k3_res.max_occ)
+    small = dataclasses.replace(d["cfg"], grid=dataclasses.replace(
+        g, cap=occ - 4))
+    _, cut = compare(torch, *k3, f"liquid_argon cap={occ - 4} < {occ}",
+                     small, *k3_args[1:])
+    dropped = cellblock.cell_table(small, st.pos, st.types)["slot_of_atom"] \
+        == small.grid.n_cell * small.grid.cap
+    check(int(cut.max_occ) == occ and int(dropped.sum()) > 0
+          and bool((cut.frc[dropped] == 0).all())
+          and bool((cut.frc[~dropped] != 0).any(1).all()),
+          "atoms past the capacity are not exactly the zero-force atoms")
+    log(f"  over capacity: max_occ {int(cut.max_occ)}, "
+        f"{int(dropped.sum())} dropped atoms with exactly zero force")
+
     # --- each path, counts set to 0 just before and read just after ---
     phase("the decks' paths")
     runs = {}
@@ -559,7 +607,37 @@ def run(dev, out):
             cli, counters, f"{nm} x3 (sparse engine)", None,
             os.path.join(out, nm + "_x3_run"), TILED_STEPS,
             runner_fn=sparse_run(tiled[nm]))
+    def argon_k3(o):
+        r = MDRunner(load_deck_dir(ARGON_DECK, device=dev,
+                                   pair_engine="pallas"),
+                     out_dir=o, quiet=True)
+        r.run(NEW_STEPS)
+        r.finalize()
+        return r
+
+    runs["liquid_argon"] = drive(
+        cli, counters, "liquid_argon (pallas engine, K3)", None,
+        os.path.join(out, "liquid_argon"), NEW_STEPS, runner_fn=argon_k3)
+    runs["liquid_argon_block"] = drive(
+        cli, counters, "liquid_argon (auto: torch cell-block engine)",
+        ARGON_DECK, os.path.join(out, "liquid_argon_block"), TILED_STEPS)
+    check(runs["liquid_argon_block"][0].cfg.pair_engine == "block",
+          "liquid_argon is not auto-selected to the block engine")
+    runs["molten_salt"] = drive(cli, counters, "molten_salt", SALT_DECK,
+                                os.path.join(out, "molten_salt"), NEW_STEPS)
+    c2 = [r[6] for r in read_table(os.path.join(out, "molten_salt",
+                                                "stat.dat"), 2)]
+    check(all(v == v and abs(v) < 1e30 and v != 0.0 for v in c2),
+          "molten_salt coul2 zero or not finite")
+    log(f"  molten_salt: engCoul2 (Ewald reciprocal) {c2[0]:.4f} .. "
+        f"{c2[-1]:.4f} eV over {len(c2)} rows, constant "
+        f"{runs['molten_salt'][0].cfg.eng_ewald_const:.4f} eV")
+    r = runs["liquid_argon"][0]
+    log(f"  liquid_argon cell cap: {g.cap} at start, {r.cfg.grid.cap} at "
+        f"end; fullest cell seen {int(r.state.cell_overflow)}")
     expect = {"surkov_cluster": "allpairs", "nanoclusters": "sparse",
+              "liquid_argon": "cellblock", "liquid_argon_block": None,
+              "molten_salt": "allpairs",
               "reactive_polymer": "allpairs_cand",
               "ejump_redox": "allpairs_cand",
               "reactive_polymer_x3": "sparse_cand",
@@ -568,7 +646,7 @@ def run(dev, out):
         runner, launches, _ = runs[nm]
         want = {k: (runner.steps_run if k == kern else 0) for k in counters}
         check(launches == want, f"the {nm} run's pair passes did not all go "
-              f"through {kern}")
+              f"through {kern or 'torch ops'}")
     runner = runs["nanoclusters"][0]
     log(f"  nanoclusters sparse pair_cap: {cap} at start, "
         f"{runner.cfg.sparse_pair_cap} at end "
@@ -589,12 +667,23 @@ def run(dev, out):
         trajectories(torch, load_deck_dir, make_multi_step, nm, deck, dev,
                      plain_pair(k1[1]))
 
+    trajectories(torch, load_deck_dir, make_multi_step, "liquid_argon",
+                 ARGON_DECK, dev,
+                 lambda c, f, p, t, radii=None, **kw: k3[1](c, f, p, t, radii),
+                 pair_engine="pallas")
+    trajectories(torch, load_deck_dir, make_multi_step, "molten_salt",
+                 SALT_DECK, dev, plain_pair(k1[1]))
+
     # --- where a step's time goes (the profiler adds its own cost) ---
     phase("profiles")
     prof = {}
-    for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK):
+    for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK, SALT_DECK):
         prof[deck] = profile_steps(torch, load_deck_dir, make_multi_step,
                                    deck, dev)
+    prof[ARGON_DECK] = profile_steps(torch, load_deck_dir, make_multi_step,
+                                     ARGON_DECK, dev, pair_engine="pallas")
+    profile_steps(torch, load_deck_dir, make_multi_step, ARGON_DECK, dev,
+                  n=10)                      # "auto": the torch block engine
     poly_x3 = tiled["reactive_polymer"]
     prof[poly_x3] = profile_steps(torch, load_deck_dir, make_multi_step,
                                   poly_x3, dev, pair_engine="sparse")
@@ -634,8 +723,18 @@ def run(dev, out):
             c = dataclasses.replace(c, parents=S.parents)
         return lambda: sparse.launch(cfg, *tab, S, c)
 
+    def k3_alone(args, kw):
+        cfg = args[0]
+        tab = allpairs.kernel_tables(cfg, args[1], dev)
+        T = cellblock.cell_table(cfg, args[2], args[3])
+        return lambda: cellblock.launch(cfg, *tab, T)
+
+    d = load_deck_dir(SALT_DECK, device=dev)
+    salt_args = (d["cfg"], d["ff"], d["state"].pos, d["state"].types, None)
     times = {}
     for key, fns, args, kw, alone in (
+            ("K3", k3, k3_args, {}, k3_alone),
+            ("K1 molten_salt", k1, salt_args, {}, k1_alone),
             ("K1", k1, k1_args, {}, k1_alone),
             ("K1-cand reactive_polymer", k1, k1c_poly, k1c_poly_kw,
              k1_alone),
@@ -645,6 +744,23 @@ def run(dev, out):
              k4_alone),
             ("K4-cand ejump_redox x3", k4, k4c_ej, k4c_ej_kw, k4_alone)):
         times[key] = timing(key, fns, args, kw, alone(args, kw))
+
+    block_cfg = dataclasses.replace(k3_args[0], pair_engine="block")
+    n_block = 4
+    block_ms, = timed(torch, [lambda: cellblock.pair_forces_block(
+        block_cfg, *k3_args[1:])], n=n_block)
+    log(f"timing torch cell-block engine N={block_cfg.n_at}: "
+        f"{block_ms:.4f} ms per pass (median of {2 * n_block}, CUDA events) "
+        f"on {card}")
+    sa = d["state"]
+    charge = d["ff"].spec_charge[sa.types.long()]
+    n_ewald = 10
+    ewald_ms, = timed(torch, [lambda: ewald_recip(
+        d["cfg"], sa.pos, charge, d["aux"].rk, d["aux"].kweights)],
+        n=n_ewald)
+    log(f"timing Ewald reciprocal sum N={d['cfg'].n_at} "
+        f"K={d['aux'].rk.shape[0]}: {ewald_ms:.4f} ms per call (torch ops "
+        f"and two matmuls in full f32, median of {2 * n_ewald}) on {card}")
 
     # --- bounds from this run's inputs ---
     phase("bounds")
@@ -668,7 +784,37 @@ def run(dev, out):
         return (need4 * T4 * T4, pairs,
                 bound(need4 * T4 * T4, pairs, fam, nb, cand))
 
-    bounds = {"K1": k1_bound(k1_args, "surk", False),
+    def k3_bound(args):
+        # the work the function needs on this run's data, whichever
+        # stencil the kernel walks: the pairs of filled slots that the
+        # Newton half stencil brings together (unordered in the own cell,
+        # cell against cell in the 13 neighbors), each at the cost of a
+        # displacement, r2 and the cutoff test on pre-shifted images, and
+        # the unordered pairs in range at the cost of the physics
+        cfg = args[0]
+        gr = cfg.grid
+        cnt = cellblock.cell_table(cfg, args[2], args[3])["cnt"].reshape(
+            gr.dims).long()
+        half = cellblock.half_stencil(gr)
+        filled = int((cnt * (cnt - 1) // 2).sum())
+        for off in half[1:]:
+            nbr = torch.roll(cnt, [-o for o in off], [0, 1, 2])
+            filled += int((cnt * nbr).sum())
+        padded = len(half) * gr.cap * gr.cap * gr.n_cell
+        log(f"K3 half stencil: {filled} pairs of filled slots of {padded} "
+            f"padded slot pairs ({len(half)} cells x cap {gr.cap}^2 x "
+            f"{gr.n_cell} cells; the TPU kernel walks the padded ones); the "
+            "bound counts the filled ones")
+        pairs = pairs_in_range(torch, cfg, args[2]) // 2
+        nb = cfg.n_at * (12 + 4 + 12) + 8
+        fp32 = (filled * OPS_SLOT_SHIFTED + pairs * OPS_PAIR["lnjs"]
+                ) / PEAK_FP32
+        mufu = pairs * MUFU_PAIR["lnjs"] / PEAK_MUFU
+        return filled, pairs, bound_of(fp32, mufu, nb)
+
+    bounds = {"K3": k3_bound(k3_args),
+              "K1 molten_salt": k1_bound(salt_args, "bmhs+ewald", False),
+              "K1": k1_bound(k1_args, "surk", False),
               "K1-cand reactive_polymer": k1_bound(k1c_poly, "lnjs", True),
               "K1-cand ejump_redox": k1_bound(k1c_ej, "buck+dir", True),
               "K4": k4_bound(k4_args, {}, "lnjs", False),
@@ -700,6 +846,7 @@ def run(dev, out):
         return rec
 
     l = {nm: r[1] for nm, r in runs.items()}
+    salt = times["K1 molten_salt"]
     k1c_launch = (l["reactive_polymer"]["allpairs_cand"]
                   + l["ejump_redox"]["allpairs_cand"])
     k4c_launch = (l["reactive_polymer_x3"]["sparse_cand"]
@@ -709,9 +856,21 @@ def run(dev, out):
     return [
         entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
               "aztotmd_tpu/ops/pallas_pair.py:335",
-              l["surkov_cluster"]["allpairs"], k1_err, "K1",
+              l["surkov_cluster"]["allpairs"] + l["molten_salt"]["allpairs"],
+              k1_err, "K1",
               {"profiler_ms": prof_ms(SURKOV_DECK, "allpairs_kernel<false, "
-                                      "false, false>")}),
+                                      "false, false>"),
+               "molten_salt": {
+                   "ms": salt[0], "kernel_ms": salt[1], "plain_ms": salt[2],
+                   "bound_ms": bounds["K1 molten_salt"][2][0],
+                   "profiler_ms": prof_ms(SALT_DECK, "allpairs_kernel<false, "
+                                          "false, false>"),
+                   "ewald_recip_ms": ewald_ms}}),
+        entry("cellblock", "aztotmd_tpu_torch/csrc/cellblock.cu",
+              "aztotmd_tpu/ops/pallas_pair.py:120",
+              l["liquid_argon"]["cellblock"], k3_err, "K3",
+              {"profiler_ms": prof_ms(ARGON_DECK, "cellblock_kernel"),
+               "torch_block_engine_ms": block_ms}),
         entry("allpairs_cand", "aztotmd_tpu_torch/csrc/allpairs.cu",
               "aztotmd_tpu/ops/pallas_pair.py:264", k1c_launch, k1c_err,
               "K1-cand reactive_polymer",

@@ -33,8 +33,8 @@ torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_DECK = os.path.join(ROOT, "examples", "surkov_cluster")
-EXAMPLES = ["bonded_fluid", "ejump_redox", "molten_salt", "nanoclusters",
-            "reactive_polymer"]
+EXAMPLES = ["bonded_fluid", "ejump_redox", "liquid_argon", "molten_salt",
+            "nanoclusters", "reactive_polymer"]
 
 
 def _specs(deck):
@@ -195,6 +195,10 @@ def test_other_engines_raise_naming_roadmap_item(lj_deck):
     assert d["cfg"].pair_engine == "neighbor"
     with pytest.raises(NotImplementedError, match="neighbor engine"):
         make_step(d["cfg"], d["aux"])
+    # the block engine and Ewald decks build their steps
+    for name in ("molten_salt", "liquid_argon"):
+        d = load_deck_dir(os.path.join(ROOT, "examples", name))
+        assert callable(make_step(d["cfg"], d["aux"]))
 
 
 @pytest.mark.parametrize("name", ["reactive_polymer", "ejump_redox"])
@@ -208,6 +212,26 @@ def test_reactive_deck_writers_reproduce_examples(name, tmp_path):
         assert filecmp.cmp(str(tmp_path / f),
                            os.path.join(ROOT, "examples", name, f),
                            shallow=False), f
+
+
+def test_lattice_positions_and_argon_specs_equal_jax():
+    """``lattice_positions`` is JAX's, and ``liquid_argon_specs`` gives
+    the config of ``aztotmd_tpu.systems.build_lj_argon``."""
+    from aztotmd_tpu.systems import build_lj_argon, lattice_positions
+    pos, box = systems.lattice_positions(700, 0.021, seed=4)
+    jpos, jbox = lattice_positions(700, 0.021, seed=4)
+    assert box == jbox
+    np.testing.assert_array_equal(pos, jpos)
+    jcfg, _, jstate, _ = build_lj_argon(n_atoms=2048, density=0.012,
+                                        dtype="f32", seed=17,
+                                        pair_engine="pallas")
+    cfg, _, tp, _, _ = systems.pair_system(systems.liquid_argon_specs(),
+                                           "f32")
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jstate.pos))
+    skip = ("deg_free", "te_kin", "temp")
+    a, b = dataclasses.asdict(cfg), dataclasses.asdict(jcfg)
+    assert {k: v for k, v in a.items() if k not in skip} \
+        == {k: v for k, v in b.items() if k not in skip}
 
 
 def test_tile_deck_replicates_at_the_same_density(tmp_path):

@@ -15,7 +15,7 @@ import torch
 
 from aztotmd_tpu_torch import systems
 from aztotmd_tpu_torch.__main__ import main as cli
-from aztotmd_tpu_torch.ops import allpairs, sparse
+from aztotmd_tpu_torch.ops import allpairs, cellblock, sparse
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
 from aztotmd_tpu_torch.runtime.step import make_step
 
@@ -87,20 +87,47 @@ def test_kernel_refuses_f64_and_bad_inputs(cuda):
 
 @pytest.mark.cuda
 def test_f64_step_on_the_card_raises(cuda, tmp_path):
-    """f64 has no kernel: a step on the card raises rather than running
-    the plain version there."""
+    """f64 has no kernel: each kernel wrapper raises on an f64 CUDA tensor
+    rather than running its plain version there, and launches nothing."""
     deck = str(tmp_path / "deck")
     systems.write_surkov_cluster_deck(deck, n_atoms=300, box=20.0,
                                       steps=10, n_equil=5)
     d = load_deck_dir(deck, dtype="f64", device=cuda)
-    step = make_step(d["cfg"], d["aux"])
-    before = allpairs.launches
+    st = d["state"]
+    before = (allpairs.launches, cellblock.launches, sparse.launches)
     with pytest.raises(TypeError, match="f32 only"):
-        step(d["state"], d["ff"])
+        allpairs.pair_forces_allpairs(d["cfg"], d["ff"], st.pos, st.types,
+                                      st.radii)
     with pytest.raises(TypeError, match="f32 only"):
-        cli(["run", deck, "--dtype", "f64", "--steps", "2", "--quiet",
+        cellblock._stacked_cuda(d["cfg"], d["ff"], st.pos, st.types,
+                                st.radii)
+    assert (allpairs.launches, cellblock.launches, sparse.launches) == before
+
+
+@pytest.mark.cuda
+def test_f64_run_on_the_card_takes_the_block_engine_and_says_so(
+        cuda, tmp_path, capsys):
+    """An f64 step on the card runs the cell-block engine (torch ops), as
+    the JAX package routes f64; the runner says so once on stderr, and an
+    f32 run of the same deck (K1) does not."""
+    deck = str(tmp_path / "deck")
+    systems.write_surkov_cluster_deck(deck, n_atoms=300, box=20.0,
+                                      steps=10, n_equil=5)
+    d = load_deck_dir(deck, dtype="f64", device=cuda)
+    before = (allpairs.launches, cellblock.launches)
+    out = make_step(d["cfg"], d["aux"])(d["state"], d["ff"])
+    assert out.pos.dtype == torch.float64 and int(out.cell_overflow) > 0
+    r = cli(["run", deck, "--dtype", "f64", "--steps", "2", "--quiet",
              "-o", str(tmp_path / "out")])
-    assert allpairs.launches == before
+    assert int(r.state.step) == 2
+    assert (allpairs.launches, cellblock.launches) == before
+    err = capsys.readouterr().err
+    assert err.count("NOTE: the pair pass runs the torch cell-block") == 1
+    assert "f64 takes the cell-block engine" in err
+    cli(["run", deck, "--steps", "2", "--quiet", "-o",
+         str(tmp_path / "out32")])
+    assert allpairs.launches == before[0] + 2
+    assert "NOTE" not in capsys.readouterr().err
 
 
 # --- the Morton block-sparse kernel (csrc/sparse.cu) ---
@@ -168,8 +195,15 @@ def test_sparse_kernel_refuses_f64(cuda):
         pair_engine="sparse")
     before = sparse.launches
     with pytest.raises(TypeError, match="f32 only"):
-        sparse.pair_forces_sparse(cfg, ff, pos.double(), types,
-                                  rad.double())
+        sparse._sparse_cuda(cfg, ff, pos.double(), types, rad.double(),
+                            None, False, False, None, None)
+    # the engine itself sends f64 to the cell-block engine: max_occ is the
+    # fullest cell's occupancy and nothing is launched
+    pr = sparse.pair_forces_sparse(cfg, ff, pos.double(), types,
+                                   rad.double())
+    assert pr.frc.dtype == torch.float64
+    assert int(pr.max_occ) == int(cellblock.bin_atoms(
+        cfg, pos.double())["max_occ"])
     assert sparse.launches == before
 
 
@@ -241,3 +275,79 @@ def test_cand_kernels_match_plain_on_example_decks(cuda, name, tmp_path):
     st = d["state"]
     _compare_cand(sparse.pair_forces_sparse, sparse.pair_forces_sparse_plain,
                   d["cfg"], d["ff"], st.pos, st.types, st.parents, **kw)
+
+
+# --- the stacked cell-block kernel (csrc/cellblock.cu) ---
+
+def _compare_stacked(cfg, ff, pos, types, radii):
+    """K3 against its plain version; max_occ equal, dropped atoms zero."""
+    before = cellblock.launches
+    k = cellblock.pair_forces_stacked(cfg, ff, pos, types, radii)
+    assert cellblock.launches == before + 1
+    p = cellblock.pair_forces_stacked_plain(cfg, ff, pos, types, radii)
+    torch.cuda.synchronize()
+    kf, pf = k.frc.cpu().numpy(), p.frc.cpu().numpy()
+    scale = float(np.abs(pf).max()) or 1.0
+    np.testing.assert_allclose(kf, pf, rtol=0, atol=3e-5 * scale)
+    for a, b in ((k.eng_vdw, p.eng_vdw), (k.eng_coul, p.eng_coul)):
+        assert float(a) == pytest.approx(float(b), rel=1e-4, abs=1e-6)
+    assert int(k.max_occ) == int(p.max_occ)
+    np.testing.assert_array_equal(np.all(kf == 0.0, axis=1),
+                                  np.all(pf == 0.0, axis=1))
+    return k
+
+
+_STACKED_CASES = [dict(), dict(nsp=2, elec=1), dict(nsp=2, elec=3),
+                  dict(nsp=3, elec=2, radii=True), dict(nsp=1, radii=True),
+                  dict(n_atoms=5000, density=0.021, rcut=8.5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _STACKED_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()) or "argon")
+def test_stacked_kernel_matches_plain(cuda, case):
+    cfg, ff, pos, types, rad = systems.pair_system(
+        systems.liquid_argon_specs(**case), device=cuda)
+    assert allpairs.pallas_branch(cfg, torch.float32) == "stacked"
+    _compare_stacked(cfg, ff, pos, types, rad)
+    # through the dispatcher too
+    before = cellblock.launches
+    allpairs.pair_forces_pallas(cfg, ff, pos, types, rad)
+    assert cellblock.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [1, 2, 150])
+def test_stacked_kernel_any_capacity(cuda, cap):
+    """A capacity below the fullest cell (atoms dropped, zero force on
+    both sides) and one far above it (dynamic shared memory over 48 KB)."""
+    import dataclasses
+    cfg, ff, pos, types, _ = systems.pair_system(
+        systems.liquid_argon_specs(), device=cuda)
+    cfg = dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid,
+                                                            cap=cap))
+    k = _compare_stacked(cfg, ff, pos, types, None)
+    assert (int(k.max_occ) > cap) == (cap < 3)
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_refuses_f64_and_oversized_cap(cuda):
+    import dataclasses
+    cfg, ff, pos, types, _ = systems.pair_system(
+        systems.liquid_argon_specs(), device=cuda)
+    before = cellblock.launches
+    with pytest.raises(TypeError, match="f32 only"):
+        cellblock.pair_forces_stacked(cfg, ff, pos.double(), types)
+    big = dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid,
+                                                            cap=500))
+    with pytest.raises(ValueError, match="cannot hold cap=500"):
+        cellblock.pair_forces_stacked(big, ff, pos, types)
+    assert cellblock.launches == before
+
+
+@pytest.mark.cuda
+def test_stacked_kernel_matches_plain_liquid_argon_deck(cuda):
+    d = load_deck_dir(os.path.join(ROOT, "examples", "liquid_argon"),
+                      device=cuda, pair_engine="pallas")
+    st = d["state"]
+    _compare_stacked(d["cfg"], d["ff"], st.pos, st.types, None)

@@ -17,6 +17,7 @@ from aztotmd_tpu.core.config import build_sim_config as j_build_sim_config
 from aztotmd_tpu.core.ffield import build_forcefield as j_build_forcefield
 from aztotmd_tpu.ops import pairs as j_pairs
 from aztotmd_tpu.ops.pallas_pair import pair_forces_allpairs as j_allpairs
+from aztotmd_tpu.ops.pallas_pair import pair_forces_pallas as j_pallas
 from aztotmd_tpu_torch import systems
 from aztotmd_tpu_torch.ops import allpairs, pairs
 from aztotmd_tpu_torch.ops.allpairs import (pair_forces_allpairs,
@@ -116,15 +117,26 @@ def test_plain_f64_matches_xla_oracle(nsp, elec, radii):
 
 def test_dense_engine_choice_raises_for_cell_block_decks():
     """A deck whose modeled cell-block cost is below the dense N^2 cost
-    needs the stacked cell-block kernel, which is not ported yet."""
+    leaves the dense kernel and no longer raises: on the same grid (the
+    capacity cut to the fullest cell's 8 atoms) both dispatchers take the
+    stacked cell-block pass, with JAX's forces and energies at the f32
+    tolerance and its ``max_occ``."""
     import dataclasses
-    cfg, ff, pos, types, _ = systems.pair_system(
+    (jcfg, jff, jargs), (cfg, ff, targs) = _both(
         systems.family_specs("lnjs"), "f32")
-    g = cfg.grid
-    cheap = dataclasses.replace(g, cap=1, stencil=g.stencil[:1])
-    with pytest.raises(NotImplementedError, match="K3"):
-        allpairs.pair_forces_dense(dataclasses.replace(cfg, grid=cheap),
-                                   ff, pos, types)
+    assert allpairs.pallas_branch(cfg, torch.float32) == "allpairs"
+    cheap = dataclasses.replace(cfg, grid=dataclasses.replace(cfg.grid,
+                                                              cap=8))
+    jcheap = dataclasses.replace(jcfg, grid=dataclasses.replace(jcfg.grid,
+                                                                cap=8))
+    assert allpairs.block_cost(cheap) < allpairs.allpairs_cost(cheap)
+    assert allpairs.pallas_branch(cheap, torch.float32) == "stacked"
+    jr = jax.jit(lambda p, t: j_pallas(jcheap, jff, p, t,
+                                       interpret=True))(*jargs[:2])
+    pr = allpairs.pair_forces_pallas(cheap, ff, *targs)
+    _check_f32(jr, pr)
+    assert abs(float(pr.eng_vdw)) > 1e-3
+    assert int(pr.max_occ) == int(jr.max_occ) == 8
 
 
 @pytest.mark.parametrize("n,want", [(300, "both"), (300, "bind"),

@@ -34,9 +34,29 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def deck(tmp_path_factory):
+    """240 Surkov atoms in a 11.7 A cluster (0.15 atoms/A^3) in an 18 A
+    box.  An f64 run takes the cell-block engine, whose cost goes with
+    the square of the fullest cell's capacity: at the slice deck's 0.43
+    atoms/A^3 the capacity is 102 slots and 400 CPU steps take minutes,
+    at 0.15 it is 28.  ``dense_deck`` keeps one comparison at 0.43."""
     d = str(tmp_path_factory.mktemp("surkov_run"))
-    write_surkov_cluster_deck(d, n_atoms=240, box=18.0, steps=400,
-                              n_equil=100)
+    write_surkov_cluster_deck(d, n_atoms=240, box=18.0, density=0.15,
+                              steps=400, n_equil=100)
+    return d
+
+
+@pytest.fixture(scope="module")
+def dense_deck(tmp_path_factory):
+    """The same cluster at the slice deck's 0.43 atoms/A^3 (a 3x3x3 grid of
+    102 slots a cell), cut to 40 steps with a stat row every 20."""
+    d = str(tmp_path_factory.mktemp("surkov_dense"))
+    write_surkov_cluster_deck(d, n_atoms=240, box=18.0, steps=40, n_equil=20)
+    ctl = os.path.join(d, "control.txt")
+    with open(ctl) as f:
+        text = f.read()
+    assert "stat\t200" in text
+    with open(ctl, "w") as f:
+        f.write(text.replace("stat\t200", "stat\t20"))
     return d
 
 
@@ -92,6 +112,29 @@ def test_run_cli_matches_jax_cli(deck, tmp_path, monkeypatch):
     assert _table(os.path.join(out_t, "rdf.dat"))[:, 1].max() > 0.0
     for name in ("revcon.xyz", "velocities.dat", "tchars.dat"):
         assert os.path.getsize(os.path.join(out_t, name)) > 0
+
+
+def test_run_cli_matches_jax_cli_at_slice_density(dense_deck, tmp_path,
+                                                  monkeypatch):
+    """The f64 route (the cell-block engine in both packages) at the slice
+    deck's density: stat.dat, rdf.dat and msd.dat of 40 steps from both
+    CLIs."""
+    out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    runner = main(["run", dense_deck, "--cpu", "--dtype", "f64", "-o", out_t,
+                   "--quiet"])
+    assert int(runner.state.step) == 40
+    assert runner.cfg.grid.cap == 102
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
+    j_main(["--cpu", "run", dense_deck, "-o", out_j, "--dtype", "f64",
+            "--quiet"])
+    for name in ("stat.dat", "rdf.dat", "msd.dat", "msd_d.dat"):
+        a, b = _table(os.path.join(out_t, name)), _table(
+            os.path.join(out_j, name))
+        assert a.shape == b.shape and a.size, name
+        np.testing.assert_allclose(a, b, rtol=1e-8, err_msg=name)
+    assert _table(os.path.join(out_t, "stat.dat")).shape[0] == 2
+    # cell_overflow is the fullest cell's occupancy, not a worklist length
+    assert 28 < int(runner.state.cell_overflow) <= 102
 
 
 @pytest.mark.parametrize("which", [0, 1], ids=["reactive_polymer",
@@ -217,8 +260,15 @@ r = MDRunner(sysd, out_dir=sys.argv[3] + "_sparse", quiet=True)
 r.run(4)
 r.finalize()
 assert int(r.state.step) == 4 and float(r.state.chit) != 0.0
+# the cell-block engine (auto picks it for this deck) and an Ewald deck
+r = main(["run", sys.argv[4], "--cpu", "--steps", "4", "-o",
+          sys.argv[3] + "_block", "--quiet"])
+assert r.cfg.pair_engine == "block" and int(r.state.cell_overflow) > 0
+r = main(["run", sys.argv[5], "--cpu", "--steps", "2", "-o",
+          sys.argv[3] + "_salt", "--quiet"])
+assert float(r.state.energies.coul2) != 0.0
 # the reactive decks: bonds, electron jumps and their outputs
-for deck in sys.argv[4:]:
+for deck in sys.argv[6:]:
     r = main(["run", deck, "--cpu", "--steps", "20", "-o",
               sys.argv[3] + "_r", "--quiet", "--no-bond-equil-hack"])
     assert int(r.state.n_bond) + int(r.state.n_jump) > 0
@@ -230,12 +280,18 @@ print("NO_JAX_OK")
 
 def test_port_cli_runs_with_jax_blocked(deck, nose_deck, reactive_decks,
                                         tmp_path):
-    """The CLI on the Surkov deck and the reactive decks and the runner on
-    a sparse Nose-Hoover deck, with jax and the JAX package
+    """The CLI on the Surkov deck, a cell-block deck (reactive_polymer
+    tiled 2x2x2), examples/molten_salt (Ewald) and the reactive decks, and
+    the runner on a sparse Nose-Hoover deck, with jax and the JAX package
     unimportable."""
+    from aztotmd_tpu_torch.systems import tile_deck
+    block_deck = str(tmp_path / "poly_x2")
+    tile_deck(os.path.join(ROOT, "examples", "reactive_polymer"), block_deck,
+              2)
     res = subprocess.run(
         [sys.executable, "-c", _NO_JAX, deck, nose_deck,
-         str(tmp_path / "out"), *reactive_decks],
+         str(tmp_path / "out"), block_deck,
+         os.path.join(ROOT, "examples", "molten_salt"), *reactive_decks],
         cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "NO_JAX_OK" in res.stdout

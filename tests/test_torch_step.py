@@ -58,8 +58,8 @@ def _check(got, js, pos_atol, eng_rel):
 
 
 def test_20_steps_f64_match_jax(small_deck):
-    """f64: the JAX package routes the pallas engine to XLA (the cell-block
-    engine), the port to its plain version; same physics in f64."""
+    """f64: both packages route the pallas engine to their cell-block
+    engine; the same operations in f64."""
     got, js = _run_both(small_deck, "f64", 20)
     _check(got, js, pos_atol=1e-8, eng_rel=1e-8)
     # radii and internal energies: equal to f64 round-off of the forces
@@ -128,10 +128,10 @@ def test_nose_apply_matches_jax_f64(nose_deck):
 
 def test_20_nose_steps_sparse_engine_f64_match_jax(nose_deck):
     """20 f64 steps with the engine forced to "sparse" in both packages
-    (auto picks it only above 4,096 atoms): JAX's f64 route is its XLA
-    cell-block engine, the port's the plain block-sparse pass.  The same
-    f64 physics: positions atol 1e-8 A, energies and the Nose-Hoover
-    chit/consint rel 1e-8."""
+    (auto picks it only above 4,096 atoms): the f64 route of both is the
+    cell-block engine.  The same f64 physics: positions atol 1e-8 A,
+    energies and the Nose-Hoover chit/consint rel 1e-8; the monitor is
+    cell occupancy on both sides."""
     j = j_load_deck_dir(nose_deck, dtype="f64", pair_engine="sparse")
     p = load_deck_dir(nose_deck, dtype="f64", pair_engine="sparse")
     assert p["cfg"].pair_engine == j["cfg"].pair_engine == "sparse"
@@ -148,9 +148,9 @@ def test_20_nose_steps_sparse_engine_f64_match_jax(nose_deck):
         assert float(got[k]) != 0.0
         assert float(got[k]) == pytest.approx(float(getattr(js, k)),
                                               rel=1e-8), k
-    # the port's f64 monitor is the worklist length (JAX's: cell occupancy)
-    from aztotmd_tpu_torch.ops.sparse import tile_shape
-    assert 0 < int(got["cell_overflow"]) <= tile_shape(p["cfg"])[1] ** 2
+    # in f64 the monitor is the fullest cell's occupancy, as in JAX
+    assert 0 < int(got["cell_overflow"]) == int(js.cell_overflow) \
+        <= p["cfg"].grid.cap
 
 
 _TOPOLOGY = ("types", "bond_at1", "bond_at2", "bond_type", "bond_start",
@@ -199,3 +199,80 @@ def test_5_reactive_steps_f32_match_jax_interpret_kernel(name):
         else int(got["n_jump"]) > 0
     np.testing.assert_allclose(got["pos"], np.asarray(js.pos), rtol=0,
                                atol=1e-5)
+
+
+# --- the cell-block engines and Ewald ---
+
+@pytest.fixture(scope="module")
+def argon_deck_d012(tmp_path_factory):
+    """1,728 Ar atoms from the liquid_argon deck's writer, at 0.012
+    atoms/A^3 with a 4 A cutoff: the smallest shape that keeps the
+    cell-block cost (13^3 cells of a few slots) under the padded N^2, so
+    that "block" stays "block" and "pallas" takes the stacked pass."""
+    from aztotmd_tpu_torch.systems import write_liquid_argon_deck
+    d = str(tmp_path_factory.mktemp("argon1728"))
+    write_liquid_argon_deck(d, n_side=12, density=0.012, rcut=4.0, steps=40)
+    return d
+
+
+def _engine_run(deck, dtype, n, engine):
+    j = j_load_deck_dir(deck, dtype=dtype, pair_engine=engine)
+    p = load_deck_dir(deck, dtype=dtype, pair_engine=engine)
+    js = j_make_multi_step(j["cfg"], j["aux"])(j["state"], j["ff"], n)
+    got = convert.state_to_numpy(
+        make_multi_step(p["cfg"], p["aux"])(p["state"], p["ff"], n))
+    assert int(got["step"]) == n
+    assert int(got["cell_overflow"]) == int(js.cell_overflow)
+    return got, js, p["cfg"]
+
+
+_TERMS = ("kin", "vdw", "coul1", "coul2", "coul3", "pot", "tot")
+
+
+def _check_terms(got, js, pos_atol, rel):
+    np.testing.assert_allclose(got["pos"], np.asarray(js.pos), rtol=0,
+                               atol=pos_atol)
+    for k in _TERMS:
+        assert float(got["energies"][k]) == pytest.approx(
+            float(getattr(js.energies, k)), rel=rel, abs=1e-12), k
+    for k in ("chit", "consint"):
+        assert float(got[k]) == pytest.approx(float(getattr(js, k)),
+                                              rel=max(rel, 1e-8)), k
+
+
+@pytest.mark.parametrize("engine", ["block", "pallas"])
+def test_10_argon_steps_f64_match_jax(argon_deck_d012, engine):
+    """10 f64 Nose-Hoover steps of the small liquid-argon deck on the
+    block engine and on the pallas engine, whose f64 route is the block
+    engine too: positions atol 1e-8 A, every energy term rel 1e-9."""
+    got, js, cfg = _engine_run(argon_deck_d012, "f64", 10, engine)
+    assert cfg.pair_engine == engine
+    _check_terms(got, js, 1e-8, 1e-9)
+    assert int(got["cell_overflow"]) > 0
+
+
+@pytest.mark.parametrize("engine", ["block", "pallas"])
+def test_10_argon_steps_f32_match_jax(argon_deck_d012, engine):
+    """f32: on "pallas" JAX runs its stacked Pallas kernel in interpret
+    mode and the port the stacked pass's plain version; rel 1e-4."""
+    from aztotmd_tpu_torch.ops.allpairs import pallas_branch
+    got, js, cfg = _engine_run(argon_deck_d012, "f32", 10, engine)
+    assert cfg.pair_engine == engine
+    if engine == "pallas":
+        assert pallas_branch(cfg, torch.float32) == "stacked"
+    _check_terms(got, js, 1e-4, 1e-4)
+
+
+@pytest.mark.parametrize("dtype,pos_atol,rel", [("f64", 1e-8, 1e-9),
+                                                ("f32", 1e-4, 1e-4)])
+def test_10_molten_salt_steps_match_jax(dtype, pos_atol, rel):
+    """examples/molten_salt at full size (1,728 ions, Tosi-Fumi, Ewald
+    with 1,195 k-vectors, Nose-Hoover with the equilibration rescale at
+    step 0): K1's route plus the reciprocal sum."""
+    deck = f"{ROOT}/examples/molten_salt"
+    got, js, cfg = _engine_run(deck, dtype, 10, "auto")
+    assert cfg.pair_engine == "pallas" and cfg.n_equil == 1000
+    _check_terms(got, js, pos_atol, rel)
+    assert abs(float(got["energies"]["coul2"])) > 1e-3
+    assert float(got["energies"]["coul3"]) == pytest.approx(
+        cfg.eng_ewald_const, rel=1e-6)
