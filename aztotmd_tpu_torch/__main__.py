@@ -3,22 +3,31 @@
 ``python -m aztotmd_tpu_torch run <deck_dir> -o <out_dir>`` reads
 control.txt / field.txt / atoms.xyz from the deck directory, runs it on
 the GPU and writes the output files.  ``--cpu`` runs it on the CPU with
-the kernels' plain versions.  ``bench`` times steps of a deck.
+the kernels' plain versions.  ``--mesh N`` runs the slab-decomposed step
+over N slabs on the one device; with ``--dist``, under ``torchrun
+--nproc-per-node N``, one slab per process (NCCL on the GPUs, gloo with
+``--cpu``), where rank 0 writes to ``-o`` and rank r to ``<out>/rank<r>``.
+``bench`` times steps of a deck.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
-def _device(cpu: bool):
+def _device(cpu: bool, dist: bool = False):
     import torch
-    if cpu:
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
+    if not cpu and not torch.cuda.is_available():
         sys.exit("aztotmd_tpu_torch: no CUDA device is available; pass "
                  "--cpu to run on the CPU")
+    if dist:
+        from .parallel import init_dist
+        local = init_dist("cpu" if cpu else "cuda")
+        return torch.device("cpu") if cpu else torch.device("cuda", local)
+    if cpu:
+        return torch.device("cpu")
     return torch.device("cuda", torch.cuda.current_device())
 
 
@@ -52,6 +61,15 @@ def main(argv=None):
     r.add_argument("--no-bond-equil-hack", action="store_true",
                    help="disable the reference's reactive-bond "
                         "velocity-zeroing equilibration hack")
+    r.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="run the slab-decomposed step over N x-slabs")
+    r.add_argument("--mesh-mode", choices=("slab", "atoms"),
+                   default="slab",
+                   help="slab: spatial decomposition with migration; "
+                        "atoms: not ported yet")
+    r.add_argument("--dist", action="store_true",
+                   help="one slab per process under torchrun (with "
+                        "--mesh N = the number of processes)")
 
     b = sub.add_parser("bench", parents=[common],
                        help="benchmark a deck (steps/sec)")
@@ -59,7 +77,8 @@ def main(argv=None):
     b.add_argument("--steps", type=int, default=200)
     b.add_argument("--warmup", type=int, default=20)
     args = p.parse_args(argv)
-    device = _device(args.cpu)
+    dist = args.cmd == "run" and args.dist
+    device = _device(args.cpu, dist)
 
     if args.cmd == "run":
         from .runtime.runner import MDRunner
@@ -72,9 +91,18 @@ def main(argv=None):
             sysd["state"] = load_checkpoint(args.resume, sysd["state"])
             print(f"resumed from {args.resume} at step "
                   f"{int(sysd['state'].step)}", file=sys.stderr)
-        runner = MDRunner(sysd, out_dir=args.out, quiet=args.quiet,
+        comm, out = None, args.out
+        if dist:
+            from .parallel import make_comm
+            comm = make_comm(args.mesh, device, dist=True)
+            if comm.rank:
+                out = os.path.join(args.out, f"rank{comm.rank}")
+        runner = MDRunner(sysd, out_dir=out, quiet=args.quiet or (
+                              comm is not None and comm.rank > 0),
                           checkpoint_every=args.checkpoint_every,
-                          append=args.resume is not None)
+                          append=args.resume is not None,
+                          mesh_devices=args.mesh, mesh_mode=args.mesh_mode,
+                          comm=comm)
         runner.run(args.steps)
         runner.finalize()
         return runner

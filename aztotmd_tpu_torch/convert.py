@@ -61,3 +61,23 @@ def state_to_numpy(state: MDState) -> dict:
                                       f.name)
                        for f in fields(Energies)}
     return out
+
+
+def _grid(g):
+    from .core.config import CellGrid
+    if g is None:
+        return None
+    return CellGrid(dims=tuple(g.dims), cap=int(g.cap),
+                    stencil=tuple(tuple(o) for o in g.stencil),
+                    edge=tuple(g.edge))
+
+
+def config_from(src):
+    """The port's ``SimConfig`` of any object with its fields (the JAX
+    package's ``SimConfig`` has the same ones); the cell grids become the
+    port's ``CellGrid``."""
+    from .core.config import SimConfig
+    kw = {f.name: getattr(src, f.name) for f in fields(SimConfig)}
+    kw["grid"] = _grid(kw["grid"])
+    kw["nb_grid"] = _grid(kw["nb_grid"])
+    return SimConfig(**kw)

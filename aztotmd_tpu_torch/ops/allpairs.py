@@ -29,6 +29,12 @@ Routing of ``pair_forces_allpairs``: a CPU tensor goes to the plain
 version, in f32 or f64; a CUDA tensor launches the kernel or raises.  The
 kernel is f32 only.  The dispatcher sends f64 to the cell-block engine on
 either device, as the JAX package does (``pallas_pair.py:732``).
+
+``pair_forces_allpairs_rect`` is the rectangular pass of the
+slab-decomposed step (``pallas_pair.py::pair_forces_allpairs_rect``):
+forces on the Ni owned slots of each slab from its Nj slots [owned;
+halos], every local slab in one launch of ``csrc/allpairs_rect.cu``,
+routed by device like the square pass.
 """
 
 from __future__ import annotations
@@ -49,10 +55,12 @@ from .pairs import (MX_FRC, PairResult, jump_roles, keyed_row_min,
                     pair_result)
 
 # launches of csrc/allpairs.cu made by pair_forces_allpairs, without
-# candidates (K1) and with them (K1-cand); plain ints that tools checking
-# the main path reset and read
+# candidates (K1) and with them (K1-cand), and of csrc/allpairs_rect.cu made
+# by pair_forces_allpairs_rect (K2); plain ints that tools checking the main
+# path reset and read
 launches = 0
 cand_launches = 0
+rect_launches = 0
 
 _SM_TARGET_BLOCKS = 2 * 132      # two resident blocks per H100 SM
 
@@ -519,3 +527,176 @@ def launch(cfg, prm, kinds, pos, types, radii, cand: CandArgs | None = None):
     else:
         cand_launches += 1
     return frc_p, ev_p, ec_p, cr2, ckey
+
+
+# --------------------------------------------------------------------------
+# the rectangular pass of the slab-decomposed step (K2)
+
+
+def _rect_batched(tensors):
+    """The inputs with a leading slab axis, and whether it was added."""
+    squeeze = tensors[0].dim() == 2
+    if squeeze:
+        tensors = [None if t is None else t[None] for t in tensors]
+    return tensors, squeeze
+
+
+def pair_forces_allpairs_rect_plain(cfg, ff, pos_i, types_i, valid_i,
+                                    pos_j, types_j, valid_j, radii_i=None,
+                                    radii_j=None, rows: int | None = None):
+    """What the rectangular kernel computes, in plain PyTorch (f32 or f64,
+    see ``pair_terms``), ``rows`` i slots at a time.
+
+    Per slab: forces on the Ni i slots from the Nj j slots, where the i
+    slots are the first Ni j slots (the self pair is i == j by slot
+    index), a pair counts when both slots are valid, the min-image is over
+    the full box.  ``pos_i`` (L, Ni, 3), ``types_i``/``valid_i``/
+    ``radii_i`` (L, Ni), and likewise j; without the leading slab axis the
+    result has none either.  Returns (frc_i (L, Ni, 3), e_vdw (L,),
+    e_coul (L,)), each energy 0.5 per visited ordered pair."""
+    (pos_i, types_i, valid_i, radii_i, pos_j, types_j, valid_j, radii_j), \
+        squeeze = _rect_batched([pos_i, types_i, valid_i, radii_i, pos_j,
+                                 types_j, valid_j, radii_j])
+    dt = pos_i.dtype
+    dev = pos_i.device
+    L, Ni = pos_i.shape[:2]
+    Nj = pos_j.shape[1]
+    use_radii = bool(cfg.use_radii and radii_i is not None)
+    tabs = plain_tables(cfg, ff, dt)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
+    if rows is None:
+        rows = max(1, (1 << 22) // max(Nj, 1))
+    gj = torch.arange(Nj, device=dev)[None, :]
+    frc = torch.zeros((L, Ni, 3), dtype=dt, device=dev)
+    ev_sum = torch.zeros(L, dtype=dt, device=dev)
+    ec_sum = torch.zeros(L, dtype=dt, device=dev)
+    for s in range(L):
+        for i0 in range(0, Ni, rows):
+            i1 = min(Ni, i0 + rows)
+            d = []
+            for k in range(3):
+                dk = pos_i[s, i0:i1, k, None] - pos_j[s, None, :, k]
+                d.append(dk - box[k] * torch.round(dk * ibox[k]))
+            dx, dy, dz = d
+            r2 = dx * dx + dy * dy + dz * dz
+            gi = torch.arange(i0, i1, device=dev)[:, None]
+            inr = ((r2 <= cfg.r2_max) & (gi != gj)
+                   & valid_i[s, i0:i1, None] & valid_j[s, None, :])
+            fsum, ev, ec = pair_terms(
+                cfg, tabs, r2, inr, types_i[s, i0:i1, None],
+                types_j[s, None, :],
+                radii_i[s, i0:i1, None] if use_radii else None,
+                radii_j[s, None, :] if use_radii else None)
+            ev_sum[s] += ev.sum()
+            ec_sum[s] += ec.sum()
+            frc[s, i0:i1, 0] = torch.sum(fsum * dx, dim=1)
+            frc[s, i0:i1, 1] = torch.sum(fsum * dy, dim=1)
+            frc[s, i0:i1, 2] = torch.sum(fsum * dz, dim=1)
+    if squeeze:
+        return frc[0], ev_sum[0], ec_sum[0]
+    return frc, ev_sum, ec_sum
+
+
+def pair_forces_allpairs_rect(cfg, ff, pos_i, types_i, valid_i, pos_j,
+                              types_j, valid_j, radii_i=None, radii_j=None):
+    """The rectangular pass: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors (same arguments and results as
+    ``pair_forces_allpairs_rect_plain``)."""
+    if pos_i.device.type == "cpu":
+        return pair_forces_allpairs_rect_plain(
+            cfg, ff, pos_i, types_i, valid_i, pos_j, types_j, valid_j,
+            radii_i, radii_j)
+    if pos_i.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos_i.device}")
+    args, squeeze = _rect_batched([pos_i, types_i, valid_i, radii_i, pos_j,
+                                   types_j, valid_j, radii_j])
+    frc_p, ev_p, ec_p = _rect_cuda(cfg, ff, *args)
+    frc, ev, ec = frc_p.sum(1), ev_p.sum((1, 2)), ec_p.sum((1, 2))
+    if squeeze:
+        return frc[0], ev[0], ec[0]
+    return frc, ev, ec
+
+
+# (slab, i tile, split) blocks K2 aims at: eight an SM, since the blocks
+# whose i slots are all empty (a third or more of a slab) leave at once
+_RECT_TARGET_BLOCKS = 8 * 132
+
+
+def rect_split(n_slab: int, ni: int, nj: int, tile: int) -> int:
+    """Splits of the j range that fill the card: enough (slab, i tile,
+    split) blocks for eight an SM, no more splits than j tiles."""
+    n_blk = max(1, n_slab * -(-ni // tile))
+    return max(1, min(-(-nj // tile),
+                      math.ceil(_RECT_TARGET_BLOCKS / n_blk)))
+
+
+def _rect_lib():
+    lib = cuda_build.load("allpairs_rect")
+    fn = lib.aztotmd_allpairs_rect_f32
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F] * 12 + [_P] * 4
+        fn.restype = ctypes.c_int
+        lib.aztotmd_allpairs_rect_tile.restype = ctypes.c_int
+    return lib
+
+
+def _rect_cuda(cfg, ff, pos_i, types_i, valid_i, radii_i, pos_j, types_j,
+               valid_j, radii_j):
+    """Check the inputs of the batched rectangular pass and launch it;
+    returns its (L, n_split, Ni, 3) force and (L, n_split, Ni) energy
+    partial rows."""
+    dev = pos_i.device
+    if pos_i.dtype != torch.float32:
+        raise TypeError("the rectangular CUDA kernel is f32 only; got "
+                        f"{pos_i.dtype} (f64 slab steps take the stencil "
+                        "pass)")
+    if cfg.n_spec > 32:
+        raise ValueError(f"the rectangular kernel takes at most 32 species "
+                         f"(shared-memory table), got {cfg.n_spec}")
+    L, Ni = pos_i.shape[:2]
+    Nj = pos_j.shape[1]
+    if Ni > Nj:
+        raise ValueError(f"the i slots must be the first of the j slots; "
+                         f"got Ni={Ni} > Nj={Nj}")
+    use_radii = bool(cfg.use_radii and radii_i is not None)
+    for side, p, t, v, r, n in (("i", pos_i, types_i, valid_i, radii_i, Ni),
+                                ("j", pos_j, types_j, valid_j, radii_j, Nj)):
+        check_tensor(f"pos_{side}", p, torch.float32, (L, n, 3), dev)
+        check_tensor(f"types_{side}", t, torch.int32, (L, n), dev)
+        check_tensor(f"valid_{side}", v, torch.bool, (L, n), dev)
+        if use_radii:
+            check_tensor(f"radii_{side}", r, torch.float32, (L, n), dev)
+    return launch_rect(cfg, *kernel_tables(cfg, ff, dev), pos_i, types_i,
+                       valid_i, radii_i if use_radii else None, pos_j,
+                       types_j, valid_j, radii_j if use_radii else None)
+
+
+def launch_rect(cfg, prm, kinds, pos_i, types_i, valid_i, radii_i, pos_j,
+                types_j, valid_j, radii_j):
+    """Launch csrc/allpairs_rect.cu on checked inputs (radii None without
+    radii) and return its partial rows.  Counts the launch as K2."""
+    global rect_launches
+    dev = pos_i.device
+    L, Ni = pos_i.shape[:2]
+    Nj = pos_j.shape[1]
+    lib = _rect_lib()
+    n_split = rect_split(L, Ni, Nj, lib.aztotmd_allpairs_rect_tile())
+    frc_p = torch.empty((L, n_split, Ni, 3), dtype=torch.float32, device=dev)
+    ev_p = torch.empty((L, n_split, Ni), dtype=torch.float32, device=dev)
+    ec_p = torch.empty((L, n_split, Ni), dtype=torch.float32, device=dev)
+    if not (L and Ni):
+        return frc_p, ev_p, ec_p
+    ptr = lambda t: t.data_ptr() if t is not None else None
+    err = lib.aztotmd_allpairs_rect_f32(
+        ptr(pos_i), ptr(types_i), ptr(valid_i), ptr(radii_i), ptr(pos_j),
+        ptr(types_j), ptr(valid_j), ptr(radii_j), prm.data_ptr(),
+        kinds.data_ptr(), cfg.n_spec, L, Ni, Nj, n_split,
+        int(radii_i is not None), int(cfg.elec_type), *kernel_consts(cfg),
+        frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"rectangular allpairs kernel launch failed: CUDA "
+                           f"error {err}")
+    rect_launches += 1
+    return frc_p, ev_p, ec_p

@@ -76,11 +76,16 @@ def make_kvectors(cfg):
             np.asarray(ws, dtype=np.float64))
 
 
-def ewald_recip(cfg, pos, charge, rk, w):
+def ewald_recip(cfg, pos, charge, rk, w, allsum=None):
     """Reciprocal-space forces (N, 3) and energy (scalar) of charges
     ``charge`` (N,) at ``pos`` (N, 3) over the table ``rk`` (K, 3) with
     weights ``w`` (K,): E = escale * sum_k w |S(k)|^2 over the half space,
-    S(k) = sum_i q_i exp(i k.r_i), and the forces from its gradient."""
+    S(k) = sum_i q_i exp(i k.r_i), and the forces from its gradient.
+
+    ``allsum``: on a slab mesh, the function that sums a partial over the
+    slabs (the JAX package's ``axis=``, a psum): S(k) is then the sum of
+    every slab's partial structure factor, the energy the global one and
+    the forces those of the local atoms."""
     dt = pos.dtype
     escale = cfg.ewald_scale
     fscale = 2.0 * cfg.ewald_scale
@@ -91,6 +96,8 @@ def ewald_recip(cfg, pos, charge, rk, w):
     qs = charge[:, None] * torch.sin(theta)        # Im
     s_re = torch.sum(qc, dim=0)                    # (K,)
     s_im = torch.sum(qs, dim=0)
+    if allsum is not None:
+        s_re, s_im = allsum(s_re), allsum(s_im)
     eng = escale * torch.sum(w * (s_re * s_re + s_im * s_im))
     coef = fscale * w * (qs * s_re[None, :] - qc * s_im[None, :])   # (N, K)
     return coef @ rk, eng

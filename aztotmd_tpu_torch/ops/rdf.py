@@ -157,6 +157,54 @@ def rdf_counts_cells(cfg, rcfg: RdfConfig, pos, types):
     return _bin_counts(rcfg, r2, mask, t[:, None], tp[cand])
 
 
+def rdf_counts_rows(cfg, rcfg: RdfConfig, row_pos, row_gid, row_types,
+                    pos_g, types_g):
+    """Partial all-pairs counts of a set of rows (a slab's slots) against
+    the global position table, each pair counted on the row that owns the
+    smaller global id (empty rows carry gid -1).  Summed over disjoint row
+    sets they are ``rdf_counts_allpairs``'s counts exactly: a row's
+    position is its entry of the table, bit for bit."""
+    dt = pos_g.dtype
+    dev = pos_g.device
+    N = pos_g.shape[0]
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    r2 = torch.zeros((row_pos.shape[0], N), dtype=dt, device=dev)
+    for k in range(3):
+        d = row_pos[:, k, None] - pos_g[None, :, k]
+        d = d - box[k] * torch.round(d / box[k])
+        r2 = r2 + d * d
+    j = torch.arange(N, device=dev)[None, :]
+    g = row_gid.to(torch.int64)[:, None]
+    mask = (g >= 0) & (g < j) & (r2 < rcfg.r2_max)
+    return _bin_counts(rcfg, r2, mask, row_types.to(torch.int32)[:, None],
+                       types_g.to(torch.int32)[None, :])
+
+
+def rdf_counts_rows_cells(cfg, rcfg: RdfConfig, row_pos, row_gid, row_types,
+                          pos_g, types_g):
+    """``rdf_counts_rows`` over the candidates of the RDF cell grid (the
+    global table binned on it), for large N: O(rows * stencil * cap)
+    instead of O(rows * N), the same counts."""
+    dt = pos_g.dtype
+    dev = pos_g.device
+    N = pos_g.shape[0]
+    gcfg = dataclasses.replace(cfg, grid=rcfg.grid, n_at=N)
+    table, _ = cl.build_cell_table(gcfg, pos_g)
+    cand = cl.gather_candidates(gcfg, table, cl.cell_coords(gcfg, row_pos)
+                                ).long()                        # (R, M)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    pos_p = torch.cat([pos_g, torch.zeros((1, 3), dtype=dt, device=dev)])
+    d = row_pos[:, None, :] - pos_p[cand]
+    d = d - box * torch.round(d / box)
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    g = row_gid.to(torch.int64)[:, None]
+    mask = (cand != N) & (g >= 0) & (g < cand) & (r2 < rcfg.r2_max)
+    tp = torch.cat([types_g.to(torch.int32),
+                    torch.zeros((1,), dtype=torch.int32, device=dev)])
+    return _bin_counts(rcfg, r2, mask, row_types.to(torch.int32)[:, None],
+                       tp[cand])
+
+
 def rdf_sample(cfg, rcfg: RdfConfig, pos, types, spec_number,
                spec_nuclei, nucl_number, hist, nhist=None):
     """One RDF sample; returns updated (hist, nhist).  Dense or small

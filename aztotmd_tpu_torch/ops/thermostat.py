@@ -71,14 +71,17 @@ def _angled_vector(v, cos_phi, theta):
             + sin_phi[..., None] * (ct[..., None] * v2 + st[..., None] * v3))
 
 
-def tstat_radiative(cfg, ff, state, photons):
+def tstat_radiative(cfg, ff, state, photons, gid=None, valid=None):
     """Radiative thermostat step: every atom absorbs one photon from the
     rotating table and, above 1e-4 eV of internal energy, re-emits 90% of
     it in a velocity-biased direction; then the thermal radius
     r = A/(B - min(E, mxEng)) is refreshed.
 
-    The noise is a pure function of (seed, step, atom id) and equals the
-    JAX package's bit for bit.  Returns (vel, engs, radii, eng_temp, rng).
+    The noise is a pure function of (seed, step, global atom id) and
+    equals the JAX package's bit for bit.  ``gid``: the global ids of the
+    rows (default arange(n)); ``valid``: the filled slots of a slab, the
+    others get no photon, engs 0 and radii 1.  Returns (vel, engs, radii,
+    eng_temp, rng).
     """
     dt = state.pos.dtype
     dev = state.pos.device
@@ -88,7 +91,8 @@ def tstat_radiative(cfg, ff, state, photons):
     vel = state.vel
     engs = state.engs
 
-    gid = torch.arange(n, device=dev)
+    if gid is None:
+        gid = torch.arange(n, device=dev)
     u = prng.uniform4_16(state.rng[-1], state.step, gid, dt)
     rng = state.rng.clone()
     rng[0] = (rng[0] + prng.GOLD) & prng.MASK32
@@ -98,7 +102,9 @@ def tstat_radiative(cfg, ff, state, photons):
     N = cfg.n_at
     shift = prng._mul32(state.step.to(torch.int64) & prng.MASK32,
                         _PHOTON_STRIDE) % N
-    pe = photons[(gid + shift) % N]
+    pe = photons[((gid.to(torch.int64) & prng.MASK32) + shift) % N]
+    if valid is not None:
+        pe = torch.where(valid, pe, torch.zeros_like(pe))
 
     # --- absorb ---
     v02 = torch.sum(vel * vel, dim=-1)
@@ -130,6 +136,9 @@ def tstat_radiative(cfg, ff, state, photons):
     # --- thermal radius ---
     rest = torch.minimum(engs, ff.spec_mx_eng[types])
     radii = ff.spec_rad_a[types] / (ff.spec_rad_b[types] - rest)
+    if valid is not None:
+        engs = torch.where(valid, engs, torch.zeros_like(engs))
+        radii = torch.where(valid, radii, torch.ones_like(radii))
     return vel, engs, radii, torch.sum(engs), rng
 
 

@@ -1,0 +1,782 @@
+"""The slab-decomposed MD step with atom migration (port of
+``aztotmd_tpu/parallel/slab.py``, keeping its names).
+
+The box is cut into D x-slabs.  Slab s owns the atoms inside it in a
+fixed-capacity array of C slots, and one step runs the whole schedule on
+every slab:
+
+  [Nose-Hoover] -> verlet-1 (drift + wrap) -> migrate crossers to the
+  neighbour slabs (fixed-size buffers) -> pair pass on the slab and its
+  halos -> [Ewald reciprocal space: partial S(k) + one psum] -> verlet-2
+  -> thermostat -> global scalars by psum.
+
+The step is written once over tensors whose first axis is the local slab
+axis L (``SlabState``'s per-slot fields are (L, C, ...)), against a
+communicator (``parallel/comm.py``): ``LocalRing`` runs all D slabs in one
+process (L = D, batched launches), ``DistRing`` one slab per rank over
+``torch.distributed``.  The replicated scalars have no slab axis.
+
+Two pair passes, as in the JAX package: decks on the ``"pallas"`` or
+``"sparse"`` engine in f32 take the dense rectangular pass
+(``_pair_pass_dense``: the slab's slots against [own; left; right] slab
+halos through the K2 kernel, ``ops.allpairs.pair_forces_allpairs_rect``);
+f64 and ``"block"`` decks take the cell-block stencil pass (``_pair_pass``,
+torch ops).  The radiative thermostat stays trajectory-identical to one
+device because its noise is keyed by (seed, step, global atom id).
+
+Empty-slot invariant: gid == -1 marks a free slot; its pos/vel/frc/engs
+are zero and every stage keeps them so.
+
+Not ported yet (ROADMAP.md): reactive decks on a mesh
+(``slab_react.py``), constant bonds and angles on a mesh (``_bonded_pass``,
+which needs the angles of the neighbor engine), the mesh stat ring.  Each
+raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core.config import _round_up, make_block_grid
+from ..core.state import Energies
+from ..io.control import ELEC_EWALD, ELEC_NONE, TSTAT_NOSE, TSTAT_RADI
+from ..ops import integrate as integ
+from ..ops import thermostat as tstat
+from ..ops.allpairs import pair_forces_allpairs_rect
+from ..ops.elec import coul_eval, ewald_recip
+from ..ops.pairs import MX_FRC
+from ..ops.vdw import vdw_eval
+
+@dataclass
+class SlabState:
+    """Per-slot tensors of the local slabs, (L, C, ...), and the
+    replicated scalars."""
+    gid: torch.Tensor          # (L, C) int32 global atom id, -1 = empty
+    types: torch.Tensor        # (L, C) int32
+    pos: torch.Tensor          # (L, C, 3)
+    vel: torch.Tensor
+    frc: torch.Tensor
+    engs: torch.Tensor         # (L, C) thermal internal energy
+    radii: torch.Tensor        # (L, C) thermal radius
+    # per-atom bond and angle records (1 wide and empty: a deck with
+    # bonds or angles is refused on the mesh for now)
+    bnd_partner: torch.Tensor  # (L, C, B) int32, -1 = empty
+    bnd_type: torch.Tensor     # (L, C, B) int32, 0 = empty
+    ang_c: torch.Tensor        # (L, C, A) int32
+    ang_l1: torch.Tensor
+    ang_l2: torch.Tensor
+    ang_t: torch.Tensor
+
+    # --- replicated scalars ---
+    rng: torch.Tensor          # (2,) int64 holding uint32 words
+    step: torch.Tensor         # () int32
+    energies: Energies
+    pressure: torch.Tensor
+    chit: torch.Tensor
+    consint: torch.Tensor
+    pos_mom: torch.Tensor      # (3,)
+    neg_mom: torch.Tensor
+    mom_buf_pos: torch.Tensor
+    mom_buf_neg: torch.Tensor
+    i_mom: torch.Tensor
+    cross_pos: torch.Tensor    # (nsp, 3) int32
+    cross_neg: torch.Tensor
+    mig_total: torch.Tensor    # () int32 atoms migrated so far
+    mig_lost: torch.Tensor     # () int32 atoms deleted (receiver full)
+    mig_defer: torch.Tensor    # () int32 sends deferred to a later step
+    slab_occ: torch.Tensor     # () int32 fullest cell seen (stencil pass)
+    bond_miss: torch.Tensor    # () int32 (no bonds on the mesh yet)
+
+    def replace(self, **kw) -> "SlabState":
+        return dataclasses.replace(self, **kw)
+
+
+PER_SLOT = ("gid", "types", "pos", "vel", "frc", "engs", "radii",
+            "bnd_partner", "bnd_type", "ang_c", "ang_l1", "ang_l2",
+            "ang_t")
+# per-atom topology records (1 wide, empty until bonds run on a mesh)
+_TOPO = ("bnd_partner", "bnd_type", "ang_c", "ang_l1", "ang_l2", "ang_t")
+# empty-slot marker per field
+_FILL = {"gid": -1, "bnd_partner": -1, "ang_c": -1, "ang_l1": -1,
+         "ang_l2": -1}
+
+
+def reactive_mode(cfg) -> bool:
+    """True when the deck needs the replicated-topology path of the JAX
+    package (reactive bonds or angles, electron jumps)."""
+    return cfg.use_bnd == 2 or cfg.use_angl == 2 or cfg.ejtype != 0
+
+
+def slab_caps(cfg, n_dev: int, cap_factor: float = 1.6):
+    """(slot capacity C per slab, migration buffer M per direction)."""
+    C = _round_up(int(cfg.n_at / n_dev * cap_factor) + 8, 8)
+    M = _round_up(max(8, C // 8), 8)
+    return C, M
+
+
+def max_devices(cfg) -> int:
+    """Most slabs a deck takes: each slab at least one cutoff thick, so
+    N <= floor(box_x / r_max)."""
+    return max(1, int(cfg.box[0] / cfg.r_max))
+
+
+def check_slab_cfg(cfg, n_dev: int):
+    grid = cfg.grid
+    if n_dev < 2:
+        raise ValueError("slab mode needs >= 2 devices (single-device "
+                         "runs use the regular engines)")
+    if grid.dims[0] % n_dev:
+        raise ValueError(f"ncx={grid.dims[0]} not divisible by {n_dev}")
+    if min(grid.dims) < 3 or any(abs(o) > 1 for off in grid.stencil
+                                 for o in off):
+        raise ValueError("slab decomposition needs a 27-point stencil "
+                         "(cell edge >= cutoff, >= 3 cells per axis)")
+
+
+def check_ported(cfg):
+    """Raise for the mesh features the port does not run yet."""
+    if reactive_mode(cfg):
+        raise NotImplementedError(
+            "reactive decks on a mesh are not ported yet (ROADMAP.md, "
+            "modules to port: the rest of parallel/, slab_react.py)")
+    if cfg.use_bnd or cfg.use_angl:
+        raise NotImplementedError(
+            "constant bonds and angles on a mesh are not ported yet "
+            "(ROADMAP.md, modules to port: the rest of parallel/, the slab "
+            "_bonded_pass after angles)")
+
+
+def prepare_slab_cfg(cfg, n_dev: int):
+    """A cfg whose grid satisfies the slab constraints (27-point block
+    stencil, ncx divisible by n_dev), with the engine of the slab pair
+    pass: "pallas" (the dense rectangular pass) for f32 decks on the
+    "pallas" or "sparse" engine that are not reactive, else "block"."""
+    grid = cfg.grid
+    ok = (grid is not None and min(grid.dims) >= 3
+          and not any(abs(o) > 1 for off in grid.stencil for o in off))
+    if not ok:
+        grid = make_block_grid(cfg.box, cfg.r_max, cfg.n_at)
+    ncx = grid.dims[0]
+    if ncx % n_dev:
+        ncx = max((ncx // n_dev) * n_dev, n_dev)
+        if cfg.box[0] / ncx < cfg.r_max:
+            raise ValueError(
+                f"box x ({cfg.box[0]} A) cannot host {n_dev} slabs of "
+                f"cell edge >= {cfg.r_max} A; this deck's 1D-slab "
+                f"ceiling is --mesh {max_devices(cfg)} "
+                "(see parallel.slab.max_devices)")
+        grid = dataclasses.replace(
+            grid, dims=(ncx,) + grid.dims[1:],
+            edge=(cfg.box[0] / ncx,) + grid.edge[1:])
+    engine = "block"
+    if (cfg.pair_engine in ("pallas", "sparse") and not reactive_mode(cfg)
+            and cfg.dtype != "f64"):
+        engine = "pallas"
+        n_halo = 2 if n_dev == 2 else 3
+        print(f"slab mesh: '{cfg.pair_engine}' deck routed to the "
+              f"dense rectangular pair pass "
+              f"(>={n_halo * slab_caps(cfg, n_dev)[0] ** 2} slot pairs/"
+              f"device/step — lower bound: make_slab_state grows the "
+              f"slot cap C to the observed worst-slab occupancy, up to "
+              f"C~N on heavily clustered decks — vs ~27*cap^2 = "
+              f"{27 * grid.cap ** 2} per cell on the block path)",
+              file=sys.stderr)
+    cfg = dataclasses.replace(cfg, grid=grid, pair_engine=engine)
+    check_slab_cfg(cfg, n_dev)
+    return cfg
+
+
+def _cell_x(cfg, pos, ncx):
+    """The cell-x index of every position: floor(pos_x * scale) mod ncx,
+    with scale = ncx / box_x divided on the host in f64 and rounded to the
+    positions' dtype, as in the JAX package.  make_slab_state, _migrate
+    and _pair_pass must agree on it, or a boundary atom lands on a slab
+    whose pair pass does not own it."""
+    scale = torch.tensor(ncx / cfg.box[0], dtype=pos.dtype,
+                         device=pos.device)
+    return torch.floor(pos[..., 0] * scale).to(torch.int32) % ncx
+
+
+def make_slab_state(cfg, state, comm, cap_factor: float = 1.6) -> SlabState:
+    """Distribute a single-device MDState by x-slab onto the slabs of
+    ``comm``: C slots each (grown to the worst slab's occupancy plus
+    headroom), atoms in ascending id order within a slab."""
+    n_dev = comm.n_dev
+    check_slab_cfg(cfg, n_dev)
+    check_ported(cfg)
+    C, _ = slab_caps(cfg, n_dev, cap_factor)
+    N = cfg.n_at
+    ncx = cfg.grid.dims[0]
+    nloc = ncx // n_dev
+    dev = state.pos.device
+
+    dev_of = (_cell_x(cfg, state.pos, ncx) // nloc).cpu().numpy()
+    occ0 = int(np.bincount(dev_of, minlength=n_dev).max())
+    C = max(C, _round_up(occ0 + occ0 // 8 + 8, 8))
+
+    src = {"pos": state.pos, "vel": state.vel, "frc": state.frc,
+           "engs": state.engs, "radii": state.radii, "types": state.types,
+           "gid": torch.arange(N, dtype=torch.int32, device=dev)}
+    src = {k: v.detach().cpu().numpy() for k, v in src.items()}
+    out = {k: np.full((n_dev, C) + a.shape[1:], _FILL.get(k, 0), a.dtype)
+           for k, a in src.items()}
+    for k in _TOPO:
+        out[k] = np.full((n_dev, C, 1), _FILL.get(k, 0), np.int32)
+    for d in range(n_dev):
+        idx = np.flatnonzero(dev_of == d)
+        if len(idx) > C:
+            raise ValueError(f"slab {d} holds {len(idx)} atoms > "
+                             f"capacity {C}; raise cap_factor")
+        for k, a in src.items():
+            out[k][d, :len(idx)] = a[idx]
+    slots = {k: comm.local_slabs(torch.as_tensor(v).to(dev))
+             for k, v in out.items()}
+    zi = lambda: torch.zeros((), dtype=torch.int32, device=dev)
+    return SlabState(
+        rng=state.rng.clone(), step=state.step.clone(),
+        energies=Energies(**{f.name: getattr(state.energies, f.name).clone()
+                             for f in dataclasses.fields(Energies)}),
+        pressure=state.pressure.clone(), chit=state.chit.clone(),
+        consint=state.consint.clone(), pos_mom=state.pos_mom.clone(),
+        neg_mom=state.neg_mom.clone(), mom_buf_pos=state.mom_buf_pos.clone(),
+        mom_buf_neg=state.mom_buf_neg.clone(), i_mom=state.i_mom.clone(),
+        cross_pos=state.cross_pos.clone(), cross_neg=state.cross_neg.clone(),
+        mig_total=zi(), mig_lost=zi(), mig_defer=zi(), slab_occ=zi(),
+        bond_miss=zi(), **slots)
+
+
+GATHER_FIELDS = ("pos", "vel", "frc", "engs", "radii", "types")
+
+
+def gather_state(sstate: SlabState, n_at: int, comm, fields=GATHER_FIELDS):
+    """Host side: the per-atom arrays in global-id order, as a dict of
+    numpy arrays (every rank takes part under ``DistRing``)."""
+    gid = comm.gather_slabs(sstate.gid).reshape(-1).cpu().numpy()
+    live = gid >= 0
+    order = gid[live]
+    out = {}
+    for name in fields:
+        a = comm.gather_slabs(getattr(sstate, name))
+        a = a.reshape((-1,) + tuple(a.shape[2:])).cpu().numpy()[live]
+        full = np.zeros((n_at,) + a.shape[1:], a.dtype)
+        full[order] = a
+        out[name] = full
+    return out
+
+
+# ----------------------------------------------------------------------
+def _rows(t, idx):
+    """Rows ``idx`` (L, K) of every slab of ``t`` (L, C, ...)."""
+    return t[torch.arange(t.shape[0], device=t.device)[:, None], idx]
+
+
+def _migrate(cfg, comm, nloc, M, sd, valid):
+    """Send the atoms that crossed a slab boundary to the neighbour slab.
+
+    One hop a step: farther movers stay put and count in n_defer, as do
+    senders beyond the M-row buffer.  Receivers fill free slots in order;
+    an atom without a free slot is deleted and counts in n_lost.  Returns
+    (sd, valid, n_recv, n_lost, n_defer), the counts per local slab."""
+    n_dev = comm.n_dev
+    pos = sd["pos"]
+    L, C = valid.shape
+    dev = pos.device
+    ncx = nloc * n_dev
+    slab = _cell_x(cfg, pos, ncx) // nloc
+    delta = (slab - comm.slab_index()[:, None].to(slab.dtype)) % n_dev
+    go_r = valid & (delta == 1)
+    if n_dev == 2:
+        # both neighbours are the same slab: delta == 1 covers both
+        # directions, and a left exchange would duplicate every crosser
+        go_l = torch.zeros_like(go_r)
+    else:
+        go_l = valid & (delta == n_dev - 1)
+    stray = valid & (delta != 0) & ~go_r & ~go_l
+    n_stray = stray.sum(1, dtype=torch.int32)
+    ar_m = torch.arange(M, device=dev)
+
+    def pack(go):
+        """Senders first (stable) into fixed (L, M, ...) buffers."""
+        n_go = go.sum(1, dtype=torch.int32)
+        order = torch.argsort((~go).to(torch.int8), dim=1, stable=True)
+        rows = order[:, :M]
+        sent_ok = ar_m[None, :] < torch.clamp(n_go, max=M)[:, None]
+        buf = {}
+        for k in PER_SLOT:
+            v = _rows(sd[k], rows)
+            m = sent_ok.reshape(sent_ok.shape + (1,) * (v.dim() - 2))
+            buf[k] = torch.where(m, v, torch.full_like(v, _FILL.get(k, 0)))
+        overflow = torch.clamp(n_go - M, min=0)
+        sent = torch.zeros((L, C), dtype=torch.bool, device=dev)
+        sent[torch.arange(L, device=dev)[:, None], rows] = sent_ok
+        return buf, go & sent, overflow
+
+    buf_r, clr_r, ov_r = pack(go_r)
+    buf_l, clr_l, ov_l = pack(go_l)
+    recv_r = {k: comm.shift_from_left(v) for k, v in buf_r.items()}
+    if n_dev == 2:
+        recv_l = buf_l              # all empty: nothing goes left
+    else:
+        recv_l = {k: comm.shift_from_right(v) for k, v in buf_l.items()}
+    recv = {k: torch.cat([recv_r[k], recv_l[k]], 1) for k in recv_r}
+
+    # clear the sent slots
+    cleared = clr_r | clr_l
+    valid = valid & ~cleared
+    for k in PER_SLOT:
+        v = sd[k]
+        m = cleared.reshape(cleared.shape + (1,) * (v.dim() - 2))
+        sd[k] = torch.where(m, torch.full_like(v, _FILL.get(k, 0)), v)
+
+    # received atoms into free slots, in order
+    rvalid = recv["gid"] >= 0
+    rorder = torch.argsort((~rvalid).to(torch.int8), dim=1, stable=True)
+    rvalid_s = torch.gather(rvalid, 1, rorder)
+    n_recv = rvalid.sum(1, dtype=torch.int32)
+    free_first = torch.argsort(valid.to(torch.int8), dim=1, stable=True)
+    n_free = (~valid).sum(1, dtype=torch.int32)
+    fit = rvalid_s & (torch.arange(2 * M, device=dev)[None, :]
+                      < n_free[:, None])
+    dest = free_first[:, :2 * M]
+    lidx = torch.arange(L, device=dev)[:, None]
+    for k in PER_SLOT:
+        r = _rows(recv[k], rorder)
+        old = sd[k][lidx, dest]
+        m = fit.reshape(fit.shape + (1,) * (r.dim() - 2))
+        new = sd[k].clone()
+        new[lidx, dest] = torch.where(m, r, old)
+        sd[k] = new
+    valid = sd["gid"] >= 0
+    n_lost = torch.clamp(n_recv - n_free, min=0)
+    n_defer = ov_r + ov_l + n_stray
+    return sd, valid, n_recv, n_lost, n_defer
+
+
+# ----------------------------------------------------------------------
+def dense_pass_inputs(cfg, comm, sd, valid):
+    """The arguments of K2 on a slab state: (pos_i, types_i, valid_i,
+    pos_j, types_j, valid_j, radii_i, radii_j), j = [own; left slab;
+    right slab].  Cell edge >= cutoff makes the two neighbour slabs a
+    superset of every partner in range; the kernel's full-box min-image
+    handles the periodic wrap, so halo coordinates are not shifted.  Two
+    slabs: left == right, one halo copy only, or every cross-slab pair
+    counts twice."""
+    pos, types = sd["pos"], sd["types"]
+    # empty slots carry radii 0: Surkov's 1/(p2*ra + p3*rb) is inf there
+    # and 0 * inf = NaN would survive a masked sum; 1.0 before the halo
+    radii = (torch.where(valid, sd["radii"], torch.ones_like(sd["radii"]))
+             if cfg.use_radii else None)
+    own = (pos, types, valid, radii)
+    shifts = ([comm.shift_from_left] if comm.n_dev == 2
+              else [comm.shift_from_left, comm.shift_from_right])
+    parts = [own] + [tuple(None if a is None else sh(a) for a in own)
+                     for sh in shifts]
+    cat = lambda q: torch.cat([p[q] for p in parts], 1)
+    return (pos, types, valid, cat(0), cat(1), cat(2), radii,
+            cat(3) if radii is not None else None)
+
+
+def _pair_pass_dense(cfg, ff, comm, sd, valid):
+    """Dense rectangular pair pass of the dense and clustered decks: the
+    forces on each slab's slots from [own; left slab; right slab] through
+    K2 (``pair_forces_allpairs_rect``), inputs from
+    ``dense_pass_inputs``.  Returns (frc (L, C, 3), e_vdw (L,), e_coul
+    (L,), occ (L,) = 0); the energies need the caller's psum."""
+    pos_i, types_i, valid_i, pos_j, types_j, valid_j, radii_i, radii_j = \
+        dense_pass_inputs(cfg, comm, sd, valid)
+    frc, e_vdw, e_coul = pair_forces_allpairs_rect(
+        cfg, ff, pos_i, types_i, valid_i, pos_j, types_j, valid_j,
+        radii_i=radii_i, radii_j=radii_j)
+    frc = torch.where(valid[..., None], frc, torch.zeros_like(frc))
+    occ = torch.zeros(valid.shape[0], dtype=torch.int32, device=frc.device)
+    return frc, e_vdw, e_coul, occ
+
+
+def _pair_pass(cfg, ff, comm, sd, valid):
+    """Bin each slab's atoms into its cells, exchange the boundary cell
+    planes, run the stencil pair pass; decks on the dense engine go to
+    ``_pair_pass_dense``.  Returns (frc (L, C, 3), e_vdw (L,), e_coul
+    (L,), occ (L,)): occ is the fullest cell; an atom of rank >= cap in
+    its cell gets no pair force, and the caller monitors occ against
+    grid.cap."""
+    if cfg.pair_engine == "pallas" and cfg.dtype != "f64":
+        return _pair_pass_dense(cfg, ff, comm, sd, valid)
+    n_dev = comm.n_dev
+    grid = cfg.grid
+    ncx, ncy, ncz = grid.dims
+    cap = grid.cap
+    nloc = ncx // n_dev
+    pos = sd["pos"]
+    types = sd["types"]
+    L, C = valid.shape
+    dt = pos.dtype
+    dev = pos.device
+    nsp = cfg.n_spec
+    sidx = comm.slab_index()
+    x0 = (sidx * nloc)[:, None]
+
+    scale = torch.tensor([grid.dims[k] / cfg.box[k] for k in range(3)],
+                         dtype=dt, device=dev)
+    dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
+    c = torch.floor(pos * scale).to(torch.int32) % dims
+    in_slab = valid & (c[..., 0] >= x0) & (c[..., 0] < x0 + nloc)
+    n_cell_loc = nloc * ncy * ncz
+    cid = ((c[..., 0] - x0) * ncy + c[..., 1]) * ncz + c[..., 2]
+    cid = torch.where(in_slab, cid, torch.full_like(cid, n_cell_loc))
+    # one stable sort over every local slab: the slab is the major key, so
+    # the sorted array is the slabs' sorted slots one after another
+    key = (cid.to(torch.int64)
+           + torch.arange(L, device=dev)[:, None] * (n_cell_loc + 1))
+    order = torch.argsort(key.reshape(-1), stable=True)
+    skey = key.reshape(-1)[order]
+    first = torch.searchsorted(skey, skey, right=False)
+    rank = torch.arange(L * C, device=dev) - first
+    lo = order // C
+    scid = skey - lo * (n_cell_loc + 1)
+    slot = torch.where((rank < cap) & (scid < n_cell_loc),
+                       rank * n_cell_loc + scid,
+                       torch.full_like(rank, cap * n_cell_loc))
+    occ = torch.where(scid < n_cell_loc, rank + 1,
+                      torch.zeros_like(rank)).reshape(L, C).amax(1) \
+        .to(torch.int32)
+
+    def blk(vals, fill=0.0):
+        out = torch.full((L, cap * n_cell_loc + 1), fill, dtype=vals.dtype,
+                         device=dev)
+        out[lo, slot] = vals.reshape(-1)[order]
+        return out[:, :-1].reshape(L, cap, nloc, ncy, ncz)
+
+    use_radii = bool(cfg.use_radii)
+    bx, by, bz = blk(pos[..., 0]), blk(pos[..., 1]), blk(pos[..., 2])
+    bv = blk(valid.to(dt))
+    bt = blk(types)
+    br = blk(sd["radii"]) if use_radii else None
+
+    # --- boundary x-planes of the neighbour slabs ---
+    box_x = torch.tensor(cfg.box[0], dtype=dt, device=dev)
+    first_slab = (sidx == 0).reshape(L, 1, 1, 1, 1)
+    last_slab = (sidx == n_dev - 1).reshape(L, 1, 1, 1, 1)
+
+    def halo(b, is_x=False):
+        from_left = comm.shift_from_left(b[:, :, -1:])
+        from_right = comm.shift_from_right(b[:, :, :1])
+        if is_x:
+            from_left = torch.where(first_slab, from_left - box_x, from_left)
+            from_right = torch.where(last_slab, from_right + box_x,
+                                     from_right)
+        return torch.cat([from_left, b, from_right], 2)
+
+    ex, ey, ez = halo(bx, True), halo(by), halo(bz)
+    ev_, et = halo(bv), halo(bt)
+    er = halo(br) if use_radii else None
+
+    flat = lambda b: b.reshape(L, cap, -1)
+    xi, yi, zi, vi, ti = flat(bx), flat(by), flat(bz), flat(bv), flat(bt)
+    ri = flat(br) if use_radii else None
+
+    fx = torch.zeros_like(xi)
+    fy = torch.zeros_like(xi)
+    fz = torch.zeros_like(xi)
+    e_vdw = torch.zeros(L, dtype=dt, device=dev)
+    e_coul = torch.zeros(L, dtype=dt, device=dev)
+    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    eye = torch.eye(cap, dtype=torch.bool, device=dev)[None, :, :, None]
+
+    for off in grid.stencil:
+        dx_, dy_, dz_ = off
+
+        def nb(e):
+            a = e[:, :, 1 + dx_: 1 + dx_ + nloc]
+            if dy_:
+                a = torch.roll(a, -dy_, 3)
+            if dz_:
+                a = torch.roll(a, -dz_, 4)
+            return a.reshape(L, cap, -1)
+
+        xj, yj, zj = nb(ex), nb(ey), nb(ez)
+        vj, tj = nb(ev_), nb(et)
+        # pair tiles are (L, cap_i, cap_j, n_cell_loc)
+        ddx = xi[:, :, None, :] - xj[:, None, :, :]
+        ddy = yi[:, :, None, :] - yj[:, None, :, :]
+        ddz = zi[:, :, None, :] - zj[:, None, :, :]
+        ddy = ddy - box[1] * torch.round(ddy / box[1])
+        ddz = ddz - box[2] * torch.round(ddz / box[2])
+        r2 = ddx * ddx + ddy * ddy + ddz * ddz
+
+        mask = (vi[:, :, None, :] * vj[:, None, :, :]) > 0.0
+        mask = mask & (r2 <= cfg.r2_max)
+        if off == (0, 0, 0):
+            mask = mask & ~eye
+        r2s = torch.where(mask, r2, torch.ones_like(r2))
+        rr = torch.sqrt(r2s)
+        zeros = torch.zeros_like(r2s)
+        tpair = (ti[:, :, None, :] * nsp + tj[:, None, :, :]).long()
+
+        if cfg.elec_type != ELEC_NONE:
+            chp = ff.chprod.reshape(-1)[tpair]
+            fc, ecl = coul_eval(cfg, r2s, rr, chp)
+            fc = torch.where(mask, fc, zeros)
+            ecl = torch.where(mask, ecl, zeros)
+        else:
+            fc = ecl = zeros
+
+        if cfg.vdw_families:
+            kind = ff.vdw_kind.reshape(-1)[tpair]
+            vp = ff.vdw_p.reshape(-1, 5)[tpair]
+            r2cut = ff.vdw_r2cut.reshape(-1)[tpair]
+            vmask = mask & (r2 <= r2cut)
+            kind = torch.where(vmask, kind, torch.zeros_like(kind))
+            if use_radii:
+                rj = nb(er)
+                ra = ri[:, :, None, :].expand_as(r2s)
+                rb = rj[:, None, :, :].expand_as(r2s)
+            else:
+                ra = rb = None
+            fv, evd = vdw_eval(kind, vp, r2s, rr, ra, rb,
+                               families=cfg.vdw_families)
+            fv = torch.where(vmask, fv, zeros)
+            evd = torch.where(vmask, evd, zeros)
+        else:
+            fv = evd = zeros
+
+        f = torch.clamp(fc + fv, -MX_FRC, MX_FRC)
+        fx = fx + torch.sum(f * ddx, 2)
+        fy = fy + torch.sum(f * ddy, 2)
+        fz = fz + torch.sum(f * ddz, 2)
+        e_vdw = e_vdw + 0.5 * evd.sum((1, 2, 3))
+        e_coul = e_coul + 0.5 * ecl.sum((1, 2, 3))
+
+    # back to slot order (each slab owns its atoms: no psum)
+    soa = torch.empty(L * C, dtype=torch.int64, device=dev)
+    soa[order] = slot
+    soa = soa.reshape(L, C)
+
+    def unsort(a):
+        a = torch.cat([a.reshape(L, -1), torch.zeros((L, 1), dtype=a.dtype,
+                                                     device=dev)], 1)
+        return torch.gather(a, 1, soa)
+
+    frc = torch.stack([unsort(fx), unsort(fy), unsort(fz)], -1)
+    return frc, e_vdw, e_coul, occ
+
+
+# ----------------------------------------------------------------------
+class _AtomView:
+    """Duck-typed mini-state over (flattened) slot tensors, so the
+    single-device integrator and thermostat run unchanged."""
+
+    def __init__(self, **kw):
+        self.__dict__.update(kw)
+
+    def replace(self, **kw):
+        d = dict(self.__dict__)
+        d.update(kw)
+        return _AtomView(**d)
+
+
+def _masked(valid, t):
+    """``t`` (L, C, ...) with the empty slots zeroed."""
+    m = valid.reshape(valid.shape + (1,) * (t.dim() - 2))
+    return torch.where(m, t, torch.zeros_like(t))
+
+
+def make_slab_step(cfg, aux, comm):
+    """step(SlabState, ForceField) -> SlabState over the slabs of
+    ``comm``."""
+    n_dev = comm.n_dev
+    check_slab_cfg(cfg, n_dev)
+    check_ported(cfg)
+    nloc = cfg.grid.dims[0] // n_dev
+    _, M = slab_caps(cfg, n_dev)
+    photons = aux.photons if aux is not None else None
+    ewald_rk = aux.rk if aux is not None else None
+    ewald_w = aux.kweights if aux is not None else None
+    if cfg.elec_type == ELEC_EWALD and ewald_rk is None:
+        raise ValueError("Ewald deck needs aux.rk/kweights "
+                         "(runtime.setup builds them)")
+
+    def step(st: SlabState, ff) -> SlabState:
+        valid = st.gid >= 0
+        sd = {k: getattr(st, k) for k in PER_SLOT}
+        L, C = valid.shape
+        fdt = sd["pos"].dtype
+        dev = sd["pos"].device
+        flat = lambda t: t.reshape((L * C,) + tuple(t.shape[2:]))
+        unflat = lambda t: t.reshape((L, C) + tuple(t.shape[1:]))
+
+        # --- [Nose] start-of-step scaling with the previous step's
+        # kinetic energy (replicated) ---
+        chit, consint = st.chit, st.consint
+        if cfg.tstat_type == TSTAT_NOSE:
+            v0, _, chit, consint = tstat.nose_apply(
+                cfg, sd["vel"], st.energies.kin, chit, consint)
+            sd["vel"] = _masked(valid, v0)
+
+        # --- verlet 1 from zeroed accumulators: pure per-slab deltas ---
+        nsp = st.cross_pos.shape[0]
+        zi3 = torch.zeros((nsp, 3), dtype=torch.int32, device=dev)
+        z3 = torch.zeros(3, dtype=fdt, device=dev)
+        view = _AtomView(pos=flat(sd["pos"]), vel=flat(sd["vel"]),
+                         frc=flat(sd["frc"]), types=flat(sd["types"]),
+                         pos_mom=z3, neg_mom=z3, cross_pos=zi3,
+                         cross_neg=zi3)
+        upd, eng_field = integ.verlet1(cfg, ff, view)
+        # empty slots stay all-zero (the external-field reset writes a
+        # per-charge constant into every row)
+        for k in ("pos", "vel", "frc"):
+            sd[k] = _masked(valid, unflat(upd[k]))
+        pos_mom = st.pos_mom + comm.allsum(upd["pos_mom"])
+        neg_mom = st.neg_mom + comm.allsum(upd["neg_mom"])
+        cross_pos = st.cross_pos + comm.allsum(upd["cross_pos"])
+        cross_neg = st.cross_neg + comm.allsum(upd["cross_neg"])
+        eng_field = comm.allsum(eng_field)
+
+        # --- migration ---
+        sd, valid, n_mig, n_lost, n_defer = _migrate(cfg, comm, nloc, M, sd,
+                                                     valid)
+        mig_total = st.mig_total + comm.psum(n_mig)
+        mig_lost = st.mig_lost + comm.psum(n_lost)
+        mig_defer = st.mig_defer + comm.psum(n_defer)
+
+        # --- pair pass on the slab and its halos ---
+        pfrc, e_vdw, e_coul, occ = _pair_pass(cfg, ff, comm, sd, valid)
+        sd["frc"] = sd["frc"] + pfrc
+        e_vdw = comm.psum(e_vdw)
+        e_coul = comm.psum(e_coul)
+        slab_occ = torch.maximum(st.slab_occ, comm.pmax(occ))
+        e_bond = torch.zeros((), dtype=fdt, device=dev)
+        e_angle = torch.zeros((), dtype=fdt, device=dev)
+
+        # --- Ewald reciprocal space: partial S(k) per slab, one psum ---
+        e_coul2 = torch.zeros((), dtype=fdt, device=dev)
+        if cfg.elec_type == ELEC_EWALD:
+            charge = torch.where(valid, ff.spec_charge[sd["types"].long()],
+                                 torch.zeros((), dtype=fdt, device=dev))
+            frc_r, e_coul2 = ewald_recip(cfg, flat(sd["pos"]), flat(charge),
+                                         ewald_rk, ewald_w,
+                                         allsum=comm.allsum)
+            sd["frc"] = sd["frc"] + _masked(valid, unflat(frc_r))
+
+        # --- verlet 2 (global kinetic energy) ---
+        vel, _ = integ.verlet2(cfg, ff, flat(sd["vel"]), flat(sd["frc"]),
+                               flat(sd["types"]))
+        vel = _masked(valid, unflat(vel))
+        mass = ff.spec_mass[sd["types"].long()]
+        ekin = 0.5 * torch.sum(torch.where(
+            valid, mass * torch.sum(vel * vel, -1), torch.zeros_like(mass)))
+        eng_kin = comm.allsum(ekin)
+        sd["vel"] = vel
+
+        # --- thermostat ---
+        eng_temp = torch.zeros((), dtype=fdt, device=dev)
+        rng = st.rng
+        if cfg.n_equil and cfg.freq_equil:
+            do_scale = (st.step <= cfg.n_equil) & \
+                (st.step % cfg.freq_equil == 0)
+            vel_s, ek_s = tstat.temp_scale(cfg, sd["vel"], eng_kin)
+            sd["vel"] = torch.where(do_scale, vel_s, sd["vel"])
+            eng_kin = torch.where(do_scale, ek_s, eng_kin)
+        if cfg.tstat_type == TSTAT_NOSE:
+            v2, eng_kin, chit, consint = tstat.nose_apply(
+                cfg, sd["vel"], eng_kin, chit, consint)
+            sd["vel"] = _masked(valid, v2)
+        elif cfg.tstat_type == TSTAT_RADI:
+            tview = _AtomView(pos=flat(sd["pos"]), vel=flat(sd["vel"]),
+                              engs=flat(sd["engs"]),
+                              types=flat(sd["types"]), rng=rng, step=st.step)
+            v2, engs, radii, et_loc, rng = tstat.tstat_radiative(
+                cfg, ff, tview, photons, gid=flat(sd["gid"]),
+                valid=flat(valid))
+            sd["vel"] = _masked(valid, unflat(v2))
+            sd["engs"] = unflat(engs)
+            sd["radii"] = _masked(valid, unflat(radii))
+            eng_temp = comm.allsum(et_loc)
+
+        # --- energies and pressure (replicated) ---
+        e_coul3 = torch.full((), cfg.eng_ewald_const, dtype=fdt, device=dev)
+        pot = e_coul + e_coul2 + e_coul3 + e_vdw + e_bond + e_angle
+        energies = Energies(
+            kin=eng_kin.to(fdt), vdw=e_vdw.to(fdt), coul1=e_coul.to(fdt),
+            coul2=e_coul2.to(fdt), coul3=e_coul3, bond=e_bond,
+            angle=e_angle, temp=eng_temp.to(fdt), field=eng_field.to(fdt),
+            pot=pot.to(fdt), tot=(pot + eng_kin).to(fdt))
+        pview = _AtomView(pos=sd["pos"], i_mom=st.i_mom, step=st.step,
+                          pressure=st.pressure, pos_mom=pos_mom,
+                          neg_mom=neg_mom, mom_buf_pos=st.mom_buf_pos,
+                          mom_buf_neg=st.mom_buf_neg)
+        pres, buf_p, buf_n, i_mom = integ.pressure_update(cfg, pview)
+
+        return st.replace(
+            energies=energies, pressure=pres, pos_mom=pos_mom,
+            neg_mom=neg_mom, mom_buf_pos=buf_p, mom_buf_neg=buf_n,
+            i_mom=i_mom, cross_pos=cross_pos, cross_neg=cross_neg,
+            mig_total=mig_total, mig_lost=mig_lost, mig_defer=mig_defer,
+            slab_occ=slab_occ, rng=rng, chit=chit, consint=consint,
+            step=st.step + 1, **sd)
+
+    return step
+
+
+def make_slab_multi_step(cfg, aux, comm):
+    """multi(st, ff, n) -> the slab state after n steps."""
+    step = make_slab_step(cfg, aux, comm)
+
+    def multi(st, ff, n: int):
+        for _ in range(n):
+            st = step(st, ff)
+        return st
+
+    return multi
+
+
+# ----------------------------------------------------------------------
+def assemble_global(comm, n_at: int, gid, valid, arr):
+    """The gid-keyed global table of a per-slot tensor ``arr`` (L, C,
+    ...): every slab scatters its filled slots and one psum adds the
+    tables.  Each gid lives in one slot of one slab, so the sum
+    reproduces the values exactly."""
+    idx = torch.where(valid, gid.to(torch.int64),
+                      torch.full_like(gid, n_at, dtype=torch.int64))
+    vals = _masked(valid, arr)
+    tab = torch.zeros((n_at + 1,) + tuple(arr.shape[2:]), dtype=arr.dtype,
+                      device=arr.device)
+    tab[idx.reshape(-1)] = vals.reshape((-1,) + tuple(arr.shape[2:]))
+    return comm.allsum(tab[:n_at])
+
+
+def make_slab_rdf_sample(cfg, rcfg, comm, spec_nuclei, nucl_number):
+    """sample(st, hist, nhist) -> (hist, nhist): one RDF sample on the
+    mesh.  Each slab histograms its own rows against the psum-assembled
+    global position table and one psum adds the integer counts, which
+    equal the one-device histogram's exactly.  The size gate is the
+    one-device sample's: past the RDF grid's candidate row the rows go
+    through the cell candidates."""
+    from ..ops import rdf as ops_rdf
+    N = cfg.n_at
+    nsp = cfg.n_spec
+    use_cells = N > len(rcfg.grid.stencil) * rcfg.grid.cap
+
+    def sample(st, hist, nhist):
+        valid = st.gid >= 0
+        gid = torch.where(valid, st.gid, torch.full_like(st.gid, -1))
+        pos_g = assemble_global(comm, N, st.gid, valid, st.pos)
+        types_g = assemble_global(comm, N, st.gid, valid, st.types)
+        rows = (st.pos.reshape(-1, 3), gid.reshape(-1),
+                st.types.reshape(-1))
+        fn = (ops_rdf.rdf_counts_rows_cells if use_cells
+              else ops_rdf.rdf_counts_rows)
+        counts = comm.allsum(fn(cfg, rcfg, *rows, pos_g, types_g))
+        # live species counts from the filled slots
+        sp = torch.arange(nsp, dtype=torch.int32, device=st.pos.device)
+        spec_number = comm.allsum(
+            (valid[..., None] & (st.types[..., None] == sp))
+            .sum((0, 1), dtype=torch.int32))
+        return ops_rdf._apply_weights(cfg, rcfg, counts, spec_number,
+                                      spec_nuclei, nucl_number, hist, nhist)
+
+    return sample

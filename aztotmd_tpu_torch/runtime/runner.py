@@ -11,8 +11,19 @@ jumps.dat for reactive decks and revbonds.txt and lengths.dat at the
 end of a run with bonds.  At each stat row the
 runner reads the engine's capacity monitor (the block-sparse worklist
 length or the fullest cell's occupancy) and regrows the capacity
-(``_check_overflow``).  The JAX package's on-device stat ring,
-mesh, debug and profile paths are not ported.
+(``_check_overflow``).
+
+Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
+step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
+stencil, the state is distributed by x-slab, the chunk loop calls the
+slab multi-step with the RDF sample on the mesh at its period, and the
+stat rows and output files read the state gathered in global-id order.
+Checkpoints are single-device MDStates, which either package resumes on
+one device or on any mesh.  At each stat row the slab monitors regrow the
+cell capacity, or raise the slot capacity 1.5x and redistribute after a
+migration deleted atoms or kept deferring (``_check_slab_health``).  The
+JAX package's on-device stat ring (on one device and on the mesh), its
+atom-sharded mesh mode, debug and profile paths are not ported.
 """
 
 from __future__ import annotations
@@ -50,8 +61,27 @@ class MDRunner:
     """Drive a loaded system to completion and write its output files."""
 
     def __init__(self, sysd: dict, out_dir: str = ".", quiet: bool = False,
-                 checkpoint_every: int = 0, append: bool = False):
+                 checkpoint_every: int = 0, append: bool = False,
+                 mesh_devices: int = 0, mesh_mode: str = "slab",
+                 comm=None):
         self.cfg = cfg = sysd["cfg"]
+        self.comm = None
+        if mesh_devices or comm is not None:
+            from ..parallel import comm as _comm
+            from ..parallel import slab as _slab
+            if mesh_mode == "atoms":
+                raise NotImplementedError(
+                    "the atom-sharded mesh mode (parallel/mesh.py) is not "
+                    "ported yet (ROADMAP.md, modules to port: the rest of "
+                    "parallel/)")
+            if mesh_mode != "slab":
+                raise ValueError(f"unknown mesh_mode {mesh_mode!r} "
+                                 "(use 'slab' or 'atoms')")
+            n_dev = comm.n_dev if comm is not None else mesh_devices
+            self.cfg = cfg = _slab.prepare_slab_cfg(cfg, n_dev)
+            _slab.check_ported(cfg)
+            self.comm = comm or _comm.LocalRing(n_dev,
+                                                sysd["state"].pos.device)
         self.ff = sysd["ff"]
         self.state = sysd["state"]
         self.aux = sysd["aux"]
@@ -136,23 +166,60 @@ class MDRunner:
             self._nucl_number = torch.as_tensor(
                 nucl_number.astype(np.int32), device=self.device)
 
-        self.multi = make_multi_step(cfg, self.aux)
+        self._view_cache = None
+        if self.comm is not None:
+            from ..parallel import slab as _slab
+            # keep the MDState as the template of mesh-independent
+            # checkpoints; the run carries the slab state
+            self._mdstate_template = self.state
+            self._slab_cap_factor = 1.6
+            self._slab_spec_number = np.bincount(
+                types_h, minlength=cfg.n_spec).astype(np.int32)
+            self._slab_mig_seen = (0, 0)
+            self._defer_hits = 0
+            self.state = _slab.make_slab_state(
+                cfg, self.state, self.comm, cap_factor=self._slab_cap_factor)
+        self._build_programs()
         self._route_note = None
         self._note_route()
         self.loop_seconds = 0.0
         self.steps_run = 0
         self._t0 = time.time()
 
+    def _build_programs(self):
+        """(Re)build the step loop and the mesh's RDF sample from the
+        current cfg: at init and after a capacity regrow."""
+        if self.comm is None:
+            self.multi = make_multi_step(self.cfg, self.aux)
+            return
+        from ..parallel import slab as _slab
+        self.multi = _slab.make_slab_multi_step(self.cfg, self.aux,
+                                                self.comm)
+        if self.rcfg is not None:
+            self._slab_rdf = _slab.make_slab_rdf_sample(
+                self.cfg, self.rcfg, self.comm, self._spec_nuclei,
+                self._nucl_number)
+
     def _note_route(self):
         """One line on stderr when a run on the card will take the torch
-        cell-block engine instead of a kernel, with the reason; again only
-        when a regrow changes it."""
+        cell-block engine (or, on a mesh, the slab stencil pass in torch
+        ops) instead of a kernel, with the reason; again only when a
+        regrow changes it."""
         note = None
         if self.device.type == "cuda":
-            note = torch_engine_reason(self.cfg, self.state.pos.dtype)
+            if self.comm is not None:
+                if self.cfg.pair_engine != "pallas" \
+                        or self.cfg.dtype == "f64":
+                    note = ("the slab mesh takes its cell-block stencil "
+                            "pass for this deck (f64, or a deck not on the "
+                            "pallas/sparse engine)")
+            else:
+                note = torch_engine_reason(self.cfg, self.state.pos.dtype)
         if note and note != self._route_note:
-            print("NOTE: the pair pass runs the torch cell-block engine on "
-                  f"the card, not a CUDA kernel: {note}", file=sys.stderr)
+            engine = ("slab stencil pass in torch ops" if self.comm is not None
+                      else "torch cell-block engine")
+            print(f"NOTE: the pair pass runs the {engine} on the card, not "
+                  f"a CUDA kernel: {note}", file=sys.stderr)
         self._route_note = note
 
     # ------------------------------------------------------------------
@@ -199,6 +266,9 @@ class MDRunner:
 
     def _rdf_sample(self):
         st = self.state
+        if self.comm is not None:
+            self.hist, self.nhist = self._slab_rdf(st, self.hist, self.nhist)
+            return
         self.hist, self.nhist = ops_rdf.rdf_sample(
             self.cfg, self.rcfg, st.pos, st.types, st.spec_number,
             self._spec_nuclei, self._nucl_number, self.hist, self.nhist)
@@ -206,19 +276,19 @@ class MDRunner:
     # ------------------------------------------------------------------
     def _sample(self, step: int):
         if self.p_stat and step % self.p_stat == 0:
-            st = self.state
+            st = self._view()
             t = step * self.cfg.dt
             E = st.energies
             eng = {k: float(getattr(E, k)) for k in _ENG_KEYS}
-            pos_mom = st.pos_mom.cpu().numpy()
-            neg_mom = st.neg_mom.cpu().numpy()
+            pos_mom = _host(st.pos_mom)
+            neg_mom = _host(st.neg_mom)
             pressure = float(st.pressure)
-            cross_pos = st.cross_pos.cpu().numpy()
-            cross_neg = st.cross_neg.cpu().numpy()
-            pos = st.pos.cpu().numpy()
+            cross_pos = _host(st.cross_pos)
+            cross_neg = _host(st.cross_neg)
+            pos = _host(st.pos)
             n_bond = int(st.n_bond)
             self.w_stat.write_row(t, step, eng, pos_mom, neg_mom, pressure,
-                                  st.spec_number.cpu().numpy())
+                                  _host(st.spec_number))
             if self.w_bnd:
                 self.w_bnd.write_row(t, step, n_bond,
                                      st.bt_count.cpu().numpy(),
@@ -235,6 +305,11 @@ class MDRunner:
         self._sample_rest(step)
 
     def _check_overflow(self):
+        if self.comm is not None:
+            return self._check_slab_health()
+        self._check_overflow_engine()
+
+    def _check_overflow_engine(self):
         """The capacity monitors, read at stat rows, with the JAX
         runner's formulas and warnings; a regrow rebuilds the step.
 
@@ -256,7 +331,7 @@ class MDRunner:
                       f"capacity {cfg.sparse_pair_cap}; rebuilding with "
                       f"pair_cap={new_cap}", file=sys.stderr)
                 self.cfg = dataclasses.replace(cfg, sparse_pair_cap=new_cap)
-                self.multi = make_multi_step(self.cfg, self.aux)
+                self._build_programs()
             return
         occ = int(self.state.cell_overflow)
         if occ > cfg.grid.cap:
@@ -266,12 +341,12 @@ class MDRunner:
                   file=sys.stderr)
             self.cfg = dataclasses.replace(
                 cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
-            self.multi = make_multi_step(self.cfg, self.aux)
+            self._build_programs()
             self._note_route()
 
     def _sample_rest(self, step: int):
         """Non-stat sampling: hist/vaf/rdf/traj/revcon/checkpoint."""
-        st = self.state
+        st = self._view()
         if self.w_hist and step % self.p_hist == 0:
             i1 = 1 if self.cfg.n_at > 1 else 0
             temp = 2.0 * float(st.energies.kin) / (
@@ -281,11 +356,10 @@ class MDRunner:
             self.w_hist.write_row(
                 step * self.cfg.dt, step, float(st.energies.tot), temp,
                 float(st.pos[i1, 0]), float(st.pos[i1, 1]), q1,
-                st.neg_mom.cpu().numpy(), st.pos_mom.cpu().numpy())
+                _host(st.neg_mom), _host(st.pos_mom))
 
         if self.w_vaf and step % self.p_vaf == 0:
-            self.w_vaf.write_row(step * self.cfg.dt, step,
-                                 st.vel.cpu().numpy())
+            self.w_vaf.write_row(step * self.cfg.dt, step, _host(st.vel))
 
         if self.rcfg is not None and self.p_rdf and not self.rdf_in_chunk \
                 and step % self.p_rdf == 0:
@@ -303,25 +377,22 @@ class MDRunner:
 
         if self.w_traj and step >= self.ctl.st_traj \
                 and step % self.p_traj == 0:
-            self.w_traj.write_row(step * self.cfg.dt, step,
-                                  st.pos.cpu().numpy(),
-                                  st.types.cpu().numpy(),
-                                  st.parents.cpu().numpy())
+            self.w_traj.write_row(step * self.cfg.dt, step, _host(st.pos),
+                                  _host(st.types), _host(st.parents))
 
         if self.w_bindtraj and step >= self.ctl.bindtraj_start \
                 and step % self.p_bindtraj == 0:
             self.w_bindtraj.write_row(
                 step * self.cfg.dt, step, self.bindtraj_idx,
-                st.pos.cpu().numpy(), st.types.cpu().numpy(),
-                st.nbonds.cpu().numpy(), st.parents.cpu().numpy(),
-                self.cfg.box)
+                _host(st.pos), _host(st.types), _host(st.nbonds),
+                _host(st.parents), self.cfg.box)
 
         if self.p_revcon and step % self.p_revcon == 0:
             self._write_revcon(suffix=str(step))
 
         if self.checkpoint_every and step % self.checkpoint_every == 0:
             save_checkpoint(os.path.join(self.out_dir, "checkpoint.npz"),
-                            st, {"step": step})
+                            self.mdstate(), {"step": step})
 
     def _console(self, step, eng, x1, pressure, n_bond):
         parts = [f"{step} x1={x1:.2f}"]
@@ -359,7 +430,7 @@ class MDRunner:
 
     def finalize(self):
         """End-of-run outputs."""
-        st = self.state
+        st = self._view()
         fld, ctl, cfg = self.fld, self.ctl, self.cfg
         j = lambda p: os.path.join(self.out_dir, p)
         for w in (self.w_stat, self.w_bnd, self.w_msd, self.w_jmp,
@@ -369,9 +440,9 @@ class MDRunner:
                 w.close()
         self._write_rdf(j("rdf.dat"), final=True)
 
-        pos = st.pos.cpu().numpy()
-        vel = st.vel.cpu().numpy()
-        types = st.types.cpu().numpy()
+        pos = _host(st.pos)
+        vel = _host(st.vel)
+        types = _host(st.types)
         names = [fld.species[t].name for t in types]
         W.write_atoms_xyz(j("revcon.xyz"), names, pos, cfg.box)
         if cfg.use_bnd:
@@ -385,8 +456,7 @@ class MDRunner:
         W.write_velocities(j("velocities.dat"), fld, types, vel)
         if cfg.tstat_type == TSTAT_RADI:
             W.write_thermal_chars(j("tchars.dat"), fld, types,
-                                  st.engs.cpu().numpy(),
-                                  st.radii.cpu().numpy())
+                                  _host(st.engs), _host(st.radii))
         W.write_cn(j("CN.dat"), fld, ctl, types, pos, cfg.box)
         W.write_ncn(j("nCN.dat"), fld, ctl, types, pos, cfg.box)
         if not self.quiet:
@@ -394,8 +464,125 @@ class MDRunner:
                   flush=True)
 
     def _write_revcon(self, suffix=""):
-        st = self.state
-        types = st.types.cpu().numpy()
+        st = self._view()
+        types = _host(st.types)
         names = [self.fld.species[t].name for t in types]
         W.write_atoms_xyz(os.path.join(self.out_dir, f"revcon{suffix}.xyz"),
-                          names, st.pos.cpu().numpy(), self.cfg.box)
+                          names, _host(st.pos), self.cfg.box)
+
+    # ------------------------------------------------------------------
+    # mesh mode
+
+    def _view(self):
+        """What the writers read: the MDState on one device; on a mesh an
+        MDState-shaped view whose per-atom arrays are gathered host-side
+        in global-id order (once a step) and whose replicated scalars are
+        the slab state's."""
+        if self.comm is None:
+            return self.state
+        from types import SimpleNamespace
+        from ..parallel import slab as _slab
+        st = self.state
+        step = int(st.step)
+        if self._view_cache is not None and self._view_cache[0] == step:
+            return self._view_cache[1]
+        cfg = self.cfg
+        g = _slab.gather_state(st, cfg.n_at, self.comm)
+        nbt = max(cfg.n_bond_types, 1)
+        z = np.zeros((), np.int32)
+        view = SimpleNamespace(
+            energies=st.energies, pos_mom=st.pos_mom, neg_mom=st.neg_mom,
+            pressure=st.pressure, spec_number=self._slab_spec_number,
+            cross_pos=st.cross_pos, cross_neg=st.cross_neg, n_bond=z,
+            bt_count=np.zeros(nbt, np.int32),
+            bt_r_mean=np.zeros(nbt, np.float32),
+            bt_lt_mean=np.zeros(nbt, np.float32), n_jump=z, jump_pos=z,
+            jump_neg=z, parents=np.full(cfg.n_at, -1, np.int32),
+            nbonds=np.zeros(cfg.n_at, np.int32), step=st.step, **g)
+        self._view_cache = (step, view)
+        return view
+
+    def mdstate(self):
+        """The run's state as a single-device MDState: the state itself,
+        or on a mesh the slab state reassembled in global-id order (the
+        mesh-independent checkpoint and the redistribution after a
+        capacity regrow)."""
+        if self.comm is None:
+            return self.state
+        from ..parallel import slab as _slab
+        st = self.state
+        t = self._mdstate_template
+        dev = t.pos.device
+        g = _slab.gather_state(st, self.cfg.n_at, self.comm)
+        put = lambda a, like: torch.as_tensor(a).to(device=dev,
+                                                    dtype=like.dtype)
+        return t.replace(
+            pos=put(g["pos"], t.pos), vel=put(g["vel"], t.vel),
+            frc=put(g["frc"], t.frc), engs=put(g["engs"], t.engs),
+            radii=put(g["radii"], t.radii), types=put(g["types"], t.types),
+            # stale after redistribution: a list engine rebuilds
+            nbr_ref=put(g["pos"], t.pos) + 1e9,
+            rng=st.rng, step=st.step, chit=st.chit, consint=st.consint,
+            energies=st.energies, pressure=st.pressure, pos_mom=st.pos_mom,
+            neg_mom=st.neg_mom, mom_buf_pos=st.mom_buf_pos,
+            mom_buf_neg=st.mom_buf_neg, i_mom=st.i_mom,
+            cross_pos=st.cross_pos, cross_neg=st.cross_neg)
+
+    def _check_slab_health(self):
+        """The slab monitors, read at stat rows (the mesh's
+        ``_check_overflow``, with the JAX runner's rules and warnings):
+        grow grid.cap when a cell overflowed (atoms of rank >= cap got no
+        pair force); raise the slot capacity 1.5x and redistribute when a
+        migration deleted atoms, or when deferrals kept accruing over
+        three checks."""
+        st = self.state
+        occ, lost, defer = (int(st.slab_occ), int(st.mig_lost),
+                            int(st.mig_defer))
+        cfg = self.cfg
+        rebuild = False
+        if occ > cfg.grid.cap:
+            new_cap = _round_up(occ + max(2, occ // 4), 4)
+            print(f"WARNING: slab cell occupancy {occ} exceeded capacity "
+                  f"{cfg.grid.cap}; rebuilding with cap={new_cap}",
+                  file=sys.stderr)
+            self.cfg = dataclasses.replace(
+                cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
+            rebuild = True
+        seen = self._slab_mig_seen
+        if (lost, defer) > seen:
+            self._slab_mig_seen = (lost, defer)
+            if lost > seen[0]:
+                print(f"WARNING: slab migration DELETED {lost - seen[0]} "
+                      "atoms (receiver slots full); raising capacity and "
+                      "redistributing", file=sys.stderr)
+                self._slab_cap_factor *= 1.5
+                rebuild = True
+            elif defer > seen[1]:
+                self._defer_hits += 1
+                hits = self._defer_hits
+                if hits == 1:
+                    print(f"WARNING: {defer} deferred slab migrations so "
+                          "far (sender buffer full); atoms retry next "
+                          "step but sit out one pair pass",
+                          file=sys.stderr)
+                elif hits >= 3:
+                    print(f"WARNING: migrations still deferring after "
+                          f"{hits} checks ({defer} total); raising "
+                          "capacity and redistributing", file=sys.stderr)
+                    self._slab_cap_factor *= 1.5
+                    rebuild = True
+        if rebuild:
+            from ..parallel import slab as _slab
+            md = self.mdstate()
+            self._build_programs()
+            self.state = _slab.make_slab_state(
+                self.cfg, md, self.comm, cap_factor=self._slab_cap_factor)
+            self._view_cache = None
+            # the fresh state restarts its counters from zero
+            self._slab_mig_seen = (0, 0)
+            self._defer_hits = 0
+
+
+def _host(a):
+    """A numpy array of a tensor or of a host array."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)

@@ -547,6 +547,32 @@ def pair_system(specs, dtype: str = "f32", device=None,
             t(rad, tdt) if rad is not None else None)
 
 
+def rect_system(specs, n_i: int, empty: float = 0.2, seed: int = 6,
+                n_slab: int = 1, device=None):
+    """(cfg, ff, args, kwargs) of the rectangular pass K2 from pair-pass
+    specs: n_slab copies of one slab whose j slots are the specs' atoms
+    with a share ``empty`` of them turned into empty slots (zero position,
+    type 0, radius 1) at random, and whose i slots are the first ``n_i``
+    j slots.  ``args``/``kwargs`` go to
+    ``ops.allpairs.pair_forces_allpairs_rect``."""
+    import torch
+    ctl, fld, box, pos, types, rad = specs
+    valid = np.random.default_rng(seed).uniform(size=len(pos)) >= empty
+    pos = np.where(valid[:, None], pos, 0.0)
+    types = np.where(valid, types, 0)
+    if rad is not None:
+        rad = np.where(valid, rad, 1.0)
+    cfg, ff, p, t, r = pair_system((ctl, fld, box, pos, types, rad),
+                                   device=device)
+    v = torch.as_tensor(valid, device=device)
+    rep = lambda a: (None if a is None else
+                     a.expand((n_slab,) + tuple(a.shape)).contiguous())
+    args = (rep(p[:n_i]), rep(t[:n_i]), rep(v[:n_i]), rep(p), rep(t), rep(v))
+    kwargs = dict(radii_i=rep(r[:n_i]) if r is not None else None,
+                  radii_j=rep(r))
+    return cfg, ff, args, kwargs
+
+
 if __name__ == "__main__":
     import sys
     dest = sys.argv[1] if len(sys.argv) > 1 else os.path.join(

@@ -6,9 +6,15 @@
 Run from the root of a checkout.  It builds the port's CUDA kernels
 (csrc/allpairs.cu: K1 and K1-cand, the dense pass without and with the
 fused bind/jump candidates; csrc/sparse.cu: K4 and K4-cand, the Morton
-block-sparse pass; csrc/cellblock.cu: K3, the stacked cell-block pass)
-for sm_90a from the checkout, one nvcc each, in parallel, and then, for
-each kernel, checks it against its plain PyTorch version on the card:
+block-sparse pass; csrc/cellblock.cu: K3, the stacked cell-block pass;
+csrc/allpairs_rect.cu: K2, the rectangular pass of the slab-decomposed
+step) for sm_90a from the checkout, one nvcc each, in parallel, and then,
+for each kernel, checks it against its plain PyTorch version on the card:
+  K2, the rectangular pass: the slab states of examples/surkov_cluster
+      over 2 slabs (2 x 3,208 x 6,416 slots) and examples/nanoclusters
+      over 4 (4 x 5,024 x 15,072), and synthetic slabs with a fifth of
+      the slots empty, 1-3 species, direct/Ewald/Fennel, radii, one and
+      three slabs a launch;
   K1, the dense pair pass: the Surkov slice deck's 4,000-atom state,
       every VdW family, three species with direct/Ewald/Fennel Coulomb
       and radii, ragged N;
@@ -35,7 +41,15 @@ cell-list RDF), examples/reactive_polymer and examples/ejump_redox
 examples/molten_salt (K1 plus the Ewald reciprocal sum), and through
 the runner the two tiled decks on the sparse engine (K4-cand) and
 examples/liquid_argon on the pallas engine (K3); liquid_argon also runs
-through the CLI on "auto", the cell-block engine in torch ops.  It
+through the CLI on "auto", the cell-block engine in torch ops.  The
+slab-decomposed step runs through ``run --mesh N`` on the one card (all
+slabs batched in one process): examples/surkov_cluster over 2 slabs and
+examples/nanoclusters over 4 (K2, every pair pass), examples/liquid_argon
+over 4 (the slab stencil pass in torch ops); no atom may be lost to a
+migration; 20 mesh steps are held against 20 one-device kernel steps
+(K1, K4) with the JAX package's slab bounds, and 50 bare mesh steps are
+profiled.  With two or more cards it also runs the slabs one per process
+over NCCL.  It
 checks that every pair pass went through that path's kernel, that
 stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
 (stat_bnd.dat, jumps.dat) and revbonds.txt and lengths.dat were
@@ -71,6 +85,12 @@ ARGON_DECK = os.path.join(HERE, "examples", "liquid_argon")
 SALT_DECK = os.path.join(HERE, "examples", "molten_salt")
 SLICE_STEPS = 1000       # the four decks of the earlier slices
 NEW_STEPS = 2000         # liquid_argon on K3, molten_salt
+MESH_STEPS = {"surkov_cluster": 1000, "nanoclusters": 500,
+              "liquid_argon": 200}
+MESH_DEV = {"surkov_cluster": 2, "nanoclusters": 4, "liquid_argon": 4}
+# the JAX package's slab-vs-single-chip bounds (tests/test_parallel.py)
+MESH_POS_ATOL = 5e-4     # A after 20 steps
+MESH_VEL_ATOL = 1e-4     # x max|v|
 TILED_STEPS = 200        # the 3x3x3 tiled reactive decks (K4-cand), and
                          # liquid_argon on the torch cell-block engine
 PROFILE_STEPS = 50
@@ -247,16 +267,17 @@ def read_table(path, skip):
         return [[float(v) for v in ln.split()] for ln in f.readlines()[skip:]]
 
 
-def drive(cli, counters, name, deck, out, steps, runner_fn=None):
-    """One path through the run CLI (or ``runner_fn(out)``, which runs and
-    returns an MDRunner) with every launch count set to 0 just before it;
-    returns (runner, launches per kernel, steps/s)."""
+def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
+    """One path through the run CLI (``--mesh mesh`` when set; or
+    ``runner_fn(out)``, which runs and returns an MDRunner) with every
+    launch count set to 0 just before it; returns (runner, launches per
+    kernel, steps/s)."""
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
     if runner_fn is None:
         runner = cli(["run", deck, "--steps", str(steps), "-o", out,
-                      "--quiet"])
+                      "--quiet"] + (["--mesh", str(mesh)] if mesh else []))
     else:
         runner = runner_fn(out)
     wall = time.perf_counter() - t0
@@ -268,6 +289,13 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None):
     log(f"  kernel launches {launches}, pair-force evaluations "
         f"{runner.steps_run}")
     check(runner.steps_run == steps, f"{name} run stopped early")
+    if mesh:
+        lost = int(runner.state.mig_lost)
+        log(f"  slabs {mesh}, slot capacity {runner.state.pos.shape[1]}: "
+            f"{int(runner.state.mig_total)} atoms migrated, {lost} lost, "
+            f"{int(runner.state.mig_defer)} sends deferred; fullest cell "
+            f"{int(runner.state.slab_occ)} of cap {runner.cfg.grid.cap}")
+        check(lost == 0, f"{name}: a migration deleted atoms")
     rows = read_table(os.path.join(out, "stat.dat"), 2)
     check(len(rows) == steps // runner.p_stat, f"{name} stat.dat rows")
     check(all(all(v == v and abs(v) < 1e30 for v in r) for r in rows),
@@ -334,17 +362,36 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
     return dpos
 
 
+def mesh_system(load_deck_dir, deck, n_dev, dev):
+    """(cfg, ff, aux, comm, slab state) of a deck over n_dev slabs on the
+    one card."""
+    from aztotmd_tpu_torch.parallel import LocalRing, slab
+    d = load_deck_dir(deck, device=dev)
+    cfg = slab.prepare_slab_cfg(d["cfg"], n_dev)
+    comm = LocalRing(n_dev, dev)
+    return cfg, d["ff"], d["aux"], comm, slab.make_slab_state(
+        cfg, d["state"], comm)
+
+
 def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev,
-                  n=PROFILE_STEPS, **load_kw):
+                  n=PROFILE_STEPS, mesh=0, **load_kw):
     """Device busy time and the kernels that take it over ``n`` bare steps
-    (no output, no RDF), from torch.profiler; "not measured" when the
-    profiler records no device activity on this machine.  Returns the
-    device seconds per step by kernel name, or None."""
+    (no output, no RDF; over ``mesh`` slabs when set), from
+    torch.profiler; "not measured" when the profiler records no device
+    activity on this machine.  Returns the device seconds per step by
+    kernel name, or None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    d = load_deck_dir(deck, device=dev, **load_kw)
-    multi = make_multi_step(d["cfg"], d["aux"])
-    state = multi(d["state"], d["ff"], 10)
+    if mesh:
+        from aztotmd_tpu_torch.parallel import slab
+        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, mesh, dev)
+        multi = slab.make_slab_multi_step(cfg, aux, comm)
+        d = {"ff": ff}
+        state = multi(st, ff, 10)
+    else:
+        d = load_deck_dir(deck, device=dev, **load_kw)
+        multi = make_multi_step(d["cfg"], d["aux"])
+        state = multi(d["state"], d["ff"], 10)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -358,7 +405,7 @@ def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev,
             by_name[e.name] = by_name.get(e.name, 0.0) \
                 + e.time_range.elapsed_us() * 1e-6
     busy = sum(by_name.values())
-    tag = os.path.basename(deck)
+    tag = os.path.basename(deck) + (f" over {mesh} slabs" if mesh else "")
     if busy <= 0.0:
         log(f"profile {tag}: no device activity recorded; device idle "
             "share not measured")
@@ -380,6 +427,88 @@ def random_parents(torch, n, dev, seed=7):
     par = torch.randint(0, n, (n,), generator=g, dtype=torch.int32)
     keep = torch.rand(n, generator=g) < 0.4
     return torch.where(keep, par, -1).to(dev)
+
+
+def rect_args(slab, cfg, comm, st):
+    """K2's arguments on a slab state: (args, kwargs) of
+    pair_forces_allpairs_rect, as the dense slab pass builds them."""
+    a = slab.dense_pass_inputs(cfg, comm, {k: getattr(st, k) for k in
+                                           slab.PER_SLOT}, st.gid >= 0)
+    return a[:6], dict(radii_i=a[6], radii_j=a[7])
+
+
+def rect_pairs(torch, cfg, args, rows=1024):
+    """(valid slot pairs, valid ordered pairs in range) of K2's inputs,
+    counted on the card: the pairs of filled slots, self slot excluded,
+    that the function needs, and those that take the physics branch."""
+    pos_i, _, valid_i, pos_j, _, valid_j = args
+    box = torch.tensor(cfg.box, dtype=pos_i.dtype, device=pos_i.device)
+    slots = inr = 0
+    for s in range(pos_i.shape[0]):
+        nv_j = int(valid_j[s].sum())
+        nv_i = int(valid_i[s].sum())
+        slots += nv_i * nv_j - nv_i
+        pj = pos_j[s][valid_j[s]]
+        pi = pos_i[s][valid_i[s]]
+        for i0 in range(0, pi.shape[0], rows):
+            d = pi[i0:i0 + rows, None, :] - pj[None, :, :]
+            d = d - box * torch.round(d / box)
+            inr += int(((d * d).sum(-1) <= cfg.r2_max).sum())
+        inr -= nv_i                          # the self pairs have r2 = 0
+    return slots, inr
+
+
+def mesh_trajectory(torch, load_deck_dir, make_multi_step, name, deck,
+                    n_dev, dev):
+    """20 steps over n_dev slabs (K2) against 20 one-device steps (the
+    deck's kernel): positions atol 5e-4 A, velocities atol 1e-4*max|v|,
+    the bounds of the JAX package's slab-vs-single-chip tests."""
+    from aztotmd_tpu_torch.parallel import slab
+    cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, n_dev, dev)
+    st = slab.make_slab_multi_step(cfg, aux, comm)(st, ff, 20)
+    g = slab.gather_state(st, cfg.n_at, comm)
+    d = load_deck_dir(deck, device=dev)
+    one = make_multi_step(d["cfg"], d["aux"])(d["state"], d["ff"], 20)
+    torch.cuda.synchronize()
+    pos, vel = one.pos.cpu().numpy(), one.vel.cpu().numpy()
+    dpos = float(abs(g["pos"] - pos).max())
+    dvel = float(abs(g["vel"] - vel).max())
+    vmax = float(abs(vel).max())
+    log(f"{name} over {n_dev} slabs vs one device, 20 steps: max|dpos|="
+        f"{dpos:.3e} A (limit {MESH_POS_ATOL}), max|dvel|={dvel:.3e} "
+        f"(limit {MESH_VEL_ATOL * vmax:.3e}); Evdw "
+        f"{float(st.energies.vdw):.6f} vs {float(one.energies.vdw):.6f}; "
+        f"{int(st.mig_total)} migrated, {int(st.mig_lost)} lost")
+    check(dpos <= MESH_POS_ATOL and dvel <= MESH_VEL_ATOL * vmax
+          and int(st.mig_lost) == 0,
+          f"{name}: mesh and one-device trajectories diverge")
+    return dpos
+
+
+def dist_phase(out):
+    """The slabs one per process over NCCL (``run --mesh N --dist`` under
+    torchrun) on surkov_cluster, when the machine has N >= 2 cards; its
+    stat.dat must be finite.  Returns a status line."""
+    import torch
+    n = torch.cuda.device_count()
+    if n < 2:
+        return (f"NCCL DistRing phase not run: {n} card on this machine "
+                "(it needs two or more)")
+    n = 2
+    o = os.path.join(out, "surkov_dist")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", "-m", "aztotmd_tpu_torch", "run",
+           SURKOV_DECK, "--mesh", str(n), "--dist", "--steps", "200", "-o",
+           o, "--quiet"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=HERE)
+    check(res.returncode == 0, f"NCCL DistRing run failed:\n{res.stderr}")
+    rows = read_table(os.path.join(o, "stat.dat"), 2)
+    check(rows and all(all(v == v for v in r) for r in rows),
+          "NCCL DistRing stat.dat not finite")
+    return (f"NCCL DistRing: surkov_cluster over {n} processes, 200 steps "
+            f"in {time.perf_counter() - t0:.1f} s, {len(rows)} finite rows")
 
 
 def main(argv=None):
@@ -424,6 +553,7 @@ def run(dev, out):
     from aztotmd_tpu_torch.__main__ import main as cli
     from aztotmd_tpu_torch.ops import allpairs, cellblock, cuda_build, sparse
     from aztotmd_tpu_torch.ops.elec import ewald_recip
+    from aztotmd_tpu_torch.parallel import slab
     from aztotmd_tpu_torch.runtime.runner import MDRunner
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
     from aztotmd_tpu_torch.runtime.step import make_multi_step
@@ -431,12 +561,14 @@ def run(dev, out):
     card = card_line()
     log(card)
     toolchain(torch, cuda_build)
-    build_all(cuda_build, ["allpairs", "sparse", "cellblock"])
+    build_all(cuda_build, ["allpairs", "sparse", "cellblock",
+                           "allpairs_rect"])
     counters = {"allpairs": (allpairs, "launches"),
                 "allpairs_cand": (allpairs, "cand_launches"),
                 "sparse": (sparse, "launches"),
                 "sparse_cand": (sparse, "cand_launches"),
-                "cellblock": (cellblock, "launches")}
+                "cellblock": (cellblock, "launches"),
+                "allpairs_rect": (allpairs, "rect_launches")}
 
     # --- K1 against its plain version ---
     phase("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "
@@ -582,6 +714,52 @@ def run(dev, out):
     log(f"  over capacity: max_occ {int(cut.max_occ)}, "
         f"{int(dropped.sum())} dropped atoms with exactly zero force")
 
+    # --- K2 against its plain version ---
+    phase("K2 (allpairs_rect, the slab step's dense pass) vs plain (forces "
+          "atol 3e-5*max|F|, energies rel 1e-4 per slab):")
+
+    def compare_rect(name, cfg, ff, args, kw):
+        k = allpairs.pair_forces_allpairs_rect(cfg, ff, *args, **kw)
+        p = allpairs.pair_forces_allpairs_rect_plain(cfg, ff, *args, **kw)
+        torch.cuda.synchronize()
+        err = float((k[0] - p[0]).abs().max())
+        scale = float(p[0].abs().max())
+        e_ok = all(bool(((a - b).abs() <= ENERGY_REL * b.abs() + 1e-6).all())
+                   for a, b in ((k[1], p[1]), (k[2], p[2])))
+        empty_zero = bool((k[0][~args[2]] == 0).all())
+        ok = err <= FORCE_ATOL * max(scale, 1.0) and e_ok and empty_zero
+        L, ni = args[0].shape[:2]
+        log(f"  {name:34s} {L} x {ni} x {args[3].shape[1]}  max|dF|="
+            f"{err:.3e} (limit {FORCE_ATOL * max(scale, 1.0):.3e})  Evdw "
+            f"{[round(v, 4) for v in k[1].tolist()]} vs "
+            f"{[round(v, 4) for v in p[1].tolist()]}  Ecoul "
+            f"{float(k[2].sum()):.6f} vs {float(p[2].sum()):.6f}  empty i "
+            f"slots zero: {empty_zero}  {'ok' if ok else 'FAIL'}")
+        check(ok, f"K2 disagrees with its plain version: {name}")
+        return err
+
+    k2_in = {}
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK)):
+        n_dev = MESH_DEV[nm]
+        cfg, ff, _, comm, st = mesh_system(load_deck_dir, deck, n_dev, dev)
+        occ = (st.gid >= 0).sum(1).tolist()
+        log(f"  {nm} over {n_dev} slabs: grid {cfg.grid.dims} cap "
+            f"{cfg.grid.cap}, slot capacity {st.pos.shape[1]}, atoms a "
+            f"slab {occ}")
+        k2_in[nm] = (cfg, ff) + rect_args(slab, cfg, comm, st)
+    k2_err = compare_rect("surkov_cluster over 2 slabs (radii)",
+                          *k2_in["surkov_cluster"])
+    compare_rect("nanoclusters over 4 slabs", *k2_in["nanoclusters"])
+    for case in (dict(nsp=1, elec=0), dict(nsp=2, elec=1),
+                 dict(nsp=3, elec=2), dict(nsp=3, elec=3, radii=True)):
+        for n_i, n_slab in ((700, 1), (333, 3)):
+            nm = ("nsp={nsp} elec={elec}".format(**case)
+                  + " + radii" * bool(case.get("radii"))
+                  + f", {n_slab} slab{'s' * (n_slab > 1)}")
+            compare_rect(nm, *systems.rect_system(systems.clustered_specs(
+                n_atoms=1000, **case), n_i, n_slab=n_slab, device=dev))
+
     # --- each path, counts set to 0 just before and read just after ---
     phase("the decks' paths")
     runs = {}
@@ -625,6 +803,15 @@ def run(dev, out):
           "liquid_argon is not auto-selected to the block engine")
     runs["molten_salt"] = drive(cli, counters, "molten_salt", SALT_DECK,
                                 os.path.join(out, "molten_salt"), NEW_STEPS)
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK),
+                     ("liquid_argon", ARGON_DECK)):
+        runs[nm + "_mesh"] = drive(
+            cli, counters, f"{nm} --mesh {MESH_DEV[nm]}", deck,
+            os.path.join(out, nm + "_mesh"), MESH_STEPS[nm],
+            mesh=MESH_DEV[nm])
+    check(runs["liquid_argon_mesh"][0].cfg.pair_engine == "block",
+          "liquid_argon --mesh 4 does not take the slab stencil pass")
     c2 = [r[6] for r in read_table(os.path.join(out, "molten_salt",
                                                 "stat.dat"), 2)]
     check(all(v == v and abs(v) < 1e30 and v != 0.0 for v in c2),
@@ -641,7 +828,10 @@ def run(dev, out):
               "reactive_polymer": "allpairs_cand",
               "ejump_redox": "allpairs_cand",
               "reactive_polymer_x3": "sparse_cand",
-              "ejump_redox_x3": "sparse_cand"}
+              "ejump_redox_x3": "sparse_cand",
+              "surkov_cluster_mesh": "allpairs_rect",
+              "nanoclusters_mesh": "allpairs_rect",
+              "liquid_argon_mesh": None}
     for nm, kern in expect.items():
         runner, launches, _ = runs[nm]
         want = {k: (runner.steps_run if k == kern else 0) for k in counters}
@@ -673,13 +863,21 @@ def run(dev, out):
                  pair_engine="pallas")
     trajectories(torch, load_deck_dir, make_multi_step, "molten_salt",
                  SALT_DECK, dev, plain_pair(k1[1]))
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK)):
+        mesh_trajectory(torch, load_deck_dir, make_multi_step, nm, deck,
+                        MESH_DEV[nm], dev)
 
     # --- where a step's time goes (the profiler adds its own cost) ---
     phase("profiles")
     prof = {}
     for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK, SALT_DECK):
+        # ejump_redox's five jump passes give ~18,600 profiler events a
+        # step, whose processing dominated this phase: 10 steps of it
         prof[deck] = profile_steps(torch, load_deck_dir, make_multi_step,
-                                   deck, dev)
+                                   deck, dev,
+                                   n=10 if deck == EJUMP_DECK else
+                                   PROFILE_STEPS)
     prof[ARGON_DECK] = profile_steps(torch, load_deck_dir, make_multi_step,
                                      ARGON_DECK, dev, pair_engine="pallas")
     profile_steps(torch, load_deck_dir, make_multi_step, ARGON_DECK, dev,
@@ -687,6 +885,11 @@ def run(dev, out):
     poly_x3 = tiled["reactive_polymer"]
     prof[poly_x3] = profile_steps(torch, load_deck_dir, make_multi_step,
                                   poly_x3, dev, pair_engine="sparse")
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK)):
+        prof[nm + "_mesh"] = profile_steps(torch, load_deck_dir,
+                                           make_multi_step, deck, dev,
+                                           mesh=MESH_DEV[nm])
 
     # --- timing at the paths' sizes: wrapper, kernel alone, plain ---
     phase("timing")
@@ -744,6 +947,28 @@ def run(dev, out):
              k4_alone),
             ("K4-cand ejump_redox x3", k4, k4c_ej, k4c_ej_kw, k4_alone)):
         times[key] = timing(key, fns, args, kw, alone(args, kw))
+
+    def k2_timing(nm):
+        cfg, ff, args, kw = k2_in[nm]
+        tab = allpairs.kernel_tables(cfg, ff, dev)
+        alone = lambda: allpairs.launch_rect(
+            cfg, *tab, args[0], args[1], args[2], kw["radii_i"], args[3],
+            args[4], args[5], kw["radii_j"])
+        n = 10
+        ms, ms_alone = timed(torch, [
+            lambda: allpairs.pair_forces_allpairs_rect(cfg, ff, *args, **kw),
+            alone], n=n)
+        ms_plain, = timed(torch, [
+            lambda: allpairs.pair_forces_allpairs_rect_plain(cfg, ff, *args,
+                                                             **kw)], n=2)
+        log(f"timing K2 {nm} over {args[0].shape[0]} slabs: wrapper "
+            f"{ms:.4f} ms, kernel alone {ms_alone:.4f} ms (medians of "
+            f"{2 * n}), plain {ms_plain:.4f} ms (median of 4), CUDA events, "
+            f"on {card}")
+        return ms, ms_alone, ms_plain
+
+    times["K2"] = k2_timing("surkov_cluster")
+    times["K2 nanoclusters"] = k2_timing("nanoclusters")
 
     block_cfg = dataclasses.replace(k3_args[0], pair_engine="block")
     n_block = 4
@@ -822,10 +1047,32 @@ def run(dev, out):
                                                       "lnjs", True),
               "K4-cand ejump_redox x3": k4_bound(k4c_ej, k4c_ej_kw,
                                                  "buck+dir", True)}
+    def k2_bound(nm, fam):
+        # the work this run's data needs: every pair of filled slots (i an
+        # owned slot, j an owned or halo slot, not the same slot) at the
+        # cost of the displacement, min-image and cutoff test, and the
+        # pairs in range at the cost of the physics; each input read once,
+        # each output written once
+        cfg, ff, args, kw = k2_in[nm]
+        L, ni = args[0].shape[:2]
+        nj = args[3].shape[1]
+        slots, pairs = rect_pairs(torch, cfg, args)
+        log(f"K2 {nm}: {slots} pairs of filled slots of {L * ni * nj} "
+            f"padded slot pairs ({L} slabs x {ni} x {nj}); the bound counts "
+            "the filled ones")
+        nb = L * (ni + nj) * (12 + 4 + 1 + (4 if kw["radii_i"] is not None
+                                            else 0)) + L * ni * 12 + 8 * L
+        return slots, pairs, bound(slots, pairs, fam, nb)
+
+    bounds["K2"] = k2_bound("surkov_cluster", "surk")
+    bounds["K2 nanoclusters"] = k2_bound("nanoclusters", "lnjs")
     for key, (slots, pairs, b) in bounds.items():
         log(f"bound {key}: {slots} slot pairs, {pairs} in range: "
             f"{b[0]:.4g} ms ({b[2]}); computed from the operation count "
             "of csrc/pair_physics.cuh, not from a counter")
+
+    phase("NCCL DistRing")
+    log(dist_phase(out))
 
     def prof_ms(deck, kernel):
         """Profiler device ms per step of the kernel instantiation whose
@@ -853,7 +1100,18 @@ def run(dev, out):
                   + l["ejump_redox_x3"]["sparse_cand"])
     ej1 = times["K1-cand ejump_redox"]
     ej4 = times["K4-cand ejump_redox x3"]
+    k2n = times["K2 nanoclusters"]
     return [
+        entry("allpairs_rect", "aztotmd_tpu_torch/csrc/allpairs_rect.cu",
+              "aztotmd_tpu/ops/pallas_pair.py:708",
+              l["surkov_cluster_mesh"]["allpairs_rect"]
+              + l["nanoclusters_mesh"]["allpairs_rect"], k2_err, "K2",
+              {"profiler_ms": prof_ms("surkov_cluster_mesh", "rect_kernel"),
+               "nanoclusters": {
+                   "ms": k2n[0], "kernel_ms": k2n[1], "plain_ms": k2n[2],
+                   "bound_ms": bounds["K2 nanoclusters"][2][0],
+                   "profiler_ms": prof_ms("nanoclusters_mesh",
+                                          "rect_kernel")}}),
         entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
               "aztotmd_tpu/ops/pallas_pair.py:335",
               l["surkov_cluster"]["allpairs"] + l["molten_salt"]["allpairs"],

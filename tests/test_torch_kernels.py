@@ -351,3 +351,63 @@ def test_stacked_kernel_matches_plain_liquid_argon_deck(cuda):
                       device=cuda, pair_engine="pallas")
     st = d["state"]
     _compare_stacked(d["cfg"], d["ff"], st.pos, st.types, None)
+
+
+# --- K2, the rectangular pass of the slab-decomposed step ---
+
+def _compare_rect(cfg, ff, args, kw):
+    before = allpairs.rect_launches
+    kf, kev, kec = allpairs.pair_forces_allpairs_rect(cfg, ff, *args, **kw)
+    assert allpairs.rect_launches == before + 1
+    pf, pev, pec = allpairs.pair_forces_allpairs_rect_plain(cfg, ff, *args,
+                                                            **kw)
+    torch.cuda.synchronize()
+    kf, pf = kf.cpu().numpy(), pf.cpu().numpy()
+    scale = float(np.abs(pf).max()) or 1.0
+    np.testing.assert_allclose(kf, pf, rtol=0, atol=3e-5 * scale)
+    assert not kf[~args[2].cpu().numpy()].any()     # empty i slots
+    for a, b in ((kev, pev), (kec, pec)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-6)
+
+
+_RECT_CASES = [dict(nsp=1, elec=0), dict(nsp=2, elec=1),
+               dict(nsp=3, elec=2), dict(nsp=3, elec=3, radii=True),
+               dict(nsp=2, elec=3, radii=True, n_atoms=1000)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _RECT_CASES, ids=lambda c: "-".join(
+    f"{k}{v}" for k, v in c.items()))
+@pytest.mark.parametrize("n_i,n_slab", [(200, 1), (150, 3)])
+def test_rect_kernel_matches_plain(cuda, case, n_i, n_slab):
+    """Ni not a multiple of the tile, Nj > Ni, a fifth of the slots empty,
+    one or three slabs in one launch."""
+    specs = systems.clustered_specs(**dict(dict(n_atoms=300), **case))
+    _compare_rect(*systems.rect_system(specs, n_i, n_slab=n_slab,
+                                       device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck,n_dev", [(SLICE_DECK, 2), (NANO_DECK, 4)])
+def test_rect_kernel_matches_plain_on_mesh_decks(cuda, deck, n_dev):
+    """The mesh decks' slab states: surkov_cluster over 2 slabs (2 x
+    3,208 x 6,416) and nanoclusters over 4 (4 x 5,024 x 15,072)."""
+    from aztotmd_tpu_torch.parallel import LocalRing, slab
+    d = load_deck_dir(deck, device=cuda)
+    cfg = slab.prepare_slab_cfg(d["cfg"], n_dev)
+    comm = LocalRing(n_dev, cuda)
+    st = slab.make_slab_state(cfg, d["state"], comm)
+    a = slab.dense_pass_inputs(cfg, comm, {k: getattr(st, k) for k in
+                                           slab.PER_SLOT}, st.gid >= 0)
+    _compare_rect(cfg, d["ff"], a[:6], dict(radii_i=a[6], radii_j=a[7]))
+
+
+@pytest.mark.cuda
+def test_mesh_run_launches_k2_every_step(cuda, tmp_path):
+    """`run --mesh 2` on the slice deck: one K2 launch a step, no K1."""
+    k1, k2 = allpairs.launches, allpairs.rect_launches
+    r = cli(["run", SLICE_DECK, "--mesh", "2", "--steps", "20", "-o",
+             str(tmp_path), "--quiet"])
+    assert allpairs.rect_launches - k2 == 20 and allpairs.launches == k1
+    assert int(r.state.mig_lost) == 0
