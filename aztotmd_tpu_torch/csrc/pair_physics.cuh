@@ -1,10 +1,10 @@
 // Per-pair physics shared by the port's pair kernels (allpairs.cu, sparse.cu,
 // cellblock.cu), f32.  Device code of aztotmd_tpu/ops/pallas_pair.py::_tile_physics with
 // _vdw_pair, _coul_pair and _erfc, for one ordered pair (i, j):
-//   min-image displacement (round half to even, rintf, with 1/box rounded
-//   to f32 as the JAX package does); pairs with r2 > r2_max are skipped (the
-//   TPU kernels mask them after sanitizing r2 to 1 before the rsqrt, which
-//   gives the same sums);
+//   min-image displacement (round half to even, rint_fp32, with 1/box
+//   rounded to f32 as the JAX package does); pairs with r2 > r2_max are
+//   skipped (the TPU kernels mask them after sanitizing r2 to 1 before the
+//   rsqrt, which gives the same sums);
 //   ri = rsqrt(r2), r2i = ri*ri, rr = r2*ri;
 //   VdW of the species pair's kind (7 families, Surkov with per-atom radii)
 //   where r2 <= that pair's r2cut, plus the Coulomb term of the static elec
@@ -161,16 +161,60 @@ inline size_t table_bytes(int nsp, bool donacc) {
            * sizeof(float);
 }
 
+// rintf(t), ties to even, for |t| < 2^22, on the FP32 pipe: adding 1.5 *
+// 2^23 rounds t to an integer (the sum's ulp is 1), subtracting it again
+// is exact.  Equal to rintf there but for the sign of a zero result,
+// which r2 cannot see.  rintf compiles to FRND, which issues with the
+// conversions at a fraction of the FP32 add rate, and the kernels round
+// three times a slot pair.  Positions are wrapped into the box, so |t|
+// stays below 2.
+__device__ __forceinline__ float rint_fp32(float t) {
+    return __fsub_rn(__fadd_rn(t, 12582912.0f), 12582912.0f);
+}
+
+// Min-image r2 (nvcc may contract), with rint_fp32; the displacement is
+// wrapped in place.
+__device__ __forceinline__ float min_image_r2(const PairConsts& c,
+                                              float& dx, float& dy,
+                                              float& dz) {
+    dx = dx - c.bx * rint_fp32(dx * c.ibx);
+    dy = dy - c.by * rint_fp32(dy * c.iby);
+    dz = dz - c.bz * rint_fp32(dz * c.ibz);
+    return dx * dx + dy * dy + dz * dz;
+}
+
 // Min-image r2 with every operation rounded on its own (no contraction),
 // in the plain version's order; the displacement is wrapped in place.
 __device__ __forceinline__ float min_image_r2_rn(const PairConsts& c,
                                                  float& dx, float& dy,
                                                  float& dz) {
-    dx = __fsub_rn(dx, __fmul_rn(c.bx, rintf(__fmul_rn(dx, c.ibx))));
-    dy = __fsub_rn(dy, __fmul_rn(c.by, rintf(__fmul_rn(dy, c.iby))));
-    dz = __fsub_rn(dz, __fmul_rn(c.bz, rintf(__fmul_rn(dz, c.ibz))));
+    dx = __fsub_rn(dx, __fmul_rn(c.bx, rint_fp32(__fmul_rn(dx, c.ibx))));
+    dy = __fsub_rn(dy, __fmul_rn(c.by, rint_fp32(__fmul_rn(dy, c.iby))));
+    dz = __fsub_rn(dz, __fmul_rn(c.bz, rint_fp32(__fmul_rn(dz, c.ibz))));
     return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                      __fmul_rn(dz, dz));
+}
+
+// cp.async copies (sm_80+): global to shared without a register, waited
+// for with cp_async_wait_all and made visible to the block by a barrier.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+    asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A running candidate minimum: the least (r2, key) seen so far.
@@ -229,10 +273,7 @@ __device__ __forceinline__ void pair_accumulate(
         const PairConsts& c, const float* s_tab, float dx, float dy,
         float dz, int ti, int tj, float rai, float raj,
         float& fx, float& fy, float& fz, float& ev, float& ec) {
-    dx = dx - c.bx * rintf(dx * c.ibx);
-    dy = dy - c.by * rintf(dy * c.iby);
-    dz = dz - c.bz * rintf(dz * c.ibz);
-    const float r2 = dx * dx + dy * dy + dz * dz;
+    const float r2 = min_image_r2(c, dx, dy, dz);
     if (!(r2 <= c.r2_max)) return;
     pair_physics(c, s_tab, r2, dx, dy, dz, ti, tj, rai, raj,
                  fx, fy, fz, ev, ec);

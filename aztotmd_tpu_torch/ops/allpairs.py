@@ -11,9 +11,11 @@ C interface and ``ctypes``.  It replaces the TPU kernel
 pass is bound by FP32/SFU issue over the N^2 pairs (an rsqrt per pair,
 an exp for the exponential families and Ewald/Fennel), not by memory:
 it reads O(N) bytes.  The design keeps everything per pair in registers
-(one thread per i atom, one-sided accumulation, no atomics), stages j
-tiles in shared memory and splits the j range over enough blocks to
-fill the SMs at N ~ 4k; see the note at the top of the source.
+(one thread per i atom, one-sided accumulation, no atomics), splits the j
+range over enough blocks for eight an SM (``allpairs_split``, from the
+device's SM count), stages each split's range in shared memory once with
+cp.async, and tests 32 j atoms at a time before it runs the physics of
+those in range; see the note at the top of the source.
 
 Bind/jump candidates (``want_bind``, ``want_jump``) are running row
 minima of r2 kept beside the forces: the nearest bonding partner (a
@@ -62,11 +64,37 @@ launches = 0
 cand_launches = 0
 rect_launches = 0
 
-_SM_TARGET_BLOCKS = 2 * 132      # two resident blocks per H100 SM
+BLOCKS_PER_SM = 8        # blocks K1 and K4 aim at for each SM
+J_UNIT = 32              # fewest j atoms of a K1 split (a warp's chunk)
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+_sm_counts: dict = {}
+
+
+def sm_count(dev) -> int:
+    """Streaming multiprocessors of CUDA device ``dev`` (cached)."""
+    idx = torch.device(dev).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def allpairs_split(n: int, tile: int, sm_count: int,
+                   max_range: int = 4096) -> int:
+    """Splits of K1's j range: enough (i block, split) blocks of ``tile``
+    i atoms for BLOCKS_PER_SM an SM, no split under J_UNIT j atoms (so
+    never more splits than the range has units, and 1 for tiny N), and
+    none over ``max_range`` j atoms (the kernel's shared-memory stage)."""
+    n_blk = max(1, -(-n // tile))
+    units = max(1, -(-n // J_UNIT))
+    fill = -(-BLOCKS_PER_SM * sm_count // n_blk)
+    return max(min(units, fill), -(-n // max_range), 1)
 
 
 def allpairs_cost(cfg) -> int:
@@ -445,6 +473,9 @@ def _lib():
                        + _CAND_C + [_P])
         cf.restype = ctypes.c_int
         lib.aztotmd_allpairs_tile.restype = ctypes.c_int
+        lib.aztotmd_allpairs_max_range.restype = ctypes.c_int
+        lib.aztotmd_allpairs_smem_bytes.argtypes = [_I] * 5
+        lib.aztotmd_allpairs_smem_bytes.restype = ctypes.c_longlong
     return lib
 
 
@@ -489,14 +520,15 @@ def launch(cfg, prm, kinds, pos, types, radii, cand: CandArgs | None = None):
     radii) and return its (n_split, N, 3) force and (n_split, N) energy
     partial rows, and with ``cand`` its (3, n_split, N) f32 r2 and int64
     key partial minima (bind, jump donor row, jump acceptor row; else
-    None).  Counts the launch as K1 or, with ``cand``, K1-cand."""
+    None).  Counts the launch as K1 or, with ``cand``, K1-cand.  The
+    splits come from ``allpairs_split``; the kernel refuses (and this
+    raises) a split whose j range would not fit its shared memory."""
     global launches, cand_launches
     N = cfg.n_at
     dev = pos.device
     lib = _lib()
-    tile = lib.aztotmd_allpairs_tile()
-    n_blk = max(1, -(-N // tile))
-    n_split = max(1, min(-(-N // tile), math.ceil(_SM_TARGET_BLOCKS / n_blk)))
+    n_split = allpairs_split(N, lib.aztotmd_allpairs_tile(), sm_count(dev),
+                             lib.aztotmd_allpairs_max_range())
     frc_p = torch.empty((n_split, N, 3), dtype=torch.float32, device=dev)
     ev_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)
     ec_p = torch.empty((n_split, N), dtype=torch.float32, device=dev)

@@ -15,10 +15,12 @@ regrow the capacity.
 Kernel: ``csrc/sparse.cu``, CUDA C++ for sm_90a, bound through a plain C
 interface and ``ctypes``.  It replaces the TPU kernel
 ``aztotmd_tpu/ops/pallas_sparse.py::_sparse_kernel``.  On the H100 it is
-bound by FP32 issue (and the MUFU rsqrt) over the visited slot pairs,
-n_need * T^2, not by memory; see the note at the top of the source.  The
-worklist, its CSR row offsets and the sort are built here in torch
-without a host synchronisation.
+bound by FP32 issue (and the MUFU rsqrt), not by memory.  Its warps skip
+the 32-slot sub-tiles of a worklist entry whose boxes lie out of range
+(``subtile_keep`` is that cull in torch, for tests), and the rows are
+split for eight blocks an SM (``sparse_split``); see the note at the top
+of the source.  The worklist, its CSR row offsets and the sort are built
+here in torch without a host synchronisation.
 
 Bind/jump candidates are the dense pass's (``ops/allpairs.py``) over the
 worklist, with the parents carried in the sorted table.  The TPU kernel
@@ -38,7 +40,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -46,10 +47,10 @@ import torch
 
 from ..core.config import _morton_dims, _part1by2, _round_up
 from . import cuda_build
-from .allpairs import (_CAND_C, _SM_TARGET_BLOCKS, CandArgs, cand_args,
-                       check_tensor, kernel_consts, kernel_tables,
+from .allpairs import (_CAND_C, BLOCKS_PER_SM, CandArgs, cand_args,
+                       check_tensor, f32, kernel_consts, kernel_tables,
                        pair_terms, plain_candidates, plain_tables,
-                       split_candidates)
+                       sm_count, split_candidates)
 from .cellblock import pair_forces_block
 from .pairs import PairResult, pair_result
 
@@ -60,6 +61,14 @@ launches = 0
 cand_launches = 0
 
 _MAX_TILE = 256          # one thread per i slot (MAX_T in csrc/sparse.cu)
+CULL_SUB = 32            # slots of a warp's sub-tile (SUB in csrc/sparse.cu)
+CULL_SLACK = 2.0 ** -18  # cull margin over the longest box side (CULL_SLACK)
+
+
+def sparse_split(n_t: int, sm_count: int) -> int:
+    """Splits of each worklist row: enough (i tile, split) blocks for
+    BLOCKS_PER_SM an SM, never more than a row can hold (n_t entries)."""
+    return max(1, min(n_t, -(-BLOCKS_PER_SM * sm_count // max(n_t, 1))))
 
 
 def morton_codes(box, r_max, pos):
@@ -240,19 +249,92 @@ def _slot_minima(parts, S: SortedTiles, dt):
 
 
 # --------------------------------------------------------------------------
+# the kernel's warp sub-tile cull, in torch (for tests and chip_smoke.py)
+
+
+def subtile_boxes(S: SortedTiles):
+    """Boxes of each tile's CULL_SUB-slot sub-tiles over their filled
+    slots, as ``csrc/sparse.cu`` computes them in f32: centres and
+    half-widths (3, n_t, n_sub) each, and (n_t, n_sub) whether a sub-tile
+    holds a filled slot (centres and half-widths 0 where not)."""
+    T, n_t = S.T, S.n_t
+    n_sub = -(-T // CULL_SUB)
+    pad = n_sub * CULL_SUB - T
+
+    def sub(a, fill):
+        a = torch.nn.functional.pad(a.reshape(n_t, T), (0, pad), value=fill)
+        return a.reshape(n_t, n_sub, CULL_SUB)
+
+    filled = sub(S.gid, -1) >= 0
+    nonempty = filled.any(-1)
+    cs, hs = [], []
+    for a in (S.x, S.y, S.z):
+        a = sub(a, 0.0)
+        lo = torch.where(filled, a, float("inf")).amin(-1)
+        hi = torch.where(filled, a, float("-inf")).amax(-1)
+        cs.append(torch.where(nonempty, (lo + hi) * 0.5, 0.0))
+        hs.append(torch.where(nonempty, (hi - lo) * 0.5, 0.0))
+    return torch.stack(cs), torch.stack(hs), nonempty
+
+
+def subtile_keep(cfg, S: SortedTiles):
+    """(pair_cap, n_sub, n_sub) bool: the (i sub-tile, j sub-tile) pairs
+    of each worklist entry that the kernel's warps keep.  Kept: both hold
+    a filled slot and the periodic min-image gap of their boxes
+    (``_tile_worklist``'s formula, f32, each operation rounded on its own)
+    is within the cutoff plus CULL_SLACK of the longest box side.  The
+    gap bounds every pair's distance from below, so every pair in range
+    lies in a kept sub-tile pair."""
+    c, h, nonempty = subtile_boxes(S)
+    dt, dev = c.dtype, c.device
+    t = lambda v: torch.tensor(v, dtype=dt, device=dev)
+    it, jt = S.it.long(), S.jt.long()
+    gap2 = torch.zeros((S.pair_cap,) + c.shape[2:] * 2, dtype=dt,
+                       device=dev)
+    for k in range(3):
+        b, ib = t(f32(cfg.box[k])), t(f32(1.0 / cfg.box[k]))
+        d = c[k][it][:, :, None] - c[k][jt][:, None, :]
+        d = d - b * torch.round(d * ib)
+        g = torch.clamp(torch.abs(d) - h[k][it][:, :, None]
+                        - h[k][jt][:, None, :], min=0.0)
+        gap2 = gap2 + g * g
+    rc = (torch.sqrt(t(f32(cfg.r2_max)))
+          + t(f32(CULL_SLACK)) * t(max(f32(b) for b in cfg.box)))
+    return ((gap2 <= rc * rc) & nonempty[it][:, :, None]
+            & nonempty[jt][:, None, :] & (S.vp > 0)[:, None, None])
+
+
+def kernel_keep(cfg, prm, kinds, S: SortedTiles):
+    """``subtile_keep``'s mask as the kernel's warps took it: one K4
+    launch on ``S`` that records, per worklist entry, bit 8 * w + s when
+    the i sub-tile w kept the j sub-tile s.  On the CPU, ``subtile_keep``
+    itself."""
+    if S.x.device.type == "cpu":
+        return subtile_keep(cfg, S)
+    word = torch.zeros(S.pair_cap, dtype=torch.int64, device=S.x.device)
+    launch(cfg, prm, kinds, S, kept=word)
+    s = torch.arange(-(-S.T // CULL_SUB), device=word.device)
+    return ((word[:, None, None] >> (8 * s[:, None] + s[None, :])) & 1) > 0
+
+
+# --------------------------------------------------------------------------
 # plain PyTorch version
 
 
 def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, parents=None,
                              want_bind=False, want_jump=False, tile=None,
-                             pair_cap=None) -> PairResult:
+                             pair_cap=None, cull=False) -> PairResult:
     """What the kernel computes, in plain PyTorch: the worklist's entries
     in chunks of P, gathered into (P, T, T) tile pairs (~1M slot pairs)
     and added into the i tiles with ``index_add_`` (f32 or f64, see
-    ``allpairs.pair_terms``).  Tiles no entry visits stay exactly zero."""
+    ``allpairs.pair_terms``).  Tiles no entry visits stay exactly zero.
+    With ``cull`` (tests only) the slot pairs outside the sub-tile pairs
+    that ``subtile_keep`` keeps are masked out too, as the kernel's warps
+    skip them; the result must not change."""
     use_par = bool(want_bind and parents is not None)
     S = sort_tiles(cfg, pos, types, radii, tile, pair_cap,
                    parents if use_par else None)
+    keep = subtile_keep(cfg, S) if cull else None
     dt = pos.dtype
     dev = pos.device
     T, n_t = S.T, S.n_t
@@ -281,6 +363,9 @@ def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, parents=None,
         gi, gj = ci[3], cj[3]
         vm = ((S.vp[c0:c0 + P] > 0)[:, None, None] & (gi >= 0) & (gj >= 0)
               & (gi != gj))
+        if keep is not None:
+            km = keep[c0:c0 + P].repeat_interleave(CULL_SUB, 1)
+            vm = vm & km.repeat_interleave(CULL_SUB, 2)[:, :T, :T]
         inr = vm & (r2 <= cfg.r2_max)
         fsum, ev, ec = pair_terms(cfg, tabs, r2, inr, ci[4], cj[4],
                                   ci[5] if use_radii else None,
@@ -340,6 +425,9 @@ def _lib():
         cf.argtypes = ([P] * 10 + [I] * 6 + [F] * 12 + [P] * 3 + _CAND_C
                        + [P])
         cf.restype = ctypes.c_int
+        kf = lib.aztotmd_sparse_kept_f32
+        kf.argtypes = [P] * 10 + [I] * 6 + [F] * 12 + [P] * 5
+        kf.restype = ctypes.c_int
     return lib
 
 
@@ -369,20 +457,29 @@ def _sparse_cuda(cfg, ff, pos, types, radii, parents, want_bind, want_jump,
                    *split_candidates(c, cr2, ckey))
 
 
-def launch(cfg, prm, kinds, S: SortedTiles, cand: CandArgs | None = None):
+def launch(cfg, prm, kinds, S: SortedTiles, cand: CandArgs | None = None,
+           kept=None):
     """Launch csrc/sparse.cu on sorted f32 tiles and return its
     (n_split, n_t*T, 3) force and (n_split, n_t*T) energy partial rows,
     and with ``cand`` (parents sorted as the tiles) its (3, n_split,
     n_t*T) r2 and key partial minima (else None).  Counts the launch as
-    K4 or, with ``cand``, K4-cand."""
+    K4 or, with ``cand``, K4-cand.  The kernel copies the sorted columns
+    in 16-byte chunks, so they must be 16-byte aligned (``sort_tiles``'s
+    are).  ``kept`` (K4 only), a zeroed (pair_cap,) int64 tensor, takes
+    the kernel's record of its cull (see ``kernel_keep``)."""
     global launches, cand_launches
     dev = S.x.device
     n_t, T = S.n_t, S.T
     if T > _MAX_TILE:
         raise ValueError(f"the sparse kernel takes tiles of at most "
                          f"{_MAX_TILE} slots, got {T}")
+    cols = [S.x, S.y, S.z, S.gid, S.types, S.radii]
+    if cand is not None and cand.parents is not None:
+        cols.append(cand.parents)
+    if any(a.data_ptr() % 16 for a in cols):
+        raise ValueError("the sparse kernel needs 16-byte aligned columns")
     lib = _lib()
-    n_split = max(1, min(n_t, math.ceil(_SM_TARGET_BLOCKS / n_t)))
+    n_split = sparse_split(n_t, sm_count(dev))
     frc_p = torch.empty((n_split, n_t * T, 3), dtype=torch.float32,
                         device=dev)
     ev_p = torch.empty((n_split, n_t * T), dtype=torch.float32, device=dev)
@@ -395,7 +492,12 @@ def launch(cfg, prm, kinds, S: SortedTiles, cand: CandArgs | None = None):
               int(cfg.use_radii), int(cfg.elec_type), *kernel_consts(cfg),
               frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr()]
     cr2 = ckey = None
-    if cand is None:
+    if kept is not None:
+        if cand is not None:
+            raise ValueError("the cull record is taken from K4 only")
+        check_tensor("kept", kept, torch.int64, (S.pair_cap,), dev)
+        err = lib.aztotmd_sparse_kept_f32(*common, kept.data_ptr(), stream)
+    elif cand is None:
         err = lib.aztotmd_sparse_f32(*common, stream)
     else:
         cr2 = torch.empty((3, n_split, n_t * T), dtype=torch.float32,

@@ -273,19 +273,22 @@ def tile_deck(src, dst, k: int):
             f.write(text)
 
 
-def reactive_specs(n_atoms: int = 300, seed: int = 3):
+def reactive_specs(n_atoms: int = 300, seed: int = 3, spacing: float = 3.0,
+                   jitter: float = 0.6):
     """A three-species system for the candidate checks: the ejump_redox
     species and pairs (Fe2 donates to Fe3) with an Fe3-O bond type that
-    forms within 2.4 A, on a jittered lattice of spacing 3 A in a box of
-    at least 16 A; direct Coulomb and jumps within 3 A.
+    forms within 2.4 A, on a lattice of ``spacing`` (3 A) jittered by up to
+    ``jitter`` (0.6 A) in a box of at least 6 spacings; direct Coulomb and
+    jumps within 3 A.  Without jitter and at a spacing of 2 A every
+    distance is exact in f32, so bind and jump candidates tie in r2.
     Returns (ctl, fld, box, pos, types, None) as host specs."""
     rng = np.random.default_rng(seed)
     n_side = max(6, int(math.ceil(n_atoms ** (1.0 / 3.0))))
-    box = 3.0 * n_side
-    g = np.arange(n_side) * 3.0 + 1.5
+    box = spacing * n_side
+    g = np.arange(n_side) * spacing + spacing / 2
     sites = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
     keep = np.sort(rng.permutation(len(sites))[:n_atoms])
-    pos = (sites[keep] + rng.uniform(-0.6, 0.6, (n_atoms, 3))) % box
+    pos = (sites[keep] + rng.uniform(-jitter, jitter, (n_atoms, 3))) % box
     fld = parse_field(EJUMP_FIELD + """bonds 1
 1 Fe3 O harm 12.0 1.9 con br 3.0 Fe3 O
 linkage 1

@@ -32,7 +32,11 @@ for each kernel, checks it against its plain PyTorch version on the card:
       with direct Coulomb, ragged N;
   K4-cand: reactive_polymer and ejump_redox tiled 3x3x3 (13,824 and
       9,504 atoms) on the sparse engine;
-the candidate ids equal, their r2 bitwise equal, max_occ equal.
+  every <BIND, JUMP, PAR> instantiation of K1 and K4 on an unjittered
+      2 A lattice, whose exact distances make candidates tie in r2;
+the candidate ids equal, their r2 bitwise equal, max_occ equal.  The
+build logs each kernel instantiation's registers, static shared memory
+and spills (ptxas -v).
 It drives each kernel's path, with every launch count set to 0 just
 before and read just after: through the ``run`` CLI
 examples/surkov_cluster (K1), examples/nanoclusters (K4, Nose-Hoover,
@@ -56,12 +60,17 @@ stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
 written.  It compares 20 steps with each kernel against 20 steps with
 its plain version (the reactive decks' topology and RNG words exactly),
 profiles bare steps of each deck, and times the kernels, their
-wrappers and plain versions at the paths' sizes with CUDA events, beside
-a lower bound computed from an operation count read off
-csrc/pair_physics.cuh.  Any failure exits non-zero.  The last line of standard output is {"ok": true, "device":
-{...}}; the line before it lists the kernels with their launches,
-errors, times and bounds.  The runs' output files go to --out (default:
-a temporary directory that is removed).
+wrappers and plain versions at the paths' sizes with CUDA events and
+each kernel alone with torch.profiler, beside a lower bound computed
+from an operation count read off csrc/pair_physics.cuh; it logs K1's
+and K4's launch plans (splits, blocks, dynamic shared memory) and the
+sub-tile pairs that K4's warp cull kept, as the kernel records them
+(held exactly against sparse.subtile_keep); K4's bound counts the
+filled slot pairs in them.  Any failure exits non-zero.
+The last line of standard output is {"ok": true, "device": {...}}; the
+line before it lists the kernels with their launches, errors, times and
+bounds.  The runs' output files go to --out (default: a temporary
+directory that is removed).
 """
 
 import argparse
@@ -69,6 +78,7 @@ import concurrent.futures
 import dataclasses
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -98,6 +108,9 @@ FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
 ENERGY_REL = 1e-4
 TRAJ_POS_ATOL = 1e-4     # A after 20 steps, f32
 TRAJ_ENERGY_REL = 1e-4
+# the kernels' <BIND, JUMP, PAR> template instantiations
+INSTANCES = [(False, False, False), (True, True, True), (True, True, False),
+             (True, False, True), (True, False, False), (False, True, False)]
 TOPOLOGY = ("types", "bond_at1", "bond_at2", "bond_type", "n_bond",
             "n_jump", "rng", "parents")
 
@@ -159,17 +172,43 @@ def toolchain(torch, cuda_build):
         f"{rel[0].strip() if rel else 'unknown'}")
 
 
+def kernel_name(mangled):
+    """``allpairs_kernel<1,0,1>`` from a mangled entry name: its last
+    length-prefixed name and its bool template arguments."""
+    at, name = mangled.find("N") + 1, mangled
+    while at and at < len(mangled) and mangled[at].isdigit():
+        m = re.match(r"\d+", mangled[at:])
+        n = int(m.group())
+        name = mangled[at + m.end():at + m.end() + n]
+        at += m.end() + n
+    args = re.match(r"I((?:Lb[01]E)+)E", mangled[at:]) if at else None
+    return name + (f"<{','.join(re.findall(r'Lb([01])E', args.group(1)))}>"
+                   if args else "")
+
+
 def build_all(cuda_build, names):
-    """One nvcc per source, all started together."""
+    """One nvcc per source, all started together; logs each kernel's
+    registers, static shared memory and spills from ``-Xptxas -v``."""
     with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
         built = dict(zip(names, ex.map(cuda_build.build, names)))
     for name in names:
         so, secs = built[name]
         log(f"build: {os.path.relpath(so, HERE)} in {secs:.1f} s")
         with open(so[:-3] + ".log") as f:
-            for ln in f:
-                if "registers" in ln or "spill" in ln:
-                    log("  ptxas: " + ln.strip())
+            text = f.read()
+        for fn, body in re.findall(
+                r"Compiling entry function '([^']+)'(.*?)(?=Compiling entry"
+                r" function|\Z)", text, re.S):
+            regs = re.search(r"Used (\d+) registers", body)
+            smem = re.search(r"(\d+) bytes smem", body)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", body)
+            log(f"  ptxas {kernel_name(fn)}: "
+                f"{regs.group(1) if regs else '?'} registers, "
+                f"{smem.group(1) if smem else 0} bytes static shared memory"
+                f" a block, spill stores/loads "
+                f"{spill.group(1) + '/' + spill.group(2) if spill else '?'}"
+                " bytes")
 
 
 def compare(torch, kernel, plain, name, cfg, ff, pos, types, radii, **kw):
@@ -678,6 +717,21 @@ def run(dev, out):
     compare(torch, *k4, "ejump_redox x3 (jump, direct Coulomb)", *k4c_ej,
             **k4c_ej_kw)
 
+    # --- every <BIND, JUMP, PAR> instantiation, with equal-r2 ties ---
+    phase("every <BIND, JUMP, PAR> instantiation of K1 and K4 vs plain on "
+          "an unjittered 2 A lattice (exact distances: r2 ties, so the key "
+          "decides; ids equal, r2 bitwise equal):")
+    n = 1000
+    for engine, fns, nm in (("pallas", k1, "K1"), ("sparse", k4, "K4")):
+        cfg, ff, pos, types, _ = systems.pair_system(
+            systems.reactive_specs(n, spacing=2.0, jitter=0.0), device=dev,
+            pair_engine=engine)
+        for bind, jump, par in INSTANCES:
+            compare(torch, *fns, f"{nm}<{int(bind)},{int(jump)},{int(par)}>"
+                    " lattice", cfg, ff, pos, types, None,
+                    parents=random_parents(torch, n, dev) if par else None,
+                    want_bind=bind, want_jump=jump)
+
     # --- K3 against its plain version ---
     phase("K3 (cellblock, stacked pass) vs plain (forces atol "
           "3e-5*max|F|, energies rel 1e-4, max_occ exact):")
@@ -932,9 +986,49 @@ def run(dev, out):
         T = cellblock.cell_table(cfg, args[2], args[3])
         return lambda: cellblock.launch(cfg, *tab, T)
 
+    def k1_plan(key, args, kw):
+        cfg = args[0]
+        lib = allpairs._lib()
+        tile = lib.aztotmd_allpairs_tile()
+        s = allpairs.allpairs_split(cfg.n_at, tile, allpairs.sm_count(dev),
+                                    lib.aztotmd_allpairs_max_range())
+        cand = bool(kw.get("want_bind") or kw.get("want_jump"))
+        par = kw.get("parents") is not None and bool(kw.get("want_bind"))
+        smem = lib.aztotmd_allpairs_smem_bytes(cfg.n_at, s, cfg.n_spec,
+                                               int(cand), int(par))
+        log(f"plan {key}: {-(-cfg.n_at // tile)} i blocks x {s} splits of "
+            f"{-(-cfg.n_at // s)} j atoms, {tile} threads, {smem} bytes of "
+            "dynamic shared memory a block")
+
+    def k4_plan(key, args):
+        cfg = args[0]
+        T4, n_t4, _ = sparse.tile_shape(cfg)
+        s = sparse.sparse_split(n_t4, allpairs.sm_count(dev))
+        log(f"plan {key}: {n_t4} tiles x {s} splits, {T4} threads, "
+            "two staged j tiles in static shared memory (ptxas above) and "
+            f"the {cfg.n_spec}-species tables in dynamic")
+
+    def profile_alone(fn, n=20):
+        """Profiler device ms of one call of ``fn``, which launches one
+        kernel and nothing else, averaged over the launches the profiler
+        recorded (late in a long process it may keep fewer than ``n``);
+        returns (ms or None when none was recorded, launches recorded)."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof_a:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        t = [e.time_range.elapsed_us() for e in prof_a.events()
+             if e.device_type == DeviceType.CUDA]
+        return (sum(t) * 1e-3 / len(t) if t else None), len(t)
+
     d = load_deck_dir(SALT_DECK, device=dev)
     salt_args = (d["cfg"], d["ff"], d["state"].pos, d["state"].types, None)
-    times = {}
+    times, alones = {}, {}
     for key, fns, args, kw, alone in (
             ("K3", k3, k3_args, {}, k3_alone),
             ("K1 molten_salt", k1, salt_args, {}, k1_alone),
@@ -946,7 +1040,12 @@ def run(dev, out):
             ("K4-cand reactive_polymer x3", k4, k4c_poly, k4c_poly_kw,
              k4_alone),
             ("K4-cand ejump_redox x3", k4, k4c_ej, k4c_ej_kw, k4_alone)):
-        times[key] = timing(key, fns, args, kw, alone(args, kw))
+        alones[key] = alone(args, kw)
+        times[key] = timing(key, fns, args, kw, alones[key])
+        if alone is k1_alone:
+            k1_plan(key, args, kw)
+        elif alone is k4_alone:
+            k4_plan(key, args)
 
     def k2_timing(nm):
         cfg, ff, args, kw = k2_in[nm]
@@ -965,10 +1064,19 @@ def run(dev, out):
             f"{ms:.4f} ms, kernel alone {ms_alone:.4f} ms (medians of "
             f"{2 * n}), plain {ms_plain:.4f} ms (median of 4), CUDA events, "
             f"on {card}")
+        alones["K2" if nm == "surkov_cluster" else "K2 " + nm] = alone
         return ms, ms_alone, ms_plain
 
     times["K2"] = k2_timing("surkov_cluster")
     times["K2 nanoclusters"] = k2_timing("nanoclusters")
+    kprof = {}
+    for key, fn in alones.items():
+        kprof[key], seen = profile_alone(fn)
+        log(f"profile {key}: kernel alone "
+            + (f"{kprof[key]:.4f} ms a launch" if kprof[key] else
+               "not measured (no device time recorded)")
+            + f" (torch.profiler, mean of the {seen} of 20 launches it "
+            f"recorded) on {card}")
 
     block_cfg = dataclasses.replace(k3_args[0], pair_engine="block")
     n_block = 4
@@ -998,16 +1106,47 @@ def run(dev, out):
         return (cfg.n_at * (cfg.n_at - 1), pairs,
                 bound(cfg.n_at * (cfg.n_at - 1), pairs, fam, nb, cand))
 
-    def k4_bound(args, kw, fam, cand):
+    worklist_bounds = {}
+
+    def k4_bound(key, args, kw, fam, cand):
+        # the work this run's data needs: the filled slot pairs of the
+        # sub-tile pairs that the kernel's warp cull keeps (the kernel's
+        # own record of one launch, held exactly against
+        # sparse.subtile_keep), each at the cost of the min-image and
+        # cutoff test, and the pairs in range at the cost of the physics;
+        # need*T^2, every slot pair the worklist names (the count up to
+        # the culling kernel), is kept beside it as bound_worklist_ms
         cfg = args[0]
         T4, n_t4, cap4 = sparse.tile_shape(cfg)
         need4 = int(k4[0](*args, **kw).max_occ)
+        S = sparse.sort_tiles(cfg, *args[2:])
+        keep = sparse.kernel_keep(
+            cfg, *allpairs.kernel_tables(cfg, args[1], dev), S)
+        check(bool((keep == sparse.subtile_keep(cfg, S)).all()),
+              f"K4 N={cfg.n_at}: the kernel's warp cull is not "
+              "sparse.subtile_keep")
+        n_sub = keep.shape[1]
+        full = torch.nn.functional.pad(
+            (S.gid >= 0).reshape(n_t4, T4),
+            (0, n_sub * sparse.CULL_SUB - T4)).reshape(n_t4, n_sub, -1)
+        per = full.sum(-1)
+        kept = int((keep * per[S.it.long()][:, :, None]
+                    * per[S.jt.long()][:, None, :]).sum())
+        subs = int(keep.sum())
+        log(f"K4 N={cfg.n_at}: worklist need {need4}, need*T^2 = "
+            f"{need4 * T4 * T4} visited slot pairs; the kernel's warps kept "
+            f"{subs} sub-tile pairs (equal to sparse.subtile_keep), "
+            f"{subs * sparse.CULL_SUB ** 2} slot pairs "
+            f"({subs * sparse.CULL_SUB ** 2 / (need4 * T4 * T4):.4f}), "
+            f"{kept} of filled slots; the bound counts these")
         pairs = pairs_in_range(torch, cfg, args[2])
         nb = (n_t4 * T4 * 6 * 4 + (n_t4 + 1 + cap4) * 4 + cfg.n_at * 12 + 8)
         if cand:
             nb += n_t4 * T4 * (4 + 3 * (4 + 8))
-        return (need4 * T4 * T4, pairs,
-                bound(need4 * T4 * T4, pairs, fam, nb, cand))
+        worklist_bounds[key] = bound(need4 * T4 * T4, pairs, fam, nb, cand)
+        log(f"bound {key} over need*T^2: {worklist_bounds[key][0]:.4g} ms "
+            f"({worklist_bounds[key][2]})")
+        return kept, pairs, bound(kept, pairs, fam, nb, cand)
 
     def k3_bound(args):
         # the work the function needs on this run's data, whichever
@@ -1042,11 +1181,13 @@ def run(dev, out):
               "K1": k1_bound(k1_args, "surk", False),
               "K1-cand reactive_polymer": k1_bound(k1c_poly, "lnjs", True),
               "K1-cand ejump_redox": k1_bound(k1c_ej, "buck+dir", True),
-              "K4": k4_bound(k4_args, {}, "lnjs", False),
-              "K4-cand reactive_polymer x3": k4_bound(k4c_poly, k4c_poly_kw,
-                                                      "lnjs", True),
-              "K4-cand ejump_redox x3": k4_bound(k4c_ej, k4c_ej_kw,
-                                                 "buck+dir", True)}
+              "K4": k4_bound("K4", k4_args, {}, "lnjs", False),
+              "K4-cand reactive_polymer x3": k4_bound(
+                  "K4-cand reactive_polymer x3", k4c_poly, k4c_poly_kw,
+                  "lnjs", True),
+              "K4-cand ejump_redox x3": k4_bound(
+                  "K4-cand ejump_redox x3", k4c_ej, k4c_ej_kw, "buck+dir",
+                  True)}
     def k2_bound(nm, fam):
         # the work this run's data needs: every pair of filled slots (i an
         # owned slot, j an owned or halo slot, not the same slot) at the
@@ -1088,7 +1229,8 @@ def run(dev, out):
                "replaces": replaces, "launches": launches,
                "max_abs_err": err, "ms": ms, "kernel_ms": alone,
                "plain_ms": plain, "bound_ms": bounds[key][2][0],
-               "bound_by": bounds[key][2][1], "library_ms": None}
+               "bound_by": bounds[key][2][1], "library_ms": None,
+               "kernel_profiler_ms": kprof[key]}
         rec.update(extra or {})
         return rec
 
@@ -1110,6 +1252,7 @@ def run(dev, out):
                "nanoclusters": {
                    "ms": k2n[0], "kernel_ms": k2n[1], "plain_ms": k2n[2],
                    "bound_ms": bounds["K2 nanoclusters"][2][0],
+                   "kernel_profiler_ms": kprof["K2 nanoclusters"],
                    "profiler_ms": prof_ms("nanoclusters_mesh",
                                           "rect_kernel")}}),
         entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
@@ -1121,6 +1264,7 @@ def run(dev, out):
                "molten_salt": {
                    "ms": salt[0], "kernel_ms": salt[1], "plain_ms": salt[2],
                    "bound_ms": bounds["K1 molten_salt"][2][0],
+                   "kernel_profiler_ms": kprof["K1 molten_salt"],
                    "profiler_ms": prof_ms(SALT_DECK, "allpairs_kernel<false, "
                                           "false, false>"),
                    "ewald_recip_ms": ewald_ms}}),
@@ -1137,21 +1281,28 @@ def run(dev, out):
                "ejump_redox": {
                    "ms": ej1[0], "kernel_ms": ej1[1], "plain_ms": ej1[2],
                    "bound_ms": bounds["K1-cand ejump_redox"][2][0],
+                   "kernel_profiler_ms": kprof["K1-cand ejump_redox"],
                    "profiler_ms": prof_ms(EJUMP_DECK, "allpairs_kernel<false, "
                                           "true, false>")}}),
         entry("sparse", "aztotmd_tpu_torch/csrc/sparse.cu",
               "aztotmd_tpu/ops/pallas_sparse.py:129",
               l["nanoclusters"]["sparse"], k4_err, "K4",
               {"profiler_ms": prof_ms(NANO_DECK, "sparse_kernel<false, "
-                                      "false, false>")}),
+                                      "false, false, false>"),
+               "bound_worklist_ms": worklist_bounds["K4"][0]}),
         entry("sparse_cand", "aztotmd_tpu_torch/csrc/sparse.cu",
               "aztotmd_tpu/ops/pallas_sparse.py:189", k4c_launch, k4c_err,
               "K4-cand reactive_polymer x3",
               {"profiler_ms": prof_ms(poly_x3, "sparse_kernel<true, false, "
-                                      "true>"),
+                                      "true, false>"),
+               "bound_worklist_ms":
+                   worklist_bounds["K4-cand reactive_polymer x3"][0],
                "ejump_redox_x3": {
                   "ms": ej4[0], "kernel_ms": ej4[1], "plain_ms": ej4[2],
-                  "bound_ms": bounds["K4-cand ejump_redox x3"][2][0]}})]
+                  "bound_ms": bounds["K4-cand ejump_redox x3"][2][0],
+                  "bound_worklist_ms":
+                      worklist_bounds["K4-cand ejump_redox x3"][0],
+                  "kernel_profiler_ms": kprof["K4-cand ejump_redox x3"]}})]
 
 
 if __name__ == "__main__":

@@ -277,6 +277,86 @@ def test_cand_kernels_match_plain_on_example_decks(cuda, name, tmp_path):
                   d["cfg"], d["ff"], st.pos, st.types, st.parents, **kw)
 
 
+# --- K1 and K4 at the shapes that cut their work: the j range's 32-atom
+# chunks and splits (K1), the tile width, its 32-slot sub-tiles and the
+# truncated worklist (K4), and every <BIND, JUMP, PAR> instantiation ---
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1728, 4000])
+def test_kernel_matches_plain_at_every_size(cuda, n):
+    _compare(*systems.pair_system(systems.clustered_specs(
+        n_atoms=n, nsp=2, elec=1, radii=True), device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 64, 256])
+def test_sparse_kernel_matches_plain_every_tile(cuda, tile):
+    """Full and truncated worklists (rows cut off write zeros)."""
+    args = systems.pair_system(
+        systems.multi_cluster_specs(nsp=3, elec=3, radii=True), device=cuda,
+        pair_engine="sparse")
+    k, _ = _compare_sparse(*args, tile=tile)
+    need = int(k.max_occ)
+    k, _ = _compare_sparse(*args, tile=tile, pair_cap=need // 2)
+    assert int(k.max_occ) == need
+    S = sparse.sort_tiles(args[0], *args[2:], tile=tile, pair_cap=need // 2)
+    empty = (S.row_ptr[1:] == S.row_ptr[:-1]).cpu().numpy()
+    assert empty.any()
+    slot_tile = np.repeat(np.arange(S.n_t), S.T)[:args[0].n_at]
+    atoms = S.perm.cpu().numpy()[empty[slot_tile]]
+    assert np.all(k.frc.cpu().numpy()[atoms] == 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", [32, 64, 256])
+def test_sparse_kernel_cull_is_subtile_keep(cuda, tile):
+    """The sub-tile pairs the kernel's warps keep, as the kernel records
+    them, are exactly ``sparse.subtile_keep``'s, with a full and with a
+    truncated worklist."""
+    cfg, ff, pos, types, radii = systems.pair_system(
+        systems.multi_cluster_specs(nsp=3, elec=3, radii=True), device=cuda,
+        pair_engine="sparse")
+    tabs = allpairs.kernel_tables(cfg, ff, cuda)
+    need = int(sparse.pair_forces_sparse(cfg, ff, pos, types, radii,
+                                         tile=tile).max_occ)
+    for cap in (None, need // 2):
+        S = sparse.sort_tiles(cfg, pos, types, radii, tile=tile,
+                              pair_cap=cap)
+        keep = sparse.subtile_keep(cfg, S)
+        assert keep.any()
+        assert torch.equal(sparse.kernel_keep(cfg, *tabs, S), keep)
+
+
+_INSTANCES = [(True, True, True), (True, True, False), (True, False, True),
+              (True, False, False), (False, True, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["pallas", "sparse"])
+@pytest.mark.parametrize("bind,jump,par", _INSTANCES,
+                         ids=["bind-jump-par", "bind-jump", "bind-par",
+                              "bind", "jump"])
+def test_every_cand_instantiation_with_ties(cuda, engine, bind, jump, par):
+    """An unjittered 2 A lattice: every distance is exact in f32, so bind
+    and jump candidates tie in r2 and the key decides."""
+    n = 1000
+    cfg, ff, pos, types, _ = systems.pair_system(
+        systems.reactive_specs(n, spacing=2.0, jitter=0.0), device=cuda,
+        pair_engine=engine)
+    rng = np.random.default_rng(5)
+    parents = (torch.as_tensor(np.where(rng.uniform(size=n) < 0.4,
+                                        rng.integers(0, n, n), -1),
+                               dtype=torch.int32, device=cuda)
+               if par else None)
+    fns = ((allpairs.pair_forces_allpairs,
+            allpairs.pair_forces_allpairs_plain) if engine == "pallas" else
+           (sparse.pair_forces_sparse, sparse.pair_forces_sparse_plain))
+    k = _compare_cand(*fns, cfg, ff, pos, types, parents, want_bind=bind,
+                      want_jump=jump)
+    r2 = k.bind_r2[k.bind_idx < n] if bind else k.jump_r2[k.jump_idx < n]
+    assert r2.numel() and set(r2.unique().tolist()) <= {4.0, 8.0}
+
+
 # --- the stacked cell-block kernel (csrc/cellblock.cu) ---
 
 def _compare_stacked(cfg, ff, pos, types, radii):
