@@ -12,7 +12,7 @@
 //   Abramowitz-Stegun 7.1.26);
 //   the summed force-over-r of the pair is clipped to +-MX_FRC, then
 //   multiplied into dx, dy, dz; energies take weight 0.5 per ordered pair.
-// The caller masks self pairs and padding before calling pair_accumulate.
+// The caller masks self pairs and padding.
 // Build without fast-math: the plain PyTorch versions are the reference.
 //
 // Bind/jump candidates (the kernels' candidate instantiations) compare r2
@@ -217,6 +217,91 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// The warp sub-tile cull of the pair kernels over slot layouts (sparse.cu,
+// allpairs_rect.cu; ops/allpairs.py::cull_keep repeats it in torch).  A
+// warp owns SUB consecutive i slots and takes the box of its filled ones;
+// a j sub-tile of SUB slots whose box over its filled slots lies farther
+// than the cutoff plus CULL_SLACK of the longest box side is skipped.  The
+// gap is the periodic min-image distance of the box centres less both
+// half-widths, every operation rounded on its own: a lower bound on every
+// pair's distance, so no pair in range is skipped; the slack (~40 ulps of
+// the box side) covers the f32 rounding of the pair's own r2.
+
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SUB = 32;                              // slots of a sub-tile
+constexpr float CULL_SLACK = 3.814697265625e-06f;    // 2^-18
+
+__device__ __forceinline__ float warp_min(float v) {
+    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
+    return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+    return v;
+}
+
+// A box's centre and half-width along one axis, from its lo and hi.
+__device__ __forceinline__ void centre(float lo, float hi, float& c,
+                                       float& h) {
+    c = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
+    h = __fmul_rn(__fsub_rn(hi, lo), 0.5f);
+}
+
+// Periodic min-image gap of two boxes along one axis
+// (ops/sparse.py::_tile_worklist), every operation rounded on its own.
+__device__ __forceinline__ float axis_gap(float ci, float cj, float hi,
+                                          float hj, float b, float ib) {
+    float d = __fsub_rn(ci, cj);
+    d = __fsub_rn(d, __fmul_rn(b, rint_fp32(__fmul_rn(d, ib))));
+    return fmaxf(__fsub_rn(__fsub_rn(fabsf(d), hi), hj), 0.0f);
+}
+
+// A warp's own i box: centre and half-width per axis.
+struct Box {
+    float cx, cy, cz, hx, hy, hz;
+};
+
+// The box of the warp's filled slots; every lane passes its own slot.
+__device__ __forceinline__ Box warp_box(bool filled, float x, float y,
+                                        float z) {
+    Box w;
+    centre(warp_min(filled ? x : INFINITY), warp_max(filled ? x : -INFINITY),
+           w.cx, w.hx);
+    centre(warp_min(filled ? y : INFINITY), warp_max(filled ? y : -INFINITY),
+           w.cy, w.hy);
+    centre(warp_min(filled ? z : INFINITY), warp_max(filled ? z : -INFINITY),
+           w.cz, w.hz);
+    return w;
+}
+
+// The squared cull radius: (sqrt(r2_max) + CULL_SLACK * longest side)^2.
+__device__ __forceinline__ float cull_r2(const PairConsts& c) {
+    const float rc = __fadd_rn(
+        sqrtf(c.r2_max),
+        __fmul_rn(CULL_SLACK, fmaxf(c.bx, fmaxf(c.by, c.bz))));
+    return __fmul_rn(rc, rc);
+}
+
+// Whether the box [lo, hi] (empty when lx > ux) lies within the cull
+// radius of the warp's box `w`.
+__device__ __forceinline__ bool box_near(const Box& w, float lx, float ly,
+                                         float lz, float ux, float uy,
+                                         float uz, const PairConsts& c,
+                                         float r2c) {
+    float cx, cy, cz, hx, hy, hz;
+    centre(lx, ux, cx, hx);
+    centre(ly, uy, cy, hy);
+    centre(lz, uz, cz, hz);
+    const float gx = axis_gap(w.cx, cx, w.hx, hx, c.bx, c.ibx);
+    const float gy = axis_gap(w.cy, cy, w.hy, hy, c.by, c.iby);
+    const float gz = axis_gap(w.cz, cz, w.hz, hz, c.bz, c.ibz);
+    const float gap2 = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx),
+                                           __fmul_rn(gy, gy)),
+                                 __fmul_rn(gz, gz));
+    return lx <= ux && gap2 <= r2c;
+}
+
 // A running candidate minimum: the least (r2, key) seen so far.
 struct CandMin {
     float r2 = INFINITY;
@@ -231,6 +316,63 @@ __device__ __forceinline__ void cand_update(CandMin& m, float r2,
     }
 }
 
+// The force over r (clipped to +-MX_FRC) and the half energies of one
+// ordered pair in range (r2 <= r2_max), from the species pair's parameter
+// row `p` (p0..p4, kqq, r2cut) and VdW kind.
+struct PairTerms {
+    float fsum, ev, ec;
+};
+
+__device__ __forceinline__ PairTerms pair_terms(const PairConsts& c,
+                                                const float* p, int kind,
+                                                float r2, float rai,
+                                                float raj) {
+    const float ri = rsqrtf(r2);
+    const float r2i = ri * ri;
+    const float rr = r2 * ri;
+    PairTerms t{0.0f, 0.0f, 0.0f};
+    if (kind != 0 && r2 <= p[6]) {
+        float f, e;
+        vdw_pair(kind, r2i, ri, rr, p, rai, raj, f, e);
+        t.fsum += f;
+        t.ev = 0.5f * e;
+    }
+    if (c.elec_type != 0) {
+        float f, e;
+        coul_pair(c, r2i, ri, rr, p[5], f, e);
+        t.fsum += f;
+        t.ec = 0.5f * e;
+    }
+    // clip that keeps a NaN a NaN, like jnp.clip
+    t.fsum = t.fsum > MX_FRC ? MX_FRC
+                             : (t.fsum < -MX_FRC ? -MX_FRC : t.fsum);
+    return t;
+}
+
+// pair_terms of species (ti, tj), from the tables load_tables staged.
+__device__ __forceinline__ PairTerms pair_terms(const PairConsts& c,
+                                                const float* s_tab, int ti,
+                                                int tj, float r2, float rai,
+                                                float raj) {
+    const int* s_kind = reinterpret_cast<const int*>(
+        s_tab + c.nsp * c.nsp * 8);
+    const int row = ti * c.nsp + tj;
+    return pair_terms(c, s_tab + row * 8, s_kind[row], r2, rai, raj);
+}
+
+// Adds a pair's force along its min-image displacement to (fx, fy, fz)
+// and its half energies to ev, ec.
+__device__ __forceinline__ void pair_add(const PairTerms& t, float dx,
+                                         float dy, float dz, float& fx,
+                                         float& fy, float& fz, float& ev,
+                                         float& ec) {
+    fx += t.fsum * dx;
+    fy += t.fsum * dy;
+    fz += t.fsum * dz;
+    ev += t.ev;
+    ec += t.ec;
+}
+
 // One ordered pair in range (r2 <= r2_max) with its min-image
 // displacement: adds its force to (fx, fy, fz) and half its energies to
 // ev, ec.
@@ -238,45 +380,8 @@ __device__ __forceinline__ void pair_physics(
         const PairConsts& c, const float* s_tab, float r2, float dx,
         float dy, float dz, int ti, int tj, float rai, float raj,
         float& fx, float& fy, float& fz, float& ev, float& ec) {
-    const int* s_kind = reinterpret_cast<const int*>(
-        s_tab + c.nsp * c.nsp * 8);
-    const float ri = rsqrtf(r2);
-    const float r2i = ri * ri;
-    const float rr = r2 * ri;
-    const int row = ti * c.nsp + tj;
-    const float* p = s_tab + row * 8;
-    float fsum = 0.0f;
-    const int kind = s_kind[row];
-    if (kind != 0 && r2 <= p[6]) {
-        float f, e;
-        vdw_pair(kind, r2i, ri, rr, p, rai, raj, f, e);
-        fsum += f;
-        ev += 0.5f * e;
-    }
-    if (c.elec_type != 0) {
-        float f, e;
-        coul_pair(c, r2i, ri, rr, p[5], f, e);
-        fsum += f;
-        ec += 0.5f * e;
-    }
-    // clip that keeps a NaN a NaN, like jnp.clip
-    fsum = fsum > MX_FRC ? MX_FRC : (fsum < -MX_FRC ? -MX_FRC : fsum);
-    fx += fsum * dx;
-    fy += fsum * dy;
-    fz += fsum * dz;
-}
-
-// One ordered pair of two distinct real atoms, displacement d = r_i - r_j
-// before the min-image: adds its force to (fx, fy, fz) and half its
-// energies to ev, ec.
-__device__ __forceinline__ void pair_accumulate(
-        const PairConsts& c, const float* s_tab, float dx, float dy,
-        float dz, int ti, int tj, float rai, float raj,
-        float& fx, float& fy, float& fz, float& ev, float& ec) {
-    const float r2 = min_image_r2(c, dx, dy, dz);
-    if (!(r2 <= c.r2_max)) return;
-    pair_physics(c, s_tab, r2, dx, dy, dz, ti, tj, rai, raj,
-                 fx, fy, fz, ev, ec);
+    pair_add(pair_terms(c, s_tab, ti, tj, r2, rai, raj), dx, dy, dz, fx, fy,
+             fz, ev, ec);
 }
 
 // Bind/jump candidate test of one ordered pair in range, r2 from

@@ -68,9 +68,9 @@
 namespace {
 
 constexpr int MAX_T = 256;
-constexpr int SUB = 32;                  // slots of a sub-tile: one warp
-constexpr float CULL_SLACK = 3.814697265625e-06f;   // 2^-18
-constexpr unsigned FULL = 0xffffffffu;
+using aztotmd::Box;
+using aztotmd::FULL;
+using aztotmd::SUB;
 
 struct Args {
     const float* x;        // (n_t * T,) sorted positions
@@ -152,37 +152,6 @@ __device__ __forceinline__ void stage(const Args& a, const int* parents,
     aztotmd::cp_async_commit();
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(FULL, v, o));
-    return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-    for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-    return v;
-}
-
-// A box's centre and half-width along one axis, from its lo and hi.
-__device__ __forceinline__ void centre(float lo, float hi, float& c,
-                                       float& h) {
-    c = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-    h = __fmul_rn(__fsub_rn(hi, lo), 0.5f);
-}
-
-// Periodic min-image gap of two boxes along one axis
-// (ops/sparse.py::_tile_worklist), every operation rounded on its own.
-__device__ __forceinline__ float axis_gap(float ci, float cj, float hi,
-                                          float hj, float b, float ib) {
-    float d = __fsub_rn(ci, cj);
-    d = __fsub_rn(d, __fmul_rn(b, aztotmd::rint_fp32(__fmul_rn(d, ib))));
-    return fmaxf(__fsub_rn(__fsub_rn(fabsf(d), hi), hj), 0.0f);
-}
-
-// The warp's own i box: centre and half-width per axis.
-struct Box {
-    float cx, cy, cz, hx, hy, hz;
-};
-
 // Bit s set: j sub-tile s of `s` holds a filled slot and its box lies
 // within sqrt(r2c) of the warp's box `w`.  Lane l takes the quarter
 // l >> 3 of sub-tile l & 7; the slot order is rotated by the sub-tile so
@@ -216,17 +185,8 @@ __device__ __forceinline__ unsigned cull_mask(const JTile<PAR>& s, int T,
         uy = fmaxf(uy, __shfl_xor_sync(FULL, uy, o));
         uz = fmaxf(uz, __shfl_xor_sync(FULL, uz, o));
     }
-    float cx, cy, cz, hx, hy, hz;
-    centre(lx, ux, cx, hx);
-    centre(ly, uy, cy, hy);
-    centre(lz, uz, cz, hz);
-    const float gx = axis_gap(w.cx, cx, w.hx, hx, c.bx, c.ibx);
-    const float gy = axis_gap(w.cy, cy, w.hy, hy, c.by, c.iby);
-    const float gz = axis_gap(w.cz, cz, w.hz, hz, c.bz, c.ibz);
-    const float gap2 = __fadd_rn(__fadd_rn(__fmul_rn(gx, gx),
-                                           __fmul_rn(gy, gy)),
-                                 __fmul_rn(gz, gz));
-    const bool keep = lane < 8 && lx <= ux && gap2 <= r2c;
+    const bool keep = lane < 8
+                      && aztotmd::box_near(w, lx, ly, lz, ux, uy, uz, c, r2c);
     return __ballot_sync(FULL, keep);
 }
 
@@ -266,18 +226,9 @@ __global__ void __launch_bounds__(MAX_T) sparse_kernel(const Args a,
             if (PAR) pi = ca.parents[slot];
         }
         const bool filled = gi >= 0;
-        Box w;
-        centre(warp_min(filled ? xi : INFINITY),
-               warp_max(filled ? xi : -INFINITY), w.cx, w.hx);
-        centre(warp_min(filled ? yi : INFINITY),
-               warp_max(filled ? yi : -INFINITY), w.cy, w.hy);
-        centre(warp_min(filled ? zi : INFINITY),
-               warp_max(filled ? zi : -INFINITY), w.cz, w.hz);
+        const Box w = aztotmd::warp_box(filled, xi, yi, zi);
         const bool warp_filled = __any_sync(FULL, filled);
-        const float rc = __fadd_rn(
-            sqrtf(a.c.r2_max),
-            __fmul_rn(CULL_SLACK, fmaxf(a.c.bx, fmaxf(a.c.by, a.c.bz))));
-        const float r2c = __fmul_rn(rc, rc);
+        const float r2c = aztotmd::cull_r2(a.c);
 
         for (int buf = 0; e < e_end; e += a.n_split, buf ^= 1) {
             const int jt = a.jt[e];

@@ -42,7 +42,6 @@ routed by device like the square pass.
 from __future__ import annotations
 
 import ctypes
-import math
 from dataclasses import dataclass
 
 import torch
@@ -650,26 +649,132 @@ def pair_forces_allpairs_rect(cfg, ff, pos_i, types_i, valid_i, pos_j,
     return frc, ev, ec
 
 
-# (slab, i tile, split) blocks K2 aims at: eight an SM, since the blocks
-# whose i slots are all empty (a third or more of a slab) leave at once
-_RECT_TARGET_BLOCKS = 8 * 132
+RECT_BLOCKS_PER_SM = 32  # most (split, slab, i tile) blocks K2 aims at an SM
 
 
-def rect_split(n_slab: int, ni: int, nj: int, tile: int) -> int:
-    """Splits of the j range that fill the card: enough (slab, i tile,
-    split) blocks for eight an SM, no more splits than j tiles."""
+def rect_split(n_slab: int, ni: int, nj: int, tile: int, groups: int,
+               sm_count: int) -> int:
+    """Splits of K2's j range: one j tile of ``tile`` slots for each of a
+    block's ``groups`` thread groups, but no more splits than give
+    RECT_BLOCKS_PER_SM (split, slab, i tile) blocks an SM (the partial
+    rows grow with the splits), and at least one.  K2 is latency-bound
+    and its blocks with only empty i slots leave at once, so it wants many
+    more blocks than K1's BLOCKS_PER_SM."""
     n_blk = max(1, n_slab * -(-ni // tile))
-    return max(1, min(-(-nj // tile),
-                      math.ceil(_RECT_TARGET_BLOCKS / n_blk)))
+    tiles = -(-nj // tile)
+    return max(1, min(-(-tiles // groups),
+                      -(-RECT_BLOCKS_PER_SM * sm_count // n_blk)))
+
+
+# --------------------------------------------------------------------------
+# the warp sub-tile cull of K2 and K4, in torch (for tests and chip_smoke.py)
+
+CULL_SUB = 32            # slots of a warp's sub-tile (SUB in csrc/*.cu)
+CULL_SLACK = 2.0 ** -18  # cull margin over the longest box side
+                         # (CULL_SLACK in csrc/pair_physics.cuh)
+
+
+def sub_boxes(xyz, filled):
+    """Boxes of the CULL_SUB-slot sub-tiles along the last axis of the
+    three coordinate tensors ``xyz`` over their ``filled`` slots, as the
+    kernels compute them in f32: centres and half-widths (3, ...,
+    n_sub) each, and (..., n_sub) whether a sub-tile holds a filled slot
+    (centres and half-widths 0 where not).  A ragged last sub-tile is
+    padded with empty slots."""
+    n = filled.shape[-1]
+    n_sub = -(-n // CULL_SUB)
+    pad = (0, n_sub * CULL_SUB - n)
+
+    def sub(a, fill):
+        a = torch.nn.functional.pad(a, pad, value=fill)
+        return a.reshape(a.shape[:-1] + (n_sub, CULL_SUB))
+
+    fs = sub(filled, False)
+    nonempty = fs.any(-1)
+    cs, hs = [], []
+    for a in xyz:
+        a = sub(a, 0.0)
+        lo = torch.where(fs, a, float("inf")).amin(-1)
+        hi = torch.where(fs, a, float("-inf")).amax(-1)
+        cs.append(torch.where(nonempty, (lo + hi) * 0.5, 0.0))
+        hs.append(torch.where(nonempty, (hi - lo) * 0.5, 0.0))
+    return torch.stack(cs), torch.stack(hs), nonempty
+
+
+def cull_keep(cfg, ci, hi, cj, hj):
+    """Whether boxes (centres ``ci``/``cj``, half-widths ``hi``/``hj``,
+    (3, ...) f32, broadcast) lie within the cutoff plus CULL_SLACK of the
+    longest box side: their periodic min-image gap, the sparse worklist's
+    formula with every operation rounded on its own, as the kernels round
+    it.  The gap bounds every pair's distance from below, so a pair in
+    range never lies in a pair of boxes this drops."""
+    dt, dev = ci.dtype, ci.device
+    t = lambda v: torch.tensor(v, dtype=dt, device=dev)
+    gap2 = None
+    for k in range(3):
+        b, ib = t(f32(cfg.box[k])), t(f32(1.0 / cfg.box[k]))
+        d = ci[k] - cj[k]
+        d = d - b * torch.round(d * ib)
+        g = torch.clamp(torch.abs(d) - hi[k] - hj[k], min=0.0)
+        gap2 = g * g if gap2 is None else gap2 + g * g
+    rc = (torch.sqrt(t(f32(cfg.r2_max)))
+          + t(f32(CULL_SLACK)) * t(max(f32(b) for b in cfg.box)))
+    return gap2 <= rc * rc
+
+
+def rect_subtile_keep(cfg, pos_i, valid_i, pos_j, valid_j):
+    """(L, n_isub, n_jsub) bool: the (i sub-tile, j sub-tile) pairs of
+    each slab that K2's warps keep, a sub-tile being CULL_SUB consecutive
+    slots (i sub-tile w is warp w % 4 of i block w // 4).  Kept: both
+    hold a filled slot and ``cull_keep`` holds for their boxes over the
+    filled slots (empty slots, at the origin or holding a departed atom's
+    stale position, never widen a box).  Arguments as
+    ``pair_forces_allpairs_rect``'s, with the leading slab axis."""
+    ci, hi, ne_i = sub_boxes(pos_i.unbind(-1), valid_i)
+    cj, hj, ne_j = sub_boxes(pos_j.unbind(-1), valid_j)
+    keep = cull_keep(cfg, ci[..., :, None], hi[..., :, None],
+                     cj[..., None, :], hj[..., None, :])
+    return keep & ne_i[:, :, None] & ne_j[:, None, :]
+
+
+def rect_kept_slot_pairs(keep, valid_i, valid_j) -> int:
+    """Pairs of filled slots, over all slabs, in the (i sub-tile, j
+    sub-tile) pairs that ``keep`` (``rect_subtile_keep``'s shape) keeps:
+    the slot pairs K2's warps test."""
+    def per_sub(v):
+        v = torch.nn.functional.pad(v.to(torch.int64),
+                                    (0, -v.shape[1] % CULL_SUB))
+        return v.reshape(v.shape[0], -1, CULL_SUB).sum(-1)
+
+    fi, fj = per_sub(valid_i), per_sub(valid_j)
+    return int((keep * fi[:, :, None] * fj[:, None, :]).sum())
+
+
+def rect_kernel_keep(cfg, ff, pos_i, types_i, valid_i, pos_j, types_j,
+                     valid_j, radii_i=None, radii_j=None):
+    """``rect_subtile_keep``'s mask as K2's warps took it: one launch of
+    the kernel's recording instantiation on CUDA inputs (with the leading
+    slab axis).  On the CPU, ``rect_subtile_keep`` itself."""
+    if pos_i.device.type == "cpu":
+        return rect_subtile_keep(cfg, pos_i, valid_i, pos_j, valid_j)
+    L, Ni = pos_i.shape[:2]
+    rec = torch.zeros((L, -(-Ni // CULL_SUB), -(-pos_j.shape[1] // CULL_SUB)),
+                      dtype=torch.uint8, device=pos_i.device)
+    use_radii = bool(cfg.use_radii and radii_i is not None)
+    launch_rect(cfg, *kernel_tables(cfg, ff, pos_i.device), pos_i, types_i,
+                valid_i, radii_i if use_radii else None, pos_j, types_j,
+                valid_j, radii_j if use_radii else None, kept=rec)
+    return rec > 0
 
 
 def _rect_lib():
     lib = cuda_build.load("allpairs_rect")
     fn = lib.aztotmd_allpairs_rect_f32
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F] * 12 + [_P] * 4
+        fn.argtypes = [_P] * 10 + [_I] * 7 + [_F] * 12 + [_P] * 5
         fn.restype = ctypes.c_int
         lib.aztotmd_allpairs_rect_tile.restype = ctypes.c_int
+        lib.aztotmd_allpairs_rect_groups.restype = ctypes.c_int
     return lib
 
 
@@ -705,27 +810,34 @@ def _rect_cuda(cfg, ff, pos_i, types_i, valid_i, radii_i, pos_j, types_j,
 
 
 def launch_rect(cfg, prm, kinds, pos_i, types_i, valid_i, radii_i, pos_j,
-                types_j, valid_j, radii_j):
+                types_j, valid_j, radii_j, kept=None):
     """Launch csrc/allpairs_rect.cu on checked inputs (radii None without
-    radii) and return its partial rows.  Counts the launch as K2."""
+    radii) and return its partial rows.  Counts the launch as K2.  With
+    ``kept``, a zeroed (L, ceil(Ni/32), ceil(Nj/32)) uint8 tensor, the
+    kernel's recording instantiation also sets the (i sub-tile, j
+    sub-tile) entries its warps keep (see ``rect_kernel_keep``)."""
     global rect_launches
     dev = pos_i.device
     L, Ni = pos_i.shape[:2]
     Nj = pos_j.shape[1]
     lib = _rect_lib()
-    n_split = rect_split(L, Ni, Nj, lib.aztotmd_allpairs_rect_tile())
+    n_split = rect_split(L, Ni, Nj, lib.aztotmd_allpairs_rect_tile(),
+                         lib.aztotmd_allpairs_rect_groups(), sm_count(dev))
     frc_p = torch.empty((L, n_split, Ni, 3), dtype=torch.float32, device=dev)
     ev_p = torch.empty((L, n_split, Ni), dtype=torch.float32, device=dev)
     ec_p = torch.empty((L, n_split, Ni), dtype=torch.float32, device=dev)
     if not (L and Ni):
         return frc_p, ev_p, ec_p
+    if kept is not None:
+        check_tensor("kept", kept, torch.uint8,
+                     (L, -(-Ni // CULL_SUB), -(-Nj // CULL_SUB)), dev)
     ptr = lambda t: t.data_ptr() if t is not None else None
     err = lib.aztotmd_allpairs_rect_f32(
         ptr(pos_i), ptr(types_i), ptr(valid_i), ptr(radii_i), ptr(pos_j),
         ptr(types_j), ptr(valid_j), ptr(radii_j), prm.data_ptr(),
         kinds.data_ptr(), cfg.n_spec, L, Ni, Nj, n_split,
         int(radii_i is not None), int(cfg.elec_type), *kernel_consts(cfg),
-        frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(),
+        frc_p.data_ptr(), ev_p.data_ptr(), ec_p.data_ptr(), ptr(kept),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"rectangular allpairs kernel launch failed: CUDA "

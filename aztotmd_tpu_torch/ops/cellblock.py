@@ -23,15 +23,16 @@ interface and ``ctypes``.  It replaces the TPU kernel
 ``aztotmd_tpu/ops/pallas_pair.py::_pair_kernel``.  The TPU kernel reads
 14 stacked, rolled copies of the table (the Newton half stencil) and
 emits j-side partial forces that are rolled back outside; on the H100 a
-block reads its neighbor cells straight from a cell-major table, walks
-the full stencil (own cell and 26 neighbors, every energy weighted 0.5)
-and writes only its own cell's forces, so there are no partial buffers
-and no atomics.  It stages only the filled slots of each cell, so the
-work follows the occupancy and not cap^2.  A neighbor across the periodic
-boundary is shifted by one box length (no min-image rounding), the
-arithmetic is ``rsqrt`` and the rational erfc of
-``csrc/pair_physics.cuh``.  The pass is bound by the FP32 work over the
-visited pairs, not by memory; see the note at the top of the source.
+block takes a short run of cells along z (``stacked_plan``), stages the
+filled slots of the 9 columns of cells their stencils cover straight
+from the cell-major table in one parallel pass, walks the full stencil
+(every energy weighted 0.5) and writes only its own cells' forces, so
+there are no partial buffers and no atomics.  The work follows the
+occupancy and not cap^2.  A neighbor across the periodic boundary is
+shifted by one box length (no min-image rounding), the arithmetic is
+``rsqrt`` and the rational erfc of ``csrc/pair_physics.cuh``.  The pass
+is bound by the FP32 work over the visited pairs, not by memory; see
+the note at the top of the source.
 
 Routing: a CPU tensor goes to ``pair_forces_stacked_plain``; a CUDA
 tensor launches the kernel or raises.  The kernel is f32 only.
@@ -56,8 +57,10 @@ from .vdw import vdw_eval
 launches = 0
 
 # dynamic shared memory a block can ask for on sm_90: 232,448 bytes less
-# the kernel's static arrays
-_MAX_SMEM = 232448 - 256
+# K3's static arrays
+_MAX_SMEM = 232448 - 7168
+K3_ROWS = 64     # own atoms a K3 block aims at: two rows of each column warp
+K3_NZ_MAX = 8    # cells a K3 block may take along z (NZ_MAX in the source)
 
 
 def bin_atoms(cfg, pos, extra=()):
@@ -445,12 +448,42 @@ def pair_forces_stacked(cfg, ff, pos, types, radii=None) -> PairResult:
     return _stacked_cuda(cfg, ff, pos, types, radii)
 
 
+def stacked_smem(nsp: int, cap: int, nz: int) -> int:
+    """Dynamic shared-memory bytes of a K3 block taking ``nz`` cells: x,
+    y, z, radius and type of 9 columns of nz + 2 cells of ``cap`` slots,
+    and the (nsp*nsp, 9) parameter tables (``smem_bytes`` in
+    csrc/cellblock.cu)."""
+    return 9 * (nz + 2) * cap * 20 + nsp * nsp * 9 * 4
+
+
+def stacked_plan(cap: int, dims, n_at: int, nsp: int) -> tuple[int, int]:
+    """K3's launch plan: (nz, dynamic shared bytes), a block taking nz
+    consecutive cells along z.  nz is the number of average cells
+    (``n_at`` atoms over the grid) that hold about K3_ROWS atoms, at
+    least 1 and at most K3_NZ_MAX and the grid's side, less while the
+    staged cells of ``cap`` slots do not fit a block's shared memory.
+    Raises when even one cell's stencil does not fit."""
+    n_cell = dims[0] * dims[1] * dims[2]
+    avg = n_at / n_cell
+    nz = max(1, min(K3_NZ_MAX, dims[2],
+                    int(K3_ROWS // avg) if avg > 0 else K3_NZ_MAX))
+    while nz > 1 and stacked_smem(nsp, cap, nz) > _MAX_SMEM:
+        nz -= 1
+    smem = stacked_smem(nsp, cap, nz)
+    if smem > _MAX_SMEM:
+        raise ValueError(
+            f"the cell-block kernel cannot hold cap={cap}: it stages 27 "
+            f"neighbor cells in {smem} bytes of shared memory (limit "
+            f"{_MAX_SMEM}); use the block engine for this grid")
+    return nz, smem
+
+
 def _lib():
     lib = cuda_build.load("cellblock")
     fn = lib.aztotmd_cellblock_f32
     if fn.argtypes is None:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = ([P] * 9 + [I] * 9 + [F] * 12 + [P] * 4)
+        fn.argtypes = ([P] * 8 + [I] * 8 + [F] * 12 + [P] * 4)
         fn.restype = ctypes.c_int
         lib.aztotmd_cellblock_smem_bytes.argtypes = [I, I, I]
         lib.aztotmd_cellblock_smem_bytes.restype = ctypes.c_long
@@ -481,31 +514,28 @@ def launch(cfg, prm, kinds, T):
     """Launch csrc/cellblock.cu on a cell table (``cell_table``) and
     return its (n_cell * cap, 3) slot forces and (n_cell,) energies of
     each cell.  Counts the launch as K3.  Raises for a ``cap`` whose
-    neighbor cells do not fit a block's shared memory."""
+    neighbor cells do not fit a block's shared memory
+    (``stacked_plan``)."""
     global launches
     grid = cfg.grid
     cap, n_cell = grid.cap, grid.n_cell
     dev = T["x"].device
+    n_off = len(full_stencil(grid))
+    if n_off != 27:
+        raise ValueError(f"the cell-block kernel walks the 27 cells within "
+                         f"+-1; got a stencil of {n_off}")
+    nz, _ = stacked_plan(cap, grid.dims, cfg.n_at, cfg.n_spec)
     lib = _lib()
-    offs = full_stencil(grid)
-    smem = lib.aztotmd_cellblock_smem_bytes(cfg.n_spec, cap, len(offs))
-    if smem > _MAX_SMEM:
-        raise ValueError(
-            f"the cell-block kernel cannot hold cap={cap}: it stages "
-            f"{len(offs)} neighbor cells in {smem} bytes of shared memory "
-            f"(limit {_MAX_SMEM}); use the block engine for this grid")
     frc = torch.empty((n_cell * cap, 3), dtype=torch.float32, device=dev)
     ev = torch.empty(n_cell, dtype=torch.float32, device=dev)
     ec = torch.empty(n_cell, dtype=torch.float32, device=dev)
-    flat = (ctypes.c_int * (3 * len(offs)))(*[o for off in offs for o in off])
     radii = T.get("radii")
     err = lib.aztotmd_cellblock_f32(
         T["x"].data_ptr(), T["y"].data_ptr(), T["z"].data_ptr(),
         T["types"].data_ptr(),
         radii.data_ptr() if radii is not None else None,
-        T["cnt"].data_ptr(), ctypes.cast(flat, ctypes.c_void_p),
-        prm.data_ptr(), kinds.data_ptr(), cfg.n_spec, len(offs), cap,
-        n_cell, grid.dims[0], grid.dims[1], grid.dims[2],
+        T["cnt"].data_ptr(), prm.data_ptr(), kinds.data_ptr(), cfg.n_spec,
+        cap, nz, grid.dims[0], grid.dims[1], grid.dims[2],
         int(radii is not None), int(cfg.elec_type), *kernel_consts(cfg),
         frc.data_ptr(), ev.data_ptr(), ec.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)

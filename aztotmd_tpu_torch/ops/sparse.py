@@ -47,10 +47,10 @@ import torch
 
 from ..core.config import _morton_dims, _part1by2, _round_up
 from . import cuda_build
-from .allpairs import (_CAND_C, BLOCKS_PER_SM, CandArgs, cand_args,
-                       check_tensor, f32, kernel_consts, kernel_tables,
-                       pair_terms, plain_candidates, plain_tables,
-                       sm_count, split_candidates)
+from .allpairs import (_CAND_C, BLOCKS_PER_SM, CULL_SUB, CandArgs,
+                       cand_args, check_tensor, cull_keep, kernel_consts,
+                       kernel_tables, pair_terms, plain_candidates,
+                       plain_tables, sm_count, split_candidates, sub_boxes)
 from .cellblock import pair_forces_block
 from .pairs import PairResult, pair_result
 
@@ -61,8 +61,6 @@ launches = 0
 cand_launches = 0
 
 _MAX_TILE = 256          # one thread per i slot (MAX_T in csrc/sparse.cu)
-CULL_SUB = 32            # slots of a warp's sub-tile (SUB in csrc/sparse.cu)
-CULL_SLACK = 2.0 ** -18  # cull margin over the longest box side (CULL_SLACK)
 
 
 def sparse_split(n_t: int, sm_count: int) -> int:
@@ -252,56 +250,21 @@ def _slot_minima(parts, S: SortedTiles, dt):
 # the kernel's warp sub-tile cull, in torch (for tests and chip_smoke.py)
 
 
-def subtile_boxes(S: SortedTiles):
-    """Boxes of each tile's CULL_SUB-slot sub-tiles over their filled
-    slots, as ``csrc/sparse.cu`` computes them in f32: centres and
-    half-widths (3, n_t, n_sub) each, and (n_t, n_sub) whether a sub-tile
-    holds a filled slot (centres and half-widths 0 where not)."""
-    T, n_t = S.T, S.n_t
-    n_sub = -(-T // CULL_SUB)
-    pad = n_sub * CULL_SUB - T
-
-    def sub(a, fill):
-        a = torch.nn.functional.pad(a.reshape(n_t, T), (0, pad), value=fill)
-        return a.reshape(n_t, n_sub, CULL_SUB)
-
-    filled = sub(S.gid, -1) >= 0
-    nonempty = filled.any(-1)
-    cs, hs = [], []
-    for a in (S.x, S.y, S.z):
-        a = sub(a, 0.0)
-        lo = torch.where(filled, a, float("inf")).amin(-1)
-        hi = torch.where(filled, a, float("-inf")).amax(-1)
-        cs.append(torch.where(nonempty, (lo + hi) * 0.5, 0.0))
-        hs.append(torch.where(nonempty, (hi - lo) * 0.5, 0.0))
-    return torch.stack(cs), torch.stack(hs), nonempty
-
-
 def subtile_keep(cfg, S: SortedTiles):
     """(pair_cap, n_sub, n_sub) bool: the (i sub-tile, j sub-tile) pairs
     of each worklist entry that the kernel's warps keep.  Kept: both hold
-    a filled slot and the periodic min-image gap of their boxes
-    (``_tile_worklist``'s formula, f32, each operation rounded on its own)
-    is within the cutoff plus CULL_SLACK of the longest box side.  The
-    gap bounds every pair's distance from below, so every pair in range
-    lies in a kept sub-tile pair."""
-    c, h, nonempty = subtile_boxes(S)
-    dt, dev = c.dtype, c.device
-    t = lambda v: torch.tensor(v, dtype=dt, device=dev)
+    a filled slot and their boxes pass ``cull_keep`` (the periodic
+    min-image gap within the cutoff plus CULL_SLACK of the longest box
+    side), so every pair in range lies in a kept sub-tile pair.  The
+    boxes are ``sub_boxes`` over each tile's filled slots."""
+    shape = (S.n_t, S.T)
+    c, h, nonempty = sub_boxes([a.reshape(shape) for a in (S.x, S.y, S.z)],
+                               S.gid.reshape(shape) >= 0)
     it, jt = S.it.long(), S.jt.long()
-    gap2 = torch.zeros((S.pair_cap,) + c.shape[2:] * 2, dtype=dt,
-                       device=dev)
-    for k in range(3):
-        b, ib = t(f32(cfg.box[k])), t(f32(1.0 / cfg.box[k]))
-        d = c[k][it][:, :, None] - c[k][jt][:, None, :]
-        d = d - b * torch.round(d * ib)
-        g = torch.clamp(torch.abs(d) - h[k][it][:, :, None]
-                        - h[k][jt][:, None, :], min=0.0)
-        gap2 = gap2 + g * g
-    rc = (torch.sqrt(t(f32(cfg.r2_max)))
-          + t(f32(CULL_SLACK)) * t(max(f32(b) for b in cfg.box)))
-    return ((gap2 <= rc * rc) & nonempty[it][:, :, None]
-            & nonempty[jt][:, None, :] & (S.vp > 0)[:, None, None])
+    keep = cull_keep(cfg, c[:, it][..., :, None], h[:, it][..., :, None],
+                     c[:, jt][..., None, :], h[:, jt][..., None, :])
+    return (keep & nonempty[it][:, :, None] & nonempty[jt][:, None, :]
+            & (S.vp > 0)[:, None, None])
 
 
 def kernel_keep(cfg, prm, kinds, S: SortedTiles):

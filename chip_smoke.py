@@ -59,14 +59,18 @@ stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
 (stat_bnd.dat, jumps.dat) and revbonds.txt and lengths.dat were
 written.  It compares 20 steps with each kernel against 20 steps with
 its plain version (the reactive decks' topology and RNG words exactly),
-profiles bare steps of each deck, and times the kernels, their
+profiles bare steps of each deck (a profile counts only where it
+recorded every launch of the port's kernels), and times the kernels, their
 wrappers and plain versions at the paths' sizes with CUDA events and
 each kernel alone with torch.profiler, beside a lower bound computed
 from an operation count read off csrc/pair_physics.cuh; it logs K1's
-and K4's launch plans (splits, blocks, dynamic shared memory) and the
-sub-tile pairs that K4's warp cull kept, as the kernel records them
-(held exactly against sparse.subtile_keep); K4's bound counts the
-filled slot pairs in them.  Any failure exits non-zero.
+and K4's launch plans (splits, blocks, dynamic shared memory), K2's
+(splits, thread groups) and K3's (cells a block, shared memory), and the
+sub-tile pairs that the warp culls of K4 and K2 kept, as the kernels
+record them (held exactly against sparse.subtile_keep and
+allpairs.rect_subtile_keep); the bounds of K4 and K2 count the filled
+slot pairs in them (K2's over every filled slot pair beside it).  Any
+failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
 bounds.  The runs' output files go to --out (default: a temporary
@@ -412,13 +416,31 @@ def mesh_system(load_deck_dir, deck, n_dev, dev):
         cfg, d["state"], comm)
 
 
-def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev,
-                  n=PROFILE_STEPS, mesh=0, **load_kw):
+# the port's kernels as torch.profiler names them, and the keys of the
+# launch counters (``counters`` in main) of the wrappers that launch them
+PROFILED_KERNELS = {"::allpairs_kernel<": ("allpairs", "allpairs_cand"),
+                    "::sparse_kernel<": ("sparse", "sparse_cand"),
+                    "::cellblock_kernel(": ("cellblock",),
+                    "::rect_kernel<": ("allpairs_rect",)}
+# host calls that launch a kernel, as torch.profiler names them
+RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                    "cuLaunchKernel", "cuLaunchKernelEx")
+
+
+def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
+                  dev, n=PROFILE_STEPS, mesh=0, **load_kw):
     """Device busy time and the kernels that take it over ``n`` bare steps
     (no output, no RDF; over ``mesh`` slabs when set), from
-    torch.profiler; "not measured" when the profiler records no device
-    activity on this machine.  Returns the device seconds per step by
-    kernel name, or None."""
+    torch.profiler.  The profiler may keep fewer device events than ran,
+    so the profile counts only when it recorded every launch of the
+    port's kernels that their counters saw (set to 0 just before it); an
+    incomplete profile is taken once more over n // 5 steps, and when
+    that one is incomplete too, or no device activity was recorded, the
+    busy time and idle share are "not measured" and None is returned.
+    Each kernel's line gives the launches recorded and its mean a launch
+    beside its sum over the steps; the host's kernel-launch calls are
+    logged beside the kernel events recorded.  Returns (device seconds,
+    launches) by kernel name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if mesh:
@@ -431,32 +453,58 @@ def profile_steps(torch, load_deck_dir, make_multi_step, deck, dev,
         d = load_deck_dir(deck, device=dev, **load_kw)
         multi = make_multi_step(d["cfg"], d["aux"])
         state = multi(d["state"], d["ff"], 10)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        multi(state, d["ff"], n)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() * 1e-6
-    busy = sum(by_name.values())
     tag = os.path.basename(deck) + (f" over {mesh} slabs" if mesh else "")
+    for steps in (n, max(2, n // 5)):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            multi(state, d["ff"], steps)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        by_name, host_launches = {}, 0
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t, c = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-6,
+                                   c + 1)
+            elif e.name in RUNTIME_LAUNCHES:
+                host_launches += 1
+        ran = {fn: sum(getattr(*counters[k]) for k in keys)
+               for fn, keys in PROFILED_KERNELS.items()}
+        seen = {fn: sum(c for name, (_, c) in by_name.items() if fn in name)
+                for fn in PROFILED_KERNELS}
+        if seen == ran:
+            break
+        log(f"profile {tag}, {steps} bare steps: incomplete, the profiler "
+            "recorded " + ", ".join(f"{seen[fn]} of {ran[fn]} launches of "
+                                    f"{fn.strip(':<(')}" for fn in ran
+                                    if seen[fn] != ran[fn]))
+    else:
+        log(f"profile {tag}: no complete profile; device busy time and "
+            "idle share not measured")
+        return None
+    busy = sum(t for t, _ in by_name.values())
     if busy <= 0.0:
         log(f"profile {tag}: no device activity recorded; device idle "
             "share not measured")
         return None
-    log(f"profile {tag}, {n} bare steps: wall {wall * 1e3:.1f} ms "
-        f"({wall * 1e3 / n:.3f} ms/step), device busy {busy * 1e3:.1f} ms, "
-        f"device idle share {1.0 - busy / wall:.3f}, {len(prof.events())} "
-        "events (torch.profiler)")
-    for name, t in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
-        log(f"  {t * 1e3 / n:8.4f} ms/step  {t / busy:6.1%} of busy  "
-            f"{name[:90]}")
-    return {k: v / n for k, v in by_name.items()}
+    kernels = sum(c for name, (_, c) in by_name.items()
+                  if not name.startswith(("Memcpy", "Memset")))
+    log(f"profile {tag}, {steps} bare steps: wall {wall * 1e3:.1f} ms "
+        f"({wall * 1e3 / steps:.3f} ms/step), device busy {busy * 1e3:.1f} "
+        f"ms, device idle share {1.0 - busy / wall:.3f}, "
+        f"{len(prof.events())} events (torch.profiler); every launch of "
+        f"the port's kernels recorded ({sum(ran.values())}); "
+        f"{kernels} kernel events against {host_launches} host launch "
+        "calls")
+    for name, (t, c) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        log(f"  {t * 1e3 / steps:8.4f} ms/step  {t / busy:6.1%} of busy  "
+            f"{c:5d} launches recorded, {t * 1e3 / c:.4f} ms each  "
+            f"{name[:80]}")
+    return by_name
 
 
 def random_parents(torch, n, dev, seed=7):
@@ -741,9 +789,13 @@ def run(dev, out):
     g = d["cfg"].grid
     check(allpairs.pallas_branch(d["cfg"], torch.float32) == "stacked",
           "liquid_argon on the pallas engine does not take the stacked pass")
-    log(f"  liquid_argon: grid {g.dims} cap {g.cap}, "
-        f"{len(cellblock.full_stencil(g))} cells a block, half-stencil slot "
-        f"pairs {14 * g.cap * g.cap * g.n_cell}")
+    nz3, smem3 = cellblock.stacked_plan(g.cap, g.dims, d["cfg"].n_at,
+                                        d["cfg"].n_spec)
+    log(f"  liquid_argon: grid {g.dims} cap {g.cap}, half-stencil slot "
+        f"pairs {14 * g.cap * g.cap * g.n_cell}; plan: runs of {nz3} cells "
+        f"a block, {g.dims[0] * g.dims[1] * -(-g.dims[2] // nz3)} blocks of "
+        f"288 threads, {9 * (nz3 + 2)} staged cells and {smem3} bytes of "
+        "dynamic shared memory a block")
     k3_args = (d["cfg"], d["ff"], st.pos, st.types, None)
     k3_err, k3_res = compare(torch, *k3, "liquid_argon deck", *k3_args)
     fluid = lambda **kw: systems.pair_system(
@@ -924,26 +976,23 @@ def run(dev, out):
 
     # --- where a step's time goes (the profiler adds its own cost) ---
     phase("profiles")
+    def profile(deck, **kw):
+        return profile_steps(torch, load_deck_dir, make_multi_step,
+                             counters, deck, dev, **kw)
+
     prof = {}
     for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK, SALT_DECK):
         # ejump_redox's five jump passes give ~18,600 profiler events a
         # step, whose processing dominated this phase: 10 steps of it
-        prof[deck] = profile_steps(torch, load_deck_dir, make_multi_step,
-                                   deck, dev,
-                                   n=10 if deck == EJUMP_DECK else
-                                   PROFILE_STEPS)
-    prof[ARGON_DECK] = profile_steps(torch, load_deck_dir, make_multi_step,
-                                     ARGON_DECK, dev, pair_engine="pallas")
-    profile_steps(torch, load_deck_dir, make_multi_step, ARGON_DECK, dev,
-                  n=10)                      # "auto": the torch block engine
+        prof[deck] = profile(deck, n=10 if deck == EJUMP_DECK else
+                             PROFILE_STEPS)
+    prof[ARGON_DECK] = profile(ARGON_DECK, pair_engine="pallas")
+    profile(ARGON_DECK, n=10)                # "auto": the torch block engine
     poly_x3 = tiled["reactive_polymer"]
-    prof[poly_x3] = profile_steps(torch, load_deck_dir, make_multi_step,
-                                  poly_x3, dev, pair_engine="sparse")
+    prof[poly_x3] = profile(poly_x3, pair_engine="sparse")
     for nm, deck in (("surkov_cluster", SURKOV_DECK),
                      ("nanoclusters", NANO_DECK)):
-        prof[nm + "_mesh"] = profile_steps(torch, load_deck_dir,
-                                           make_multi_step, deck, dev,
-                                           mesh=MESH_DEV[nm])
+        prof[nm + "_mesh"] = profile(deck, mesh=MESH_DEV[nm])
 
     # --- timing at the paths' sizes: wrapper, kernel alone, plain ---
     phase("timing")
@@ -1060,6 +1109,15 @@ def run(dev, out):
         ms_plain, = timed(torch, [
             lambda: allpairs.pair_forces_allpairs_rect_plain(cfg, ff, *args,
                                                              **kw)], n=2)
+        L, ni = args[0].shape[:2]
+        lib = allpairs._rect_lib()
+        tile, groups = (lib.aztotmd_allpairs_rect_tile(),
+                        lib.aztotmd_allpairs_rect_groups())
+        n_split = allpairs.rect_split(L, ni, args[3].shape[1], tile, groups,
+                                      allpairs.sm_count(dev))
+        log(f"plan K2 {nm}: {n_split} splits x {L} slabs x "
+            f"{-(-ni // tile)} i tiles = {n_split * L * -(-ni // tile)} "
+            f"blocks of {groups} x {tile} threads")
         log(f"timing K2 {nm} over {args[0].shape[0]} slabs: wrapper "
             f"{ms:.4f} ms, kernel alone {ms_alone:.4f} ms (medians of "
             f"{2 * n}), plain {ms_plain:.4f} ms (median of 4), CUDA events, "
@@ -1188,25 +1246,43 @@ def run(dev, out):
               "K4-cand ejump_redox x3": k4_bound(
                   "K4-cand ejump_redox x3", k4c_ej, k4c_ej_kw, "buck+dir",
                   True)}
-    def k2_bound(nm, fam):
-        # the work this run's data needs: every pair of filled slots (i an
-        # owned slot, j an owned or halo slot, not the same slot) at the
-        # cost of the displacement, min-image and cutoff test, and the
-        # pairs in range at the cost of the physics; each input read once,
-        # each output written once
+    filled_bounds = {}
+
+    def k2_bound(key, nm, fam):
+        # the work this run's data needs: the filled slot pairs of the (i
+        # sub-tile, j sub-tile) pairs that K2's warp cull keeps (the
+        # kernel's own record of one launch, held exactly against
+        # allpairs.rect_subtile_keep), each at the cost of the
+        # displacement, min-image and cutoff test, and the pairs in range at
+        # the cost of the physics; each input read once, each output written
+        # once.  Every pair of filled slots (i an owned slot, j an owned or
+        # halo slot, not the same slot: the count up to the culling kernel)
+        # is kept beside it as bound_filled_ms
         cfg, ff, args, kw = k2_in[nm]
         L, ni = args[0].shape[:2]
         nj = args[3].shape[1]
+        keep = allpairs.rect_kernel_keep(cfg, ff, *args, **kw)
+        check(torch.equal(keep, allpairs.rect_subtile_keep(
+            cfg, args[0], args[2], args[3], args[5])),
+            f"K2 {nm}: the kernel's warp cull is not "
+            "allpairs.rect_subtile_keep")
+        kept = allpairs.rect_kept_slot_pairs(keep, args[2], args[5])
         slots, pairs = rect_pairs(torch, cfg, args)
         log(f"K2 {nm}: {slots} pairs of filled slots of {L * ni * nj} "
-            f"padded slot pairs ({L} slabs x {ni} x {nj}); the bound counts "
-            "the filled ones")
+            f"padded slot pairs ({L} slabs x {ni} x {nj}); the kernel's "
+            f"warps kept {int(keep.sum())} of {keep.numel()} sub-tile pairs "
+            f"(equal to allpairs.rect_subtile_keep), {kept} filled slot "
+            f"pairs ({kept / slots:.4f}); the bound counts these")
         nb = L * (ni + nj) * (12 + 4 + 1 + (4 if kw["radii_i"] is not None
                                             else 0)) + L * ni * 12 + 8 * L
-        return slots, pairs, bound(slots, pairs, fam, nb)
+        filled_bounds[key] = bound(slots, pairs, fam, nb)
+        log(f"bound {key} over every filled slot pair: "
+            f"{filled_bounds[key][0]:.4g} ms ({filled_bounds[key][2]})")
+        return kept, pairs, bound(kept, pairs, fam, nb)
 
-    bounds["K2"] = k2_bound("surkov_cluster", "surk")
-    bounds["K2 nanoclusters"] = k2_bound("nanoclusters", "lnjs")
+    bounds["K2"] = k2_bound("K2", "surkov_cluster", "surk")
+    bounds["K2 nanoclusters"] = k2_bound("K2 nanoclusters", "nanoclusters",
+                                         "lnjs")
     for key, (slots, pairs, b) in bounds.items():
         log(f"bound {key}: {slots} slot pairs, {pairs} in range: "
             f"{b[0]:.4g} ms ({b[2]}); computed from the operation count "
@@ -1216,12 +1292,13 @@ def run(dev, out):
     log(dist_phase(out))
 
     def prof_ms(deck, kernel):
-        """Profiler device ms per step of the kernel instantiation whose
-        name holds ``kernel`` over the profiled bare steps (None when the
-        profiler saw no device activity)."""
-        by = prof.get(deck) or {}
-        t = sum(v for k, v in by.items() if kernel in k)
-        return t * 1e3 if t else None
+        """Profiler device ms a launch of the kernel instantiation whose
+        name holds ``kernel`` over the profiled bare steps, one launch a
+        step, the mean over the launches the profiler recorded (None when
+        the deck's profile was incomplete or recorded none)."""
+        by = [v for k, v in (prof.get(deck) or {}).items() if kernel in k]
+        c = sum(n for _, n in by)
+        return sum(t for t, _ in by) * 1e3 / c if c else None
 
     def entry(name, source, replaces, launches, err, key, extra=None):
         ms, alone, plain = times[key]
@@ -1249,9 +1326,11 @@ def run(dev, out):
               l["surkov_cluster_mesh"]["allpairs_rect"]
               + l["nanoclusters_mesh"]["allpairs_rect"], k2_err, "K2",
               {"profiler_ms": prof_ms("surkov_cluster_mesh", "rect_kernel"),
+               "bound_filled_ms": filled_bounds["K2"][0],
                "nanoclusters": {
                    "ms": k2n[0], "kernel_ms": k2n[1], "plain_ms": k2n[2],
                    "bound_ms": bounds["K2 nanoclusters"][2][0],
+                   "bound_filled_ms": filled_bounds["K2 nanoclusters"][0],
                    "kernel_profiler_ms": kprof["K2 nanoclusters"],
                    "profiler_ms": prof_ms("nanoclusters_mesh",
                                           "rect_kernel")}}),

@@ -397,7 +397,7 @@ def test_stacked_kernel_matches_plain(cuda, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cap", [1, 2, 150])
+@pytest.mark.parametrize("cap", [1, 2, 8, 46, 150])
 def test_stacked_kernel_any_capacity(cuda, cap):
     """A capacity below the fullest cell (atoms dropped, zero force on
     both sides) and one far above it (dynamic shared memory over 48 KB)."""
@@ -431,6 +431,38 @@ def test_stacked_kernel_matches_plain_liquid_argon_deck(cuda):
                       device=cuda, pair_engine="pallas")
     st = d["state"]
     _compare_stacked(d["cfg"], d["ff"], st.pos, st.types, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_atoms", [400, 500])
+def test_stacked_kernel_three_cells_a_side(cuda, n_atoms):
+    """The 3-cells-a-side minimum (3^3 cells of 9.6 A, runs of 2 and 1
+    cells): every cell is in every stencil, and a run's staged column
+    holds one cell twice, at two images."""
+    cfg, ff, pos, types, _ = systems.pair_system(systems.liquid_argon_specs(
+        n_atoms=n_atoms, density=0.021, rcut=8.5), device=cuda)
+    assert cfg.grid.dims == (3, 3, 3) and cellblock.stacked_ok(cfg.grid)
+    _compare_stacked(cfg, ff, pos, types, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nz", [1, 2, 3, 5, 8])
+def test_stacked_kernel_every_run_length(cuda, nz, monkeypatch):
+    """Runs of 1 to 8 cells a block on the 12^3 grid (the last run of a
+    column shorter when 12 is not a multiple)."""
+    cfg, ff, pos, types, rad = systems.pair_system(
+        systems.liquid_argon_specs(nsp=3, elec=2, radii=True), device=cuda)
+    monkeypatch.setattr(cellblock, "stacked_plan", lambda *a, **k: (
+        nz, cellblock.stacked_smem(cfg.n_spec, cfg.grid.cap, nz)))
+    _compare_stacked(cfg, ff, pos, types, rad)
+
+
+@pytest.mark.cuda
+def test_stacked_plan_shared_memory_is_the_kernels(cuda):
+    lib = cellblock._lib()
+    for nsp, cap, nz in ((1, 46, 2), (3, 8, 8), (2, 150, 1)):
+        assert lib.aztotmd_cellblock_smem_bytes(nsp, cap, nz) \
+            == cellblock.stacked_smem(nsp, cap, nz)
 
 
 # --- K2, the rectangular pass of the slab-decomposed step ---
@@ -491,3 +523,41 @@ def test_mesh_run_launches_k2_every_step(cuda, tmp_path):
              str(tmp_path), "--quiet"])
     assert allpairs.rect_launches - k2 == 20 and allpairs.launches == k1
     assert int(r.state.mig_lost) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [dict(nsp=2, elec=1),
+                                  dict(nsp=3, elec=3, radii=True)],
+                         ids=["nsp2-direct", "nsp3-fennel-radii"])
+@pytest.mark.parametrize("n_slab", [1, 2])
+def test_rect_kernel_wrapped_face_and_its_cull_record(cuda, case, n_slab):
+    """Five clusters in a 120 A box, the first wrapped across every face:
+    K2 against its plain version, and the (i sub-tile, j sub-tile) pairs
+    its warps kept equal to ``rect_subtile_keep``, which skips some."""
+    cfg, ff, args, kw = systems.rect_system(systems.multi_cluster_specs(
+        n_atoms=1500, n_clusters=5, **case), 600, n_slab=n_slab, device=cuda)
+    _compare_rect(cfg, ff, args, kw)
+    keep = allpairs.rect_kernel_keep(cfg, ff, *args, **kw)
+    assert torch.equal(keep, allpairs.rect_subtile_keep(
+        cfg, args[0], args[2], args[3], args[5]))
+    assert 0 < int(keep.sum()) < keep.numel()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deck,n_dev", [(SLICE_DECK, 2), (NANO_DECK, 4)])
+def test_rect_kernel_cull_record_on_mesh_decks(cuda, deck, n_dev):
+    """The kept record of K2 on the mesh decks' slab states equals
+    ``rect_subtile_keep`` (5,724 and 25,767 sub-tile pairs,
+    tests/test_torch_rect_plan.py)."""
+    from aztotmd_tpu_torch.parallel import LocalRing, slab
+    d = load_deck_dir(deck, device=cuda)
+    cfg = slab.prepare_slab_cfg(d["cfg"], n_dev)
+    comm = LocalRing(n_dev, cuda)
+    st = slab.make_slab_state(cfg, d["state"], comm)
+    a = slab.dense_pass_inputs(cfg, comm, {k: getattr(st, k) for k in
+                                           slab.PER_SLOT}, st.gid >= 0)
+    keep = allpairs.rect_kernel_keep(cfg, d["ff"], *a[:6], radii_i=a[6],
+                                     radii_j=a[7])
+    assert torch.equal(keep, allpairs.rect_subtile_keep(cfg, a[0], a[2],
+                                                        a[3], a[5]))
+    assert int(keep.sum()) == (5724 if n_dev == 2 else 25767)
