@@ -1,10 +1,12 @@
 """Bucketed cell list (port of the parts of ``aztotmd_tpu/ops/cell_list.py``
-that the cell-candidate RDF needs).
+that the cell-candidate RDF and the Verlet-list build need).
 
 Atoms are binned into a flat (n_cell * cap,) table of atom ids with one
 stable sort; empty slots hold the sentinel ``n_at``, and atoms past a
 cell's capacity are dropped and reported through the returned maximum
 occupancy.  Each atom's candidates are the slots of its stencil cells.
+``build_pos_table`` is the same binning with each slot's position beside
+its id.
 """
 
 from __future__ import annotations
@@ -85,3 +87,18 @@ def stencil_slot_ids(cfg, coords):
 def gather_candidates(cfg, table, coords):
     """(N, S * cap) int32 candidate atom ids per atom (sentinel n_at)."""
     return table[stencil_slot_ids(cfg, coords).long()]
+
+
+def build_pos_table(cfg, pos):
+    """The fused (n_cell * cap, 4) table of (x, y, z, id as a float) rows
+    in the slots of ``build_cell_table`` (empty slots: zeros and id
+    ``n_at``) and the maximum cell occupancy.  The id round-trips exactly
+    through f32 for n_at < 2^24."""
+    N = cfg.n_at
+    size = cfg.grid.n_cell * cfg.grid.cap
+    order, slot, max_occ = _bin_slots(cfg, pos)
+    rows = torch.cat([pos[order], order[:, None].to(pos.dtype)], dim=1)
+    ptab = torch.zeros((size + 1, 4), dtype=pos.dtype, device=pos.device)
+    ptab[:, 3] = float(N)
+    ptab[slot.long()] = rows
+    return ptab[:size], max_occ

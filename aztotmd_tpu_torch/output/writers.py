@@ -473,6 +473,14 @@ def write_bondlist(path, at1, at2, btypes):
             f.write(f"{int(a)} {int(b)} {int(t)}\n")
 
 
+def write_anglelist(path, central, lig1, lig2, atypes):
+    """revangles.txt (angles.cpp:62-74 save_anglelist)."""
+    with open(path, "w") as f:
+        f.write(f"{len(central)}\n")
+        for c, a, b, t in zip(central, lig1, lig2, atypes):
+            f.write(f"{int(c)} {int(a)} {int(b)} {int(t)}\n")
+
+
 def write_bond_lengths(path, fld, at1, at2, btypes, pos, box, n_bin=100):
     """lengths.dat (bonds.cpp ``bond_out``): histogram of bond lengths
     per bond type between its r2min and r2max."""

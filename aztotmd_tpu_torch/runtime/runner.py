@@ -8,10 +8,13 @@ are taken inside the chunk every ``fr_rdf`` steps, with the JAX runner's
 sample steps and its reset of the histogram after 500 samples.  The
 output files and their rows are the JAX runner's, with stat_bnd.dat and
 jumps.dat for reactive decks and revbonds.txt and lengths.dat at the
-end of a run with bonds.  At each stat row the
-runner reads the engine's capacity monitor (the block-sparse worklist
-length or the fullest cell's occupancy) and regrows the capacity
-(``_check_overflow``).
+end of a run with bonds and revangles.txt with angles.  At each stat
+row the runner reads the engine's capacity monitors (the block-sparse
+worklist length or the fullest cell's occupancy; on the Verlet-list
+engine the skin violations, the inner and outer neighbor counts, the
+occupied rows and the list grid's occupancy) and regrows the capacity
+(``_check_overflow``).  Each call of the multi-step starts with a full
+list rebuild, as each call of the JAX runner's host chunk loop does.
 
 Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
 step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
@@ -179,6 +182,10 @@ class MDRunner:
             self._defer_hits = 0
             self.state = _slab.make_slab_state(
                 cfg, self.state, self.comm, cap_factor=self._slab_cap_factor)
+        # the escalating skin monitor's record (_check_neighbor_monitors)
+        self._viol_seen = 0
+        self._viol_hits = 0
+        self._skin_grown = 0
         self._build_programs()
         self._route_note = None
         self._note_route()
@@ -321,7 +328,10 @@ class MDRunner:
         the fullest cell's occupancy (0 from the dense pass); past
         ``grid.cap`` those steps dropped atoms.  A new ``cap`` changes
         the modeled block cost, so the pallas dispatcher may take
-        another branch afterwards."""
+        another branch afterwards.  The Verlet-list engine reads its list
+        monitors first, and its occupancy is that of ``nb_grid``."""
+        if self.cfg.pair_engine == "neighbor":
+            self._check_neighbor_monitors()
         cfg = self.cfg
         if cfg.pair_engine == "sparse" and cfg.dtype != "f64":
             need = int(self.state.cell_overflow)
@@ -333,16 +343,121 @@ class MDRunner:
                 self.cfg = dataclasses.replace(cfg, sparse_pair_cap=new_cap)
                 self._build_programs()
             return
+        # the Verlet-list engine bins on its own grid, nb_grid
+        key = "nb_grid" if cfg.pair_engine == "neighbor" else "grid"
+        g = getattr(cfg, key)
         occ = int(self.state.cell_overflow)
-        if occ > cfg.grid.cap:
+        if occ > g.cap:
             new_cap = _round_up(occ + max(2, occ // 4), 4)
             print(f"WARNING: cell occupancy {occ} exceeded capacity "
-                  f"{cfg.grid.cap}; rebuilding with cap={new_cap}",
+                  f"{g.cap}; rebuilding with cap={new_cap}",
                   file=sys.stderr)
             self.cfg = dataclasses.replace(
-                cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
+                cfg, **{key: dataclasses.replace(g, cap=new_cap)})
             self._build_programs()
             self._note_route()
+
+    def _reset_lists(self, **cap):
+        """Replace ``cfg``'s list capacities ``cap``, give the state empty
+        lists of the new shapes and a reference position that forces a
+        rebuild, and rebuild the step."""
+        self.cfg = cfg = dataclasses.replace(self.cfg, **cap)
+        N = cfg.n_at
+        full = lambda *shape: torch.full(shape, N, dtype=torch.int32,
+                                         device=self.device)
+        upd = {}
+        if "n_neigh" in cap:
+            upd["nbr_idx"] = full(N, cfg.n_neigh)
+        if cfg.nb_rowcap and ("n_neigh" in cap or "nb_rowcap" in cap):
+            # nbrow rows carry [atom id | K neighbor ids]
+            upd["nbrow_idx"] = full(cfg.nb_rowcap, 1 + cfg.n_neigh)
+        if "n_neigh2" in cap:
+            upd["nbr2_idx"] = full(N, cfg.n_neigh2)
+        self.state = self.state.replace(nbr_ref=self.state.nbr_ref + 1e9,
+                                        **upd)
+        self._build_programs()
+
+    def _check_neighbor_monitors(self):
+        """The Verlet-list monitors, with the JAX runner's formulas and
+        warnings: the escalating skin monitor, then the inner neighbor
+        count (K), the occupied rows (nb_rowcap) and the outer count
+        (K2)."""
+        st = self.state
+        viol = int(st.nbr_viol)
+        if viol and viol > self._viol_seen:
+            # warn on the first window of violations, react if they keep
+            # accruing at later checks
+            self._viol_seen = viol
+            self._viol_hits += 1
+            if self._viol_hits == 1:
+                print(f"WARNING: {viol} neighbor-skin violations so far; "
+                      "will thicken nb_skin if they keep accruing",
+                      file=sys.stderr)
+            else:
+                self._escalate_skin(viol)
+        over = int(self.state.nbr_over)
+        if over > self.cfg.n_neigh:
+            new_k = _round_up(over + max(4, over // 4), 4)
+            print(f"WARNING: neighbor count {over} exceeded capacity "
+                  f"{self.cfg.n_neigh}; rebuilding with K={new_k}",
+                  file=sys.stderr)
+            self._reset_lists(n_neigh=new_k)
+        if self.cfg.nb_rowcap:
+            rover = int(self.state.nbrow_over)
+            if rover > self.cfg.nb_rowcap:
+                new_cap = min(_round_up(rover + max(128, rover // 4), 128),
+                              self.cfg.n_at)
+                print(f"WARNING: occupied-row count {rover} exceeded row "
+                      f"capacity {self.cfg.nb_rowcap}; rebuilding with "
+                      f"rowcap={new_cap}", file=sys.stderr)
+                self._reset_lists(nb_rowcap=new_cap)
+        if self.cfg.nb_outer > 1:
+            over2 = int(self.state.nbr2_over)
+            if over2 > self.cfg.n_neigh2:
+                new_k2 = _round_up(over2 + max(4, over2 // 4), 8)
+                print(f"WARNING: outer neighbor count {over2} exceeded "
+                      f"capacity {self.cfg.n_neigh2}; rebuilding with "
+                      f"K2={new_k2}", file=sys.stderr)
+                self._reset_lists(n_neigh2=new_k2)
+
+    def _escalate_skin(self, viol):
+        """Skin violations kept accruing after the first warning: grow
+        nb_skin 1.5x (and K by the reach-volume ratio), capped at the
+        outer reach with the two-level list, where the cap instead halves
+        nb_rebuild.  At most 3 reactions; after that a warning with the
+        count each time."""
+        cfg = self.cfg
+        self._viol_hits = 0
+        if self._skin_grown >= 3:
+            print(f"WARNING: {viol} neighbor-skin violations and the "
+                  "auto-escalation budget is spent; trajectory may miss "
+                  "pairs — re-tune nb_skin/nb_rebuild", file=sys.stderr)
+            return
+        self._skin_grown += 1
+        old = cfg.nb_skin
+        new = old * 1.5
+        if cfg.nb_outer > 1:
+            # the inner reach r_max + nb_skin must stay within the outer
+            new = min(new, cfg.nb_skin2)
+        if new <= old + 1e-9:
+            if cfg.nb_rebuild > 1:
+                new_r = max(1, cfg.nb_rebuild // 2)
+                print(f"WARNING: {viol} neighbor-skin violations keep "
+                      f"accruing; shortening nb_rebuild "
+                      f"{cfg.nb_rebuild} -> {new_r}", file=sys.stderr)
+                self.cfg = dataclasses.replace(cfg, nb_rebuild=new_r)
+                self._build_programs()
+            else:
+                print(f"WARNING: {viol} neighbor-skin violations with "
+                      "nb_skin at the outer reach and per-step rebuilds; "
+                      "re-tune nb_skin2/nb_outer", file=sys.stderr)
+            return
+        ratio = ((cfg.r_max + new) / (cfg.r_max + old)) ** 3
+        new_k = _round_up(int(math.ceil(cfg.n_neigh * ratio)) + 4, 4)
+        print(f"WARNING: {viol} neighbor-skin violations keep accruing; "
+              f"growing nb_skin {old:.3f} -> {new:.3f} "
+              f"(K {cfg.n_neigh} -> {new_k})", file=sys.stderr)
+        self._reset_lists(nb_skin=new, n_neigh=new_k)
 
     def _sample_rest(self, step: int):
         """Non-stat sampling: hist/vaf/rdf/traj/revcon/checkpoint."""
@@ -453,6 +568,13 @@ class MDRunner:
             W.write_bondlist(j("revbonds.txt"), at1, at2, bt)
             W.write_bond_lengths(j("lengths.dat"), fld, at1, at2, bt, pos,
                                  cfg.box)
+        if cfg.use_angl:
+            na = int(st.n_angle)
+            W.write_anglelist(j("revangles.txt"),
+                              st.ang_central[:na].cpu().numpy(),
+                              st.ang_lig1[:na].cpu().numpy(),
+                              st.ang_lig2[:na].cpu().numpy(),
+                              st.ang_type[:na].cpu().numpy())
         W.write_velocities(j("velocities.dat"), fld, types, vel)
         if cfg.tstat_type == TSTAT_RADI:
             W.write_thermal_chars(j("tchars.dat"), fld, types,

@@ -1,16 +1,18 @@
-"""The MD step (port of ``aztotmd_tpu/runtime/step.py`` for engines
-without a neighbor list: the "pallas" engine (dense all-pairs or stacked
-cell-block pass), the block-sparse "sparse" engine and the cell-block
-"block" engine).
+"""The MD step (port of ``aztotmd_tpu/runtime/step.py``): the "pallas"
+engine (dense all-pairs or stacked cell-block pass), the block-sparse
+"sparse" engine, the cell-block "block" engine and the Verlet-list
+"neighbor" engine, with valence angles.
 
 Stage order as in the JAX package:
   [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE, touched reset)
   -> [bond forces, reactive repair and mutation] -> pair forces (+ bind
-  and jump candidates) -> [Ewald reciprocal space] -> [bond creation]
-  -> [electron jumps] -> verlet2 -> apply_tstat -> energies and pressure
-  -> [bond means]
-The Verlet-list engine and angles are not ported yet; a deck that needs
-one raises.  No stage synchronises with the host.
+  and jump candidates; the neighbor engine's skin monitor) -> [Ewald
+  reciprocal space] -> [bond creation] -> [electron jumps] -> [angles]
+  -> verlet2 -> apply_tstat -> energies and pressure -> [bond means]
+No stage synchronises with the host.  On the neighbor engine the
+multi-step rebuilds the list on JAX's schedule: a full rebuild at the
+start of every call, and with the two-level list inner refines every
+``nb_rebuild`` steps in superblocks of ``nb_outer * nb_rebuild`` steps.
 """
 
 from __future__ import annotations
@@ -22,18 +24,25 @@ import torch
 from ..io.control import ELEC_EWALD, TSTAT_NOSE
 
 from ..core.state import Energies, MDState
+from ..ops import angles as ops_angles
 from ..ops import bonds as ops_bonds
 from ..ops import ejump as ops_ejump
 from ..ops import integrate as integ
+from ..ops import neighbors as ops_nbr
 from ..ops import thermostat as tstat
 from ..ops.allpairs import pair_forces_pallas, pallas_branch
 from ..ops.cellblock import pair_forces_block
 from ..ops.elec import ewald_recip
 from ..ops.sparse import pair_forces_sparse
 
-# the pair pass of each ported engine
+# the pair pass of each ported cell or dense engine ("neighbor" walks
+# its list inside the step)
 PAIR_ENGINES = {"pallas": pair_forces_pallas, "sparse": pair_forces_sparse,
                 "block": pair_forces_block}
+
+# full list rebuilds and inner refines run since the counts were last
+# set to 0 (the step's list schedule, read by checks)
+nbr_counts = {"rebuild": 0, "refine": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,25 +54,122 @@ class StepAux:
 
 
 def _check_supported(cfg):
-    """Raise for the parts of a deck that the port does not run yet."""
-    missing = []
-    if cfg.pair_engine not in PAIR_ENGINES:
-        missing.append(f"pair engine {cfg.pair_engine!r} ('neighbor "
-                       "engine (case study 1)')")
-    if cfg.use_angl:
-        missing.append("valence angles ('angles, with the neighbor "
-                       "engine')")
-    if missing:
+    """Raise for an engine the port does not run."""
+    if cfg.pair_engine not in PAIR_ENGINES and cfg.pair_engine != "neighbor":
         raise NotImplementedError(
-            "not ported yet (ROADMAP.md: modules to port): "
-            + "; ".join(missing))
+            f"pair engine {cfg.pair_engine!r} is not ported (ROADMAP.md, "
+            "not to port: the \"gather\" engine)")
+
+
+def _rowcomp_updates(cfg, state, idx):
+    """State updates for the row-compacted walk (``nb_rowcap`` > 0):
+    recompact whenever the inner list changes."""
+    if not cfg.nb_rowcap:
+        return {}
+    nbrow, n_rows = ops_nbr.compact_rows(idx, cfg.nb_rowcap, cfg.n_at)
+    return dict(nbrow_idx=nbrow,
+                nbrow_over=torch.maximum(state.nbrow_over, n_rows))
+
+
+def rebuild_neighbors_state(cfg, state):
+    """Full Verlet-list rebuild.  With the two-level list this rebuilds
+    the outer list and takes the inner one from it: a prefix slice of the
+    sorted build's rows, or a refine after the unsorted one."""
+    nbr_counts["rebuild"] += 1
+    pos = state.pos
+    if cfg.nb_outer > 1:
+        if ops_nbr.sorted_build_ok(cfg):
+            ocfg = dataclasses.replace(cfg, n_neigh=cfg.n_neigh2,
+                                       nb_skin=cfg.nb_skin2)
+            idx2, skey2, nmax2, occ = ops_nbr.build_neighbors_keys(ocfg, pos)
+            idx, nmax = ops_nbr.prefix_refine(
+                idx2, skey2, cfg.r_max + cfg.nb_skin, cfg.n_neigh, cfg.n_at)
+        else:
+            idx2, nmax2, occ = ops_nbr.build_outer_neighbors(cfg, pos)
+            idx, nmax = ops_nbr.refine_neighbors(cfg, pos, idx2)
+        return state.replace(
+            nbr_idx=idx, nbr_ref=pos, nbr2_idx=idx2,
+            nbr_over=torch.maximum(state.nbr_over, nmax),
+            nbr2_over=torch.maximum(state.nbr2_over, nmax2),
+            cell_overflow=torch.maximum(state.cell_overflow, occ),
+            **_rowcomp_updates(cfg, state, idx))
+    idx, nmax, occ = ops_nbr.build_neighbors(cfg, pos)
+    return state.replace(
+        **_rowcomp_updates(cfg, state, idx),
+        nbr_idx=idx, nbr_ref=pos,
+        nbr_over=torch.maximum(state.nbr_over, nmax),
+        cell_overflow=torch.maximum(state.cell_overflow, occ))
+
+
+def refine_neighbors_state(cfg, state):
+    """Inner refine from the outer list: row-first with the row-compacted
+    walk, else over all rows and then compacted."""
+    nbr_counts["refine"] += 1
+    if cfg.nb_rowcap:
+        idx, nbrow, nmax, n_rows = ops_nbr.refine_neighbors_rows(
+            cfg, state.pos, state.nbr2_idx, cfg.nb_rowcap)
+        return state.replace(
+            nbr_idx=idx, nbr_ref=state.pos,
+            nbr_over=torch.maximum(state.nbr_over, nmax),
+            nbrow_idx=nbrow,
+            nbrow_over=torch.maximum(state.nbrow_over, n_rows))
+    idx, nmax = ops_nbr.refine_neighbors(cfg, state.pos, state.nbr2_idx)
+    return state.replace(
+        nbr_idx=idx, nbr_ref=state.pos,
+        nbr_over=torch.maximum(state.nbr_over, nmax),
+        **_rowcomp_updates(cfg, state, idx))
+
+
+def _neighbor_pairs(cfg, ff, state, want_bind, want_jump, auto_rebuild):
+    """The neighbor engine's pair stage: the skin monitor (2 * the largest
+    displacement since the last rebuild against nb_skin), then the walk.
+    ``auto_rebuild`` (single steps) rebuilds the single-level list on
+    schedule or when stale and counts only the unscheduled staleness; the
+    scanned mode counts every stale step and walks the compacted rows
+    when ``nb_rowcap`` is set.  Returns (state, PairResult)."""
+    pos = state.pos
+    box = torch.tensor(cfg.box, dtype=pos.dtype, device=pos.device)
+    disp = pos - state.nbr_ref
+    disp = disp - box * torch.round(disp / box)
+    max_disp = torch.sqrt(torch.max(torch.sum(disp * disp, dim=-1)))
+    stale = 2.0 * max_disp > cfg.nb_skin
+    kw = dict(radii=state.radii if cfg.use_radii else None,
+              parents=state.parents, want_bind=want_bind,
+              want_jump=want_jump)
+    if auto_rebuild:
+        # both branches run and a select keeps one: the device decides
+        # without a host round trip
+        on_sched = (state.step % cfg.nb_rebuild) == 0
+        need = on_sched | stale
+        idx_new, nmax, occ = ops_nbr.build_neighbors(cfg, pos)
+        nbr_idx = torch.where(need, idx_new, state.nbr_idx)
+        state = state.replace(
+            nbr_idx=nbr_idx,
+            nbr_ref=torch.where(need, pos, state.nbr_ref),
+            nbr_over=torch.maximum(
+                state.nbr_over, torch.where(need, nmax, state.nbr_over)),
+            nbr_viol=state.nbr_viol + (stale & ~on_sched).to(torch.int32),
+            cell_overflow=torch.maximum(
+                state.cell_overflow,
+                torch.where(need, occ, torch.zeros_like(occ))))
+        return state, ops_nbr.pair_forces_neighbors(
+            cfg, ff, pos, state.types, nbr_idx, **kw)
+    state = state.replace(nbr_viol=state.nbr_viol + stale.to(torch.int32))
+    if cfg.nb_rowcap:
+        return state, ops_nbr.pair_forces_rows(
+            cfg, ff, pos, state.types, state.nbrow_idx, **kw)
+    return state, ops_nbr.pair_forces_neighbors(
+        cfg, ff, pos, state.types, state.nbr_idx, **kw)
 
 
 def torch_engine_reason(cfg, dtype) -> str | None:
     """Why this configuration's pair pass is the cell-block engine (torch
     ops, thousands of small launches a pass on the card) rather than a
     CUDA kernel, or None when a kernel runs it.  ``dtype`` is the state's
-    floating type."""
+    floating type.  The neighbor engine has no kernel to bypass (no Pallas
+    kernel lies on its path in the JAX package), in f32 or f64."""
+    if cfg.pair_engine == "neighbor":
+        return None
     if cfg.pair_engine == "block":
         return 'the deck selects the "block" engine'
     if dtype == torch.float64:
@@ -81,16 +187,21 @@ def torch_engine_reason(cfg, dtype) -> str | None:
     return None
 
 
-def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
+def make_step(cfg, aux: StepAux | None = None, pair_fn=None,
+              nbr_auto_rebuild: bool = True):
     """Build step(state, ff) -> state.
 
-    ``pair_fn`` replaces the engine's pair pass (same signature as
-    ``ops.allpairs.pair_forces_pallas``); checks use it to run the plain
-    version on the card.
+    ``pair_fn`` replaces a cell or dense engine's pair pass (same
+    signature as ``ops.allpairs.pair_forces_pallas``); checks use it to
+    run the plain version on the card.  ``nbr_auto_rebuild`` (the
+    neighbor engine): rebuild the list inside the step on schedule or
+    when stale; the multi-step passes False and rebuilds between steps.
     """
     _check_supported(cfg)
     aux = aux or StepAux()
-    pair_fn = pair_fn or PAIR_ENGINES[cfg.pair_engine]
+    neighbor = cfg.pair_engine == "neighbor"
+    if not neighbor:
+        pair_fn = pair_fn or PAIR_ENGINES[cfg.pair_engine]
     want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
     want_jump = cfg.ejtype != 0
 
@@ -115,10 +226,14 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
             state, eng_bond = ops_bonds.apply_bonds(cfg, ff, state)
 
         # --- pair forces and bind/jump candidates ---
-        pr = pair_fn(cfg, ff, state.pos, state.types,
-                     radii=state.radii if cfg.use_radii else None,
-                     parents=state.parents, want_bind=want_bind,
-                     want_jump=want_jump)
+        if neighbor:
+            state, pr = _neighbor_pairs(cfg, ff, state, want_bind,
+                                        want_jump, nbr_auto_rebuild)
+        else:
+            pr = pair_fn(cfg, ff, state.pos, state.types,
+                         radii=state.radii if cfg.use_radii else None,
+                         parents=state.parents, want_bind=want_bind,
+                         want_jump=want_jump)
         state = state.replace(
             frc=state.frc + pr.frc,
             cell_overflow=torch.maximum(state.cell_overflow, pr.max_occ))
@@ -144,6 +259,13 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
         if want_jump:
             state = _jumps(cfg, ff, state, pr.jump_idx)
 
+        # --- valence angles ---
+        eng_angle = torch.zeros((), dtype=fdt, device=dev)
+        if cfg.use_angl:
+            if cfg.use_angl == 2:
+                state = ops_angles.refresh_angles(cfg, ff, state)
+            state, eng_angle = ops_angles.apply_angles(cfg, ff, state)
+
         # --- verlet 2nd stage ---
         vel2, eng_kin = integ.verlet2(cfg, ff, state.vel, state.frc,
                                       state.types)
@@ -163,12 +285,13 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None):
         state = state.replace(**upd)
 
         # --- energies and pressure ---
-        zero = torch.zeros((), dtype=fdt, device=dev)
-        pot = eng_coul1 + eng_coul2 + eng_coul3 + pr.eng_vdw + eng_bond
+        pot = (eng_coul1 + eng_coul2 + eng_coul3 + pr.eng_vdw + eng_bond
+               + eng_angle)
         energies = Energies(
             kin=eng_kin.to(fdt), vdw=pr.eng_vdw.to(fdt),
             coul1=eng_coul1.to(fdt), coul2=eng_coul2, coul3=eng_coul3,
-            bond=eng_bond.to(fdt), angle=zero, temp=eng_temp.to(fdt),
+            bond=eng_bond.to(fdt), angle=eng_angle.to(fdt),
+            temp=eng_temp.to(fdt),
             field=eng_field.to(fdt), pot=pot.to(fdt),
             tot=(pot + eng_kin).to(fdt))
         pres, buf_p, buf_n, i_mom = integ.pressure_update(cfg, state)
@@ -188,10 +311,14 @@ def _jumps(cfg, ff, state, jump_idx):
     max(f, 1) passes and f > 4 runs f passes; each pass sees the types
     the one before mutated."""
     nbr = None
-    if not cfg.use_bnd and cfg.n_at > 8192 and cfg.grid is not None:
-        # positions do not change across the passes: build the
-        # environment sweep's candidate list once
-        nbr = ops_ejump.env_candidates(cfg, state.pos)
+    if not cfg.use_bnd:
+        if cfg.pair_engine == "neighbor":
+            # the environment sweep walks the Verlet list
+            nbr = state.nbr_idx
+        elif cfg.n_at > 8192 and cfg.grid is not None:
+            # positions do not change across the passes: build the
+            # environment sweep's candidate list once
+            nbr = ops_ejump.env_candidates(cfg, state.pos)
     f = int(cfg.ejump_freq)
     if f < 0:
         return ops_ejump.do_jumps(cfg, ff, state, jump_idx,
@@ -204,12 +331,57 @@ def _jumps(cfg, ff, state, jump_idx):
 
 def make_multi_step(cfg, aux: StepAux | None = None, pair_fn=None):
     """multi(state, ff, n) -> state after n steps (a Python loop; no host
-    synchronisation inside)."""
-    step = make_step(cfg, aux, pair_fn=pair_fn)
+    synchronisation inside).  On the neighbor engine the list is rebuilt
+    on the JAX package's schedule: every call starts with a full rebuild;
+    with the two-level list (``nb_outer`` Q > 1) superblocks of Q*R steps
+    each start with one and refine every R = ``nb_rebuild`` steps after
+    it, otherwise every block of R steps starts with one."""
+    if cfg.pair_engine != "neighbor":
+        step = make_step(cfg, aux, pair_fn=pair_fn)
+
+        def multi(state, ff, n: int):
+            for _ in range(n):
+                state = step(state, ff)
+            return state
+
+        return multi
+
+    step = make_step(cfg, aux, nbr_auto_rebuild=False)
+    R = max(int(cfg.nb_rebuild), 1)
+    Q = max(int(cfg.nb_outer), 1)
+
+    def run(s, ff, m):
+        for _ in range(m):
+            s = step(s, ff)
+        return s
+
+    def block(s, ff, m, full):
+        s = rebuild_neighbors_state(cfg, s) if full \
+            else refine_neighbors_state(cfg, s)
+        return run(s, ff, m)
+
+    def superblock(s, ff, m):
+        s = run(rebuild_neighbors_state(cfg, s), ff, min(R, m))
+        m_in, rem_in = divmod(max(m - R, 0), R)
+        for _ in range(m_in):
+            s = block(s, ff, R, False)
+        if rem_in:
+            s = block(s, ff, rem_in, False)
+        return s
 
     def multi(state, ff, n: int):
-        for _ in range(n):
-            state = step(state, ff)
+        if Q > 1:
+            n_sup, rem = divmod(n, Q * R)
+            for _ in range(n_sup):
+                state = superblock(state, ff, Q * R)
+            if rem:
+                state = superblock(state, ff, rem)
+            return state
+        n_out, rem = divmod(n, R)
+        for _ in range(n_out):
+            state = block(state, ff, R, True)
+        if rem:
+            state = block(state, ff, rem, True)
         return state
 
     return multi

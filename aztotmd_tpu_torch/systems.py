@@ -12,7 +12,9 @@ density.  ``write_lj_deck`` writes the same argon deck as
 ``aztotmd_tpu.systems.write_lj_deck``, without JAX.
 ``write_liquid_argon_deck`` writes ``examples/liquid_argon/``, the uniform
 LJ liquid that the cell-block engines run; ``liquid_argon_specs`` is the
-same system at test sizes.
+same system at test sizes.  ``write_argon_gas_deck`` writes
+``examples/argon_gas/``, the dilute argon gas of the reference's case
+study 1 that the Verlet-list engine runs.
 """
 
 from __future__ import annotations
@@ -427,6 +429,88 @@ Ar\tAr\tlnjs\t4.0    0.01006\t3.3952
 """)
 
 
+
+def min_separation_positions(n_atoms: int, box: float, min_sep: float,
+                             seed: int):
+    """Seeded uniform positions in a cubic periodic box, each at least
+    ``min_sep`` from every earlier one (minimum image): a draw closer than
+    that is dropped and drawn again.  A hash grid of cells no narrower
+    than ``min_sep`` keeps each test to the 27 cells around the draw."""
+    rng = np.random.default_rng(seed)
+    n_c = max(int(box // min_sep), 1)
+    edge = box / n_c
+    cells: dict = {}
+    pos = np.empty((n_atoms, 3))
+    k = 0
+    while k < n_atoms:
+        p = rng.uniform(0.0, box, 3)
+        c = np.floor(p / edge).astype(np.int64) % n_c
+        near = False
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    key = ((c[0] + dx) % n_c, (c[1] + dy) % n_c,
+                           (c[2] + dz) % n_c)
+                    for q in cells.get(key, ()):
+                        d = p - pos[q]
+                        d -= box * np.round(d / box)
+                        if d @ d < min_sep * min_sep:
+                            near = True
+                            break
+                    if near:
+                        break
+                if near:
+                    break
+            if near:
+                break
+        if near:
+            continue
+        pos[k] = p
+        cells.setdefault((c[0], c[1], c[2]), []).append(k)
+        k += 1
+    return pos
+
+
+def write_argon_gas_deck(path, n_atoms: int = 40000,
+                         density: float = 2.69e-5, min_sep: float = 3.0,
+                         steps: int = 10000, seed: int = 11):
+    """Write the dilute argon gas of ``examples/argon_gas/``, case study
+    1's configuration: ``n_atoms`` Ar at ``density`` atoms/A^3 (40,000 in
+    a 1,141.4 A box), seeded uniform draws at least ``min_sep`` A apart,
+    LJ with eps 0.01006 eV and sigma 3.3952 A cut at 4 A, Fennel
+    electrostatics declared at 4 A (inert: Ar is neutral), dt 1 fs, the
+    radiative thermostat at 298 K from Gaussian velocities, stat every
+    200 steps and an RDF sample (to 14 A in 0.02 A bins) every 50.  The
+    engine auto-selection takes it to the two-level Verlet list with the
+    row-compacted walk; the box follows the density at any ``n_atoms``."""
+    os.makedirs(path, exist_ok=True)
+    box = (n_atoms / density) ** (1.0 / 3.0)
+    pos = min_separation_positions(n_atoms, box, min_sep, seed)
+    with open(os.path.join(path, "atoms.xyz"), "w") as f:
+        f.write(f"{n_atoms}\n1 {box:.6f} {box:.6f} {box:.6f}\n")
+        for p in pos:
+            f.write(f"Ar\t{p[0]:.6f}\t{p[1]:.6f}\t{p[2]:.6f}\n")
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.001 ps
+nstep {steps}
+nequil  0
+eqfreq 100
+temperature 298.0\tradi\t0.2
+init_vel\tgaus
+
+permittivity  1.0
+elec\tfenn\t4.0\t0.4\t6\t6\t6
+rdf\t14.0   0.02\t50\t0\tnucl
+stat\t200
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write(f"""spec 1
+Ar\tAr\t39.948\t0.0\t0.0
+red-ox 0
+vdw 1
+Ar\tAr\tlnjs\t4.0\t{AR_EPS}\t{AR_SIG}
+""")
+
 # pre-scaled parameters per VdW family (parse-time conventions of
 # aztotmd_tpu/io/field.py; LJ: p0=4e, p1=s^2, p2=24e)
 FAMILY_PARAMS = {
@@ -580,7 +664,10 @@ if __name__ == "__main__":
     import sys
     dest = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
         "examples", "surkov_cluster")
-    if os.path.basename(os.path.normpath(dest)) == "liquid_argon":
+    name = os.path.basename(os.path.normpath(dest))
+    if name == "liquid_argon":
         write_liquid_argon_deck(dest)
+    elif name == "argon_gas":
+        write_argon_gas_deck(dest)
     else:
         write_surkov_cluster_deck(dest)

@@ -69,7 +69,17 @@ and K4's launch plans (splits, blocks, dynamic shared memory), K2's
 sub-tile pairs that the warp culls of K4 and K2 kept, as the kernels
 record them (held exactly against sparse.subtile_keep and
 allpairs.rect_subtile_keep); the bounds of K4 and K2 count the filled
-slot pairs in them (K2's over every filled slot pair beside it).  Any
+slot pairs in them (K2's over every filled slot pair beside it).
+Last, the Verlet-list engine, which has no kernel (no Pallas kernel lies
+on its path in the JAX package): examples/argon_gas (case study 1's
+40,000-atom gas) and examples/bonded_fluid (constant bonds and angles)
+1,000 steps each through the CLI with no kernel launched, no skin
+violation, every list monitor within its capacity or regrown and the
+angle outputs checked; make_multi_step over 2*Q*R bare argon_gas steps
+with its 2 full rebuilds and 2*(Q-1) refines counted; 20 steps on the
+card against 20 on the CPU from the same state (the first build's lists
+equal, in order from the sorted build); the list passes, a bare step
+and apply_angles timed with CUDA events; a 50-step profile.  Any
 failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
@@ -81,6 +91,7 @@ import argparse
 import concurrent.futures
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -97,6 +108,10 @@ POLY_DECK = os.path.join(HERE, "examples", "reactive_polymer")
 EJUMP_DECK = os.path.join(HERE, "examples", "ejump_redox")
 ARGON_DECK = os.path.join(HERE, "examples", "liquid_argon")
 SALT_DECK = os.path.join(HERE, "examples", "molten_salt")
+GAS_DECK = os.path.join(HERE, "examples", "argon_gas")
+BONDED_DECK = os.path.join(HERE, "examples", "bonded_fluid")
+GAS_STEPS = 1000         # 20 runner calls, each a full list rebuild
+BONDED_STEPS = 1000
 SLICE_STEPS = 1000       # the four decks of the earlier slices
 NEW_STEPS = 2000         # liquid_argon on K3, molten_salt
 MESH_STEPS = {"surkov_cluster": 1000, "nanoclusters": 500,
@@ -403,6 +418,227 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
         log(f"  topology equal: n_bond {int(runs[0].n_bond)}, n_jump "
             f"{int(runs[0].n_jump)}, rng words equal")
     return dpos
+
+
+def neighbor_run_checks(torch, runner, cfg0, name):
+    """The Verlet-list checks of a run: no skin violation, every monitor
+    within the capacity it ends with (a capacity that grew was regrown by
+    the runner, which warns on stderr), every atom still there."""
+    st, cfg = runner.state, runner.cfg
+    viol = int(st.nbr_viol)
+    mon = {"nbr_over": (int(st.nbr_over), cfg.n_neigh, cfg0.n_neigh),
+           "nbr2_over": (int(st.nbr2_over), cfg.n_neigh2, cfg0.n_neigh2),
+           "cell_overflow": (int(st.cell_overflow), cfg.nb_grid.cap,
+                             cfg0.nb_grid.cap)}
+    if cfg.nb_rowcap:
+        mon["nbrow_over"] = (int(st.nbrow_over), cfg.nb_rowcap,
+                             cfg0.nb_rowcap)
+    log(f"  {name}: nbr_viol {viol}; monitors (seen, capacity at the end, "
+        f"at the start): {mon}")
+    check(viol == 0, f"{name}: neighbor-skin violations")
+    for k, (seen, cap, _) in mon.items():
+        check(seen <= cap, f"{name}: {k} {seen} past its capacity {cap}")
+    n = int(st.spec_number.sum())
+    check(n == cfg.n_at and bool(torch.isfinite(st.pos).all()),
+          f"{name}: atoms lost or not finite ({n} of {cfg.n_at})")
+
+
+def neighbor_phases(torch, dev, out, cli, counters, card, profile):
+    """The Verlet-list engine (no Pallas kernel on its path, so no CUDA
+    kernel and no kernel launch either): examples/argon_gas and
+    examples/bonded_fluid through the run CLI, the two-level schedule on
+    argon_gas over 2*Q*R bare steps with its rebuilds and refines counted,
+    20 steps on the card against 20 on the CPU, the first build's lists
+    equal, the list passes and a step timed with CUDA events, and a
+    50-step profile.  Returns the numbers it measured."""
+    from aztotmd_tpu_torch.ops import angles, neighbors as nbr
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    res = {}
+
+    phase(f"neighbor engine: argon_gas ({GAS_STEPS} steps) and "
+          f"bonded_fluid ({BONDED_STEPS}) through the run CLI")
+    for nm, deck, steps in (("argon_gas", GAS_DECK, GAS_STEPS),
+                            ("bonded_fluid", BONDED_DECK, BONDED_STEPS)):
+        cfg0 = load_deck_dir(deck, device="cpu")["cfg"]
+        check(cfg0.pair_engine == "neighbor", f"{nm} is not on the neighbor "
+              "engine")
+        log(f"  {nm}: N={cfg0.n_at} R={cfg0.nb_rebuild} Q={cfg0.nb_outer} "
+            f"K={cfg0.n_neigh} K2={cfg0.n_neigh2} rowcap={cfg0.nb_rowcap} "
+            f"nb_grid {cfg0.nb_grid.dims} cap {cfg0.nb_grid.cap}, sorted "
+            f"build {nbr.sorted_build_ok(cfg0)}")
+        step_mod.nbr_counts.update(rebuild=0, refine=0)
+        runner, launches, rate = drive(cli, counters, nm, deck,
+                                       os.path.join(out, nm), steps)
+        check(all(v == 0 for v in launches.values()),
+              f"{nm}: a CUDA kernel ran on the neighbor path")
+        log(f"  list rebuilds {step_mod.nbr_counts['rebuild']}, refines "
+            f"{step_mod.nbr_counts['refine']} (every runner call, one each "
+            f"RDF block of {runner.p_rdf} steps, starts with a full "
+            "rebuild)")
+        neighbor_run_checks(torch, runner, cfg0, nm)
+        res[nm + "_steps_per_s"] = rate
+        res[nm + "_rebuilds"] = step_mod.nbr_counts["rebuild"]
+        if nm == "bonded_fluid":
+            rows = read_table(os.path.join(out, nm, "stat.dat"), 2)
+            check(all(r[8] != 0.0 for r in rows), "engAngle is zero")
+            with open(os.path.join(deck, "angles.txt")) as f:
+                n_in = int(f.readline())
+            with open(os.path.join(out, nm, "revangles.txt")) as f:
+                lines = f.read().splitlines()
+            check(int(lines[0]) == n_in and len(lines) == n_in + 1,
+                  "revangles.txt does not list the deck's angles")
+            log(f"  engAngle {rows[0][8]:.4f} .. {rows[-1][8]:.4f} eV; "
+                f"revangles.txt lists {n_in} angles, as angles.txt")
+    log(f"neighbor engine steps/s on {card}: argon_gas "
+        f"{res['argon_gas_steps_per_s']:.1f}, bonded_fluid "
+        f"{res['bonded_fluid_steps_per_s']:.1f}")
+
+    d = load_deck_dir(GAS_DECK, device=dev)
+    cfg, ff, aux = d["cfg"], d["ff"], d["aux"]
+    Q, R = cfg.nb_outer, cfg.nb_rebuild
+    n2 = 2 * Q * R
+    phase(f"two-level schedule on argon_gas: make_multi_step over 2*Q*R = "
+          f"{n2} bare steps")
+    multi = step_mod.make_multi_step(cfg, aux)
+    step_mod.nbr_counts.update(rebuild=0, refine=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = multi(d["state"], ff, n2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = dict(step_mod.nbr_counts)
+    log(f"  {n2} steps in {wall:.2f} s ({n2 / wall:.1f} steps/s on {card}); "
+        f"full rebuilds {got['rebuild']}, refines {got['refine']} "
+        f"(expected 2 and {2 * (Q - 1)})")
+    check(got == {"rebuild": 2, "refine": 2 * (Q - 1)},
+          "the two-level schedule ran another count of rebuilds/refines")
+    viol = int(st.nbr_viol)
+    log(f"  nbr_viol {viol}, nbr_over {int(st.nbr_over)} of {cfg.n_neigh}, "
+        f"nbr2_over {int(st.nbr2_over)} of {cfg.n_neigh2}, nbrow_over "
+        f"{int(st.nbrow_over)} of {cfg.nb_rowcap}, cell occupancy "
+        f"{int(st.cell_overflow)} of {cfg.nb_grid.cap}")
+    check(viol == 0 and int(st.nbr_over) <= cfg.n_neigh
+          and int(st.nbr2_over) <= cfg.n_neigh2
+          and int(st.nbrow_over) <= cfg.nb_rowcap
+          and int(st.cell_overflow) <= cfg.nb_grid.cap,
+          "a monitor of the two-level run is past its capacity")
+    check(bool(torch.isfinite(st.pos).all()), "two-level run not finite")
+    res["two_level_steps_per_s"] = n2 / wall
+
+    phase("neighbor engine: 20 steps on the card vs 20 on the CPU from the "
+          f"same state (positions within {TRAJ_POS_ATOL} A; the first "
+          "build's lists equal as sets per row, and in order from the "
+          "sorted build)")
+    for nm, deck, dtype in (("argon_gas", GAS_DECK, "f64"),
+                            ("bonded_fluid", BONDED_DECK, "f32"),
+                            ("argon_gas", GAS_DECK, "f32")):
+        sides = []
+        for where in (dev, torch.device("cpu")):
+            dd = load_deck_dir(deck, device=where, dtype=dtype)
+            first = step_mod.rebuild_neighbors_state(dd["cfg"], dd["state"])
+            s = step_mod.make_multi_step(dd["cfg"], dd["aux"])(
+                dd["state"], dd["ff"], 20)
+            sides.append((first, s))
+        c = dd["cfg"]
+        (fa, sa), (fb, sb) = sides
+        for key in ("nbr_idx", "nbr2_idx"):
+            a, b = getattr(fa, key).cpu(), getattr(fb, key)
+            sa_ = [set(r[r < c.n_at].tolist()) for r in a]
+            sb_ = [set(r[r < c.n_at].tolist()) for r in b]
+            diff = sum(x != y for x, y in zip(sa_, sb_))
+            order = int((a != b).any(1).sum())
+            log(f"  {nm} {dtype} first build {key}: {diff} rows differ as "
+                f"sets, {order} in order (of {c.n_at}; "
+                f"{int((a < c.n_at).any(1).sum())} rows with a neighbor)")
+            check(diff == 0, f"{nm}: the card's {key} differs as sets")
+            if nbr.sorted_build_ok(c):
+                check(order == 0, f"{nm}: the card's {key} differs in order")
+        dpos = float((sa.pos.cpu() - sb.pos).abs().max())
+        far = float(sb.pos.abs().max())
+        ulp = float(torch.finfo(sb.pos.dtype).eps) * 2.0 ** int(
+            math.log2(max(c.box)))
+        log(f"  {nm} {dtype}: max|dpos| {dpos:.3e} A after 20 steps "
+            f"(limit {TRAJ_POS_ATOL}; one {dtype} ulp at the box edge "
+            f"{max(c.box):.1f} A is {ulp:.2e} A, coordinates up to "
+            f"{far:.1f} A); nbr_viol {int(sa.nbr_viol)} vs {int(sb.nbr_viol)}")
+        if dtype == "f32" and nm == "argon_gas":
+            # positions to 1,141 A: a rounding that lands one f32 ulp
+            # apart (1.2e-4 A past 1,024 A) is the format's resolution
+            check(dpos <= max(TRAJ_POS_ATOL, 2 * ulp),
+                  f"{nm} f32: card and CPU trajectories diverge")
+        else:
+            check(dpos <= TRAJ_POS_ATOL,
+                  f"{nm} {dtype}: card and CPU trajectories diverge")
+
+    phase("neighbor engine timing (CUDA events, medians) on argon_gas and "
+          "bonded_fluid")
+    st = step_mod.rebuild_neighbors_state(cfg, d["state"])
+    ocfg = dataclasses.replace(cfg, n_neigh=cfg.n_neigh2,
+                               nb_skin=cfg.nb_skin2)
+
+    def outer_build():
+        i2, k2, _, _ = nbr.build_neighbors_keys(ocfg, st.pos)
+        return nbr.prefix_refine(i2, k2, cfg.r_max + cfg.nb_skin,
+                                 cfg.n_neigh, cfg.n_at)
+
+    step1 = step_mod.make_step(cfg, aux, nbr_auto_rebuild=False)
+    fns = {"outer build (build_neighbors_keys + prefix_refine)": outer_build,
+           "full rebuild (rebuild_neighbors_state)":
+               lambda: step_mod.rebuild_neighbors_state(cfg, st),
+           "refine_neighbors_rows": lambda: nbr.refine_neighbors_rows(
+               cfg, st.pos, st.nbr2_idx, cfg.nb_rowcap),
+           "inner refine (refine_neighbors_state)":
+               lambda: step_mod.refine_neighbors_state(cfg, st),
+           "pair_forces_rows": lambda: nbr.pair_forces_rows(
+               cfg, ff, st.pos, st.types, st.nbrow_idx),
+           "pair_forces_neighbors (dense walk)":
+               lambda: nbr.pair_forces_neighbors(cfg, ff, st.pos, st.types,
+                                                 st.nbr_idx),
+           "bare step": lambda: step1(st, ff)}
+    counts0 = dict(step_mod.nbr_counts)
+    ms = dict(zip(fns, timed(torch, list(fns.values()), n=10)))
+    step_mod.nbr_counts.update(counts0)
+    n_rows = int((st.nbrow_idx[:, 0] < cfg.n_at).sum())
+    for k, v in ms.items():
+        log(f"  argon_gas {k}: {v:.4f} ms on {card}")
+    log(f"  argon_gas lists: {n_rows} occupied rows of rowcap "
+        f"{cfg.nb_rowcap}, outer entries "
+        f"{int((st.nbr2_idx < cfg.n_at).sum())} in (N, K2) = "
+        f"({cfg.n_at}, {cfg.n_neigh2}), inner entries "
+        f"{int((st.nbr_idx < cfg.n_at).sum())}")
+    rb, rf = ms["full rebuild (rebuild_neighbors_state)"], \
+        ms["inner refine (refine_neighbors_state)"]
+    sched = (rb + (Q - 1) * rf) / (Q * R)
+    cli_cost = rb / 50.0
+    log(f"  list cost a step: the CLI's full rebuild every 50 steps (each "
+        f"RDF block) {cli_cost:.4f} ms/step; the two-level schedule (one "
+        f"rebuild and {Q - 1} refines per {Q * R} steps) {sched:.4f} "
+        f"ms/step; a bare step {ms['bare step']:.4f} ms")
+    res.update({k: v for k, v in ms.items()})
+    res["cli_rebuild_ms_per_step"] = cli_cost
+    res["schedule_list_ms_per_step"] = sched
+
+    db = load_deck_dir(BONDED_DECK, device=dev)
+    sb = step_mod.rebuild_neighbors_state(db["cfg"], db["state"])
+    am = timed(torch, [lambda: angles.apply_angles(db["cfg"], db["ff"], sb),
+                       lambda: step_mod.make_step(
+                           db["cfg"], db["aux"], nbr_auto_rebuild=False)(
+                               sb, db["ff"])], n=10)
+    log(f"  bonded_fluid apply_angles ({int(sb.n_angle)} angles): "
+        f"{am[0]:.4f} ms; bare step {am[1]:.4f} ms on {card}")
+    res["apply_angles_ms"], res["bonded_fluid_step_ms"] = am
+
+    phase("neighbor engine profile: argon_gas, 50 bare steps (the call's "
+          "full rebuild first, as each CLI call)")
+    by = profile(GAS_DECK)
+    if by is not None:
+        n_k = sum(c for name, (_, c) in by.items()
+                  if not name.startswith(("Memcpy", "Memset")))
+        log(f"  argon_gas: {n_k / PROFILE_STEPS:.1f} device kernels a step "
+            "(torch ops; none of the port's CUDA kernels)")
+        res["kernels_a_step"] = n_k / PROFILE_STEPS
+    return res
 
 
 def mesh_system(load_deck_dir, deck, n_dev, dev):
@@ -1290,6 +1526,9 @@ def run(dev, out):
 
     phase("NCCL DistRing")
     log(dist_phase(out))
+
+    nbr_res = neighbor_phases(torch, dev, out, cli, counters, card, profile)
+    log("neighbor engine numbers: " + json.dumps(nbr_res))
 
     def prof_ms(deck, kernel):
         """Profiler device ms a launch of the kernel instantiation whose

@@ -188,13 +188,21 @@ def test_prng_words_bit_exact(seed):
 
 
 def test_other_engines_raise_naming_roadmap_item(lj_deck):
-    """The argon deck takes the Verlet-list engine: the port builds and
-    compares its config but refuses to step it."""
+    """The argon deck takes the Verlet-list engine, whose step the port
+    builds; an engine the port does not run ("gather") raises naming the
+    ROADMAP, and so does a bonded deck on a slab mesh."""
+    from aztotmd_tpu_torch.parallel.slab import check_ported
     from aztotmd_tpu_torch.runtime.step import make_step
     d = load_deck_dir(lj_deck, dtype="f32")
     assert d["cfg"].pair_engine == "neighbor"
-    with pytest.raises(NotImplementedError, match="neighbor engine"):
-        make_step(d["cfg"], d["aux"])
+    assert callable(make_step(d["cfg"], d["aux"]))
+    gather = dataclasses.replace(d["cfg"], pair_engine="gather")
+    with pytest.raises(NotImplementedError, match="ROADMAP.*gather"):
+        make_step(gather, d["aux"])
+    bonded = load_deck_dir(os.path.join(ROOT, "examples", "bonded_fluid"))
+    assert callable(make_step(bonded["cfg"], bonded["aux"]))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        check_ported(bonded["cfg"])
     # the block engine and Ewald decks build their steps
     for name in ("molten_salt", "liquid_argon"):
         d = load_deck_dir(os.path.join(ROOT, "examples", name))

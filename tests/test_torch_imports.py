@@ -159,12 +159,25 @@ def test_copied_bond_and_jump_writers_write_equal_bytes(tmp_path):
         assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext
 
 
+def test_copied_angle_writer_writes_equal_bytes(tmp_path):
+    """revangles.txt through both packages' writers from the same angle
+    table."""
+    rng = np.random.default_rng(7)
+    cols = [rng.integers(0, 500, 40) for _ in range(3)]
+    at = rng.integers(1, 4, 40).astype(np.int32)
+    for w, tag in ((p_writers, "p"), (j_writers, "j")):
+        w.write_anglelist(str(tmp_path / f"{tag}.ang"), *cols, at)
+    a = (tmp_path / "p.ang").read_bytes()
+    assert a and a == (tmp_path / "j.ang").read_bytes()
+
+
 _SYNCS = (".item(", ".tolist(", ".cpu(", ".numpy(", "bincount", "nonzero",
           "torch.unique", "masked_select", "repeat_interleave")
 
 
 @pytest.mark.parametrize("rel", ["ops/bonds.py", "ops/ejump.py",
-                                 "ops/jrandom.py", "runtime/step.py"])
+                                 "ops/jrandom.py", "runtime/step.py",
+                                 "ops/neighbors.py", "ops/angles.py"])
 def test_reactive_step_code_has_no_host_sync(rel):
     """The reactive stages run inside the step, which must not wait for
     the device: none of the calls that copy to the host or size an output
