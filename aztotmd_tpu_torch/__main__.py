@@ -7,7 +7,11 @@ the kernels' plain versions.  ``--mesh N`` runs the slab-decomposed step
 over N slabs on the one device; with ``--dist``, under ``torchrun
 --nproc-per-node N``, one slab per process (NCCL on the GPUs, gloo with
 ``--cpu``), where rank 0 writes to ``-o`` and rank r to ``<out>/rank<r>``.
-``bench`` times steps of a deck.
+``--debug`` checks the state's invariants after every chunk,
+``--timings`` prints per-stage wall-clock timings and ``--profile
+LOG_DIR`` also writes a torch.profiler trace there.  On the card each
+step is a replay of a captured CUDA graph (``runtime/graph.py``).
+``bench`` times steps of a deck, eager and as graph replays.
 """
 
 from __future__ import annotations
@@ -61,6 +65,15 @@ def main(argv=None):
     r.add_argument("--no-bond-equil-hack", action="store_true",
                    help="disable the reference's reactive-bond "
                         "velocity-zeroing equilibration hack")
+    r.add_argument("--debug", action="store_true",
+                   help="check state invariants after every chunk "
+                        "(the reference's DEBUG_MODE verify kernels)")
+    r.add_argument("--profile", default=None, metavar="LOG_DIR",
+                   help="capture a torch.profiler trace into LOG_DIR and "
+                        "print per-stage timings")
+    r.add_argument("--timings", action="store_true",
+                   help="print per-stage wall-clock timings without the "
+                        "profiler trace")
     r.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="run the slab-decomposed step over N x-slabs")
     r.add_argument("--mesh-mode", choices=("slab", "atoms"),
@@ -102,8 +115,15 @@ def main(argv=None):
                           checkpoint_every=args.checkpoint_every,
                           append=args.resume is not None,
                           mesh_devices=args.mesh, mesh_mode=args.mesh_mode,
-                          comm=comm)
-        runner.run(args.steps)
+                          comm=comm,
+                          profile=args.profile is not None or args.timings,
+                          debug=args.debug)
+        if args.profile:
+            from .utils import trace
+            with trace(args.profile):
+                runner.run(args.steps)
+        else:
+            runner.run(args.steps)
         runner.finalize()
         return runner
 
@@ -113,31 +133,42 @@ def main(argv=None):
     import torch
 
     from .runtime.setup import load_deck_dir
-    from .runtime.step import make_step, torch_engine_reason
+    from .runtime.step import MultiStep, make_step, torch_engine_reason
     sysd = load_deck_dir(args.deck, dtype=args.dtype, device=device)
-    step = make_step(sysd["cfg"], sysd["aux"])
-    state, ff = sysd["state"], sysd["ff"]
+    ff = sysd["ff"]
+    cuda = device.type == "cuda"
+    name = torch.cuda.get_device_name(device) if cuda else "cpu"
 
     def sync():
-        if device.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(device)
 
-    for _ in range(args.warmup):
-        state = step(state, ff)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(args.steps):
-        state = step(state, ff)
-    sync()
-    secs = time.perf_counter() - t0
-    res = {"steps_per_sec": args.steps / secs, "n_at": sysd["cfg"].n_at,
-           "device": (torch.cuda.get_device_name(device)
-                      if device.type == "cuda" else "cpu")}
-    if device.type == "cuda":
-        # why the pair pass is torch ops and no kernel, or null
-        res["torch_engine"] = torch_engine_reason(sysd["cfg"],
-                                                  sysd["state"].pos.dtype)
-    print(json.dumps(res))
+    res = None
+    # one line eager, one line as CUDA-graph replays of the same step
+    for graph in (False, True):
+        line = {"graph": graph, "n_at": sysd["cfg"].n_at, "device": name}
+        if graph and not cuda:
+            line.update(steps_per_sec=None,
+                        note="CUDA graphs need the card")
+            print(json.dumps(line))
+            continue
+        multi = MultiStep({"step": make_step(sysd["cfg"], sysd["aux"])},
+                          graph)
+        state = multi(sysd["state"], ff, args.warmup)
+        sync()
+        t0 = time.perf_counter()
+        multi(state, ff, args.steps)
+        sync()
+        line["steps_per_sec"] = args.steps / (time.perf_counter() - t0)
+        if cuda:
+            # why the pair pass is torch ops and no kernel, or null
+            line["torch_engine"] = torch_engine_reason(
+                sysd["cfg"], sysd["state"].pos.dtype)
+        print(json.dumps(line))
+        if res is None:
+            res = line
+        else:
+            res["graph_steps_per_sec"] = line["steps_per_sec"]
     return res
 
 

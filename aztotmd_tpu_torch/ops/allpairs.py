@@ -44,6 +44,7 @@ from __future__ import annotations
 import ctypes
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..io.control import (ELEC_DIRECT, ELEC_EWALD, ELEC_FENNEL,
@@ -52,6 +53,7 @@ from ..io.field import (VDW_746, VDW_BHM, VDW_BUCK, VDW_EINV,
                         VDW_ELIN, VDW_LJ, VDW_SURK)
 
 from . import cuda_build
+from .consts import const
 from .pairs import (MX_FRC, PairResult, jump_roles, keyed_row_min,
                     pair_result)
 
@@ -320,8 +322,8 @@ def pair_forces_allpairs_plain(cfg, ff, pos, types, radii=None,
     use_radii = bool(cfg.use_radii and radii is not None)
     use_par = bool(want_bind and parents is not None)
     tabs = plain_tables(cfg, ff, dt)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
-    ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
+    ibox = const([1.0 / b for b in cfg.box], dt, dev)
     if rows is None:
         rows = max(1, (1 << 22) // max(N, 1))
     gj = torch.arange(N, device=dev)
@@ -392,8 +394,8 @@ def kernel_tables(cfg, ff, device, want_bind=False):
     prm[:, 6] = ff.vdw_r2cut.reshape(-1).to(torch.float32)
     if want_bind:
         prm[:, 7] = bind_table(ff, torch.float32)
-    kinds = torch.tensor([k for row in cfg.vdw_kind_table for k in row],
-                         dtype=torch.int32, device=device)
+    kinds = const([k for row in cfg.vdw_kind_table for k in row],
+                  torch.int32, device)
     return prm, kinds
 
 
@@ -408,7 +410,7 @@ def kernel_consts(cfg) -> list:
 
 def f32(v) -> float:
     """``v`` rounded to f32."""
-    return float(torch.tensor(v, dtype=torch.float32))
+    return float(np.float32(v))
 
 
 @dataclass
@@ -594,8 +596,8 @@ def pair_forces_allpairs_rect_plain(cfg, ff, pos_i, types_i, valid_i,
     Nj = pos_j.shape[1]
     use_radii = bool(cfg.use_radii and radii_i is not None)
     tabs = plain_tables(cfg, ff, dt)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
-    ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
+    ibox = const([1.0 / b for b in cfg.box], dt, dev)
     if rows is None:
         rows = max(1, (1 << 22) // max(Nj, 1))
     gj = torch.arange(Nj, device=dev)[None, :]
@@ -709,7 +711,7 @@ def cull_keep(cfg, ci, hi, cj, hj):
     it.  The gap bounds every pair's distance from below, so a pair in
     range never lies in a pair of boxes this drops."""
     dt, dev = ci.dtype, ci.device
-    t = lambda v: torch.tensor(v, dtype=dt, device=dev)
+    t = lambda v: const(v, dt, dev)
     gap2 = None
     for k in range(3):
         b, ib = t(f32(cfg.box[k])), t(f32(1.0 / cfg.box[k]))

@@ -32,8 +32,12 @@ def _set_drop(a, idx, val):
     """``a.at[idx].set(val, mode="drop")`` for idx in [0, len(a)]."""
     n = a.shape[0]
     buf = torch.cat([a, a[:1]])
-    val = torch.as_tensor(val, dtype=a.dtype, device=a.device)
-    buf.index_put_((idx.long(),), val.expand(idx.shape))
+    if torch.is_tensor(val):
+        val = val.to(a.dtype).expand(idx.shape)
+    else:
+        # a fill, not a copy of host data
+        val = torch.full(idx.shape, val, dtype=a.dtype, device=a.device)
+    buf.index_put_((idx.long(),), val)
     return buf[:n]
 
 

@@ -13,14 +13,16 @@ from __future__ import annotations
 
 import torch
 
+from .consts import const
+
 
 def cell_coords(cfg, pos):
     """Integer cell coordinates per atom (periodic wrap for robustness
     against slightly out-of-box positions)."""
     g = cfg.grid
-    dims = torch.tensor(g.dims, dtype=torch.int32, device=pos.device)
-    scale = torch.tensor([g.dims[k] / cfg.box[k] for k in range(3)],
-                         dtype=pos.dtype, device=pos.device)
+    dims = const(g.dims, torch.int32, pos.device)
+    scale = const([g.dims[k] / cfg.box[k] for k in range(3)], pos.dtype,
+                  pos.device)
     return torch.floor(pos * scale).to(torch.int32) % dims
 
 
@@ -63,13 +65,13 @@ def build_cell_table(cfg, pos):
 
 def stencil_offsets(cfg, device=None):
     """(S, 3) int32 neighbor-cell offsets."""
-    return torch.tensor(cfg.grid.stencil, dtype=torch.int32, device=device)
+    return const(cfg.grid.stencil, torch.int32, device)
 
 
 def stencil_cell_ids(cfg, coords):
     """Flat cell ids of every stencil cell per atom: (N, S) int32."""
     g = cfg.grid
-    dims = torch.tensor(g.dims, dtype=torch.int32, device=coords.device)
+    dims = const(g.dims, torch.int32, coords.device)
     offs = stencil_offsets(cfg, coords.device)
     return cell_ids(cfg, (coords[:, None, :] + offs[None, :, :]) % dims)
 
@@ -99,6 +101,6 @@ def build_pos_table(cfg, pos):
     order, slot, max_occ = _bin_slots(cfg, pos)
     rows = torch.cat([pos[order], order[:, None].to(pos.dtype)], dim=1)
     ptab = torch.zeros((size + 1, 4), dtype=pos.dtype, device=pos.device)
-    ptab[:, 3] = float(N)
+    ptab[:, 3].fill_(float(N))
     ptab[slot.long()] = rows
     return ptab[:size], max_occ

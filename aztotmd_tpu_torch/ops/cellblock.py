@@ -46,6 +46,7 @@ import torch
 
 from ..io.control import ELEC_NONE
 from . import cuda_build
+from .consts import const
 from .allpairs import (check_tensor, kernel_consts, kernel_tables,
                        pair_terms, plain_tables)
 from .elec import coul_eval
@@ -83,10 +84,9 @@ def bin_atoms(cfg, pos, extra=()):
     dt = pos.dtype
     dev = pos.device
 
-    dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
+    dims = const(grid.dims, torch.int32, dev)
     # the scale is divided on the host in f64 and then rounded, as JAX does
-    scale = torch.tensor([grid.dims[k] / cfg.box[k] for k in range(3)],
-                         dtype=dt, device=dev)
+    scale = const([grid.dims[k] / cfg.box[k] for k in range(3)], dt, dev)
     c = torch.floor(pos * scale).to(torch.int32) % dims
     cid = (c[:, 0] * grid.dims[1] + c[:, 1]) * grid.dims[2] + c[:, 2]
 
@@ -175,7 +175,7 @@ def pair_forces_block(cfg, ff, pos, types, radii=None, parents=None,
     radi = v(B["radii"]) if "radii" in B else None
     pari = v(B["parents"]) if "parents" in B else None
 
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     zero = torch.zeros((n_cell, cap), dtype=dt, device=dev)
     fx, fy, fz = zero, zero, zero
     eng_vdw = torch.zeros((), dtype=dt, device=dev)

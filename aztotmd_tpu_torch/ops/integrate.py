@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from .consts import const
+
 
 def verlet1(cfg, ff, state):
     """First half-kick, drift, periodic wrap (with per-species crossing
@@ -23,7 +25,7 @@ def verlet1(cfg, ff, state):
     pos = torch.where(frozen, state.pos, state.pos + vel * cfg.dt)
 
     # periodic wrap: whole-box crossings, then the pos >= box guard
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     n = torch.floor(pos / box)
     pos = pos - n * box
     pos = torch.where(pos >= box, torch.zeros_like(pos), pos)
@@ -45,7 +47,7 @@ def verlet1(cfg, ff, state):
     # external electric field: E = -grad U; eng = q (r . dU/dr)
     charge = ff.spec_charge[types]
     if any(v != 0.0 for v in cfg.ext_field):
-        ext = torch.tensor(cfg.ext_field, dtype=dt, device=dev)
+        ext = const(cfg.ext_field, dt, dev)
         eng_field = torch.sum(charge * (pos @ ext))
         frc = (-charge[:, None] * ext).expand_as(pos).clone()
     else:
@@ -82,8 +84,8 @@ def pressure_update(cfg, state):
     n_mom = cfg.n_mom
     step = state.step.long()
     la, lb, lc = cfg.box
-    rev_area = torch.tensor([1.0 / (lb * lc), 1.0 / (la * lc),
-                             1.0 / (la * lb)], dtype=dt_, device=dev)
+    rev_area = const([1.0 / (lb * lc), 1.0 / (la * lc), 1.0 / (la * lb)],
+                     dt_, dev)
     k = 2.0 * 1.58e6 / (cfg.dt * (n_mom - 1))
 
     w = step >= n_mom - 1                        # steady regime?

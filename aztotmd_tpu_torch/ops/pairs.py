@@ -20,6 +20,7 @@ import torch
 from ..io.control import ELEC_NONE
 
 from . import cell_list as cl
+from .consts import const
 from .elec import coul_eval
 from .vdw import vdw_eval
 
@@ -45,7 +46,7 @@ def no_candidates(n: int, dtype, device):
 
 
 def min_image(delta, cfg):
-    box = torch.as_tensor(cfg.box, dtype=delta.dtype, device=delta.device)
+    box = const(cfg.box, delta.dtype, delta.device)
     return delta - box * torch.round(delta / box)
 
 

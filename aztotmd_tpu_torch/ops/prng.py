@@ -34,14 +34,22 @@ def _mix32(x):
     return x ^ (x >> 16)
 
 
+def _word(v, device):
+    """An int64 scalar tensor of ``v``: a Python int becomes a fill on
+    ``device`` (no copy of host data, which a graph capture refuses)."""
+    if torch.is_tensor(v):
+        return v.to(torch.int64)
+    return torch.full((), int(v), dtype=torch.int64, device=device)
+
+
 def counter_bits2(seed, step, gid):
     """Two decorrelated 32-bit words per element of ``gid``.
 
     seed, step: int64 scalars (tensors or ints); gid: (n,) integer tensor.
     Returns two int64 tensors with values in [0, 2**32).
     """
-    seed = torch.as_tensor(seed, dtype=torch.int64) & MASK32
-    step = torch.as_tensor(step, dtype=torch.int64) & MASK32
+    seed = _word(seed, gid.device) & MASK32
+    step = _word(step, gid.device) & MASK32
     s = _mix32(seed ^ _mul32(step, GOLD))
     h = _mix32((_mul32(gid.to(torch.int64) & MASK32, _C2) + s) & MASK32)
     w0 = _mix32(h ^ GOLD)

@@ -2,7 +2,7 @@
 branches of ``aztotmd_tpu/ops/rdf.py``).
 
 Each unordered in-range pair adds 2*V/(N_i*N_j) to bin floor(r/dRDF) of
-its species pair; the histogram is integer counts (``torch.bincount``)
+its species pair; the histogram is integer counts (``torch.histc`` over unit bins)
 scaled by a per-pair weight table.  The pair ids are built in the JAX
 package's order (i < j by index, r^2 summed x, y, z), so the counts are
 the same.  Small or dense systems take the all-pairs branch; larger ones
@@ -22,6 +22,7 @@ import torch
 from .. import units
 
 from . import cell_list as cl
+from .consts import const
 from ..core.config import (CellGrid, _max_neigh_count, _round_up,
                            make_cell_grid)
 
@@ -97,9 +98,16 @@ def zero_hist(rcfg: RdfConfig, dtype=torch.float32, device=None):
 
 
 def _hist_counts(flat, n_slot: int, dtype):
-    """Counts of the ids in [0, n_slot); ids equal to n_slot are dropped."""
-    c = torch.bincount(flat.reshape(-1).to(torch.int64),
-                       minlength=n_slot + 1)
+    """Counts of the ids in [0, n_slot); ids equal to n_slot are dropped.
+    ``torch.histc`` over n_slot + 1 unit bins, in f64 so that every id
+    lands in its own bin and every count is exact: the counts of
+    ``torch.bincount``, which on the card reads the largest id back to
+    the host first (a sync that a CUDA-graph capture refuses).  An
+    integer scatter-add gives them too, but its atomics contend on the
+    few bins: with it the CLI ran examples/surkov_cluster (a sample every
+    10 steps) at half the rate (``PERF.md`` section 6)."""
+    ids = flat.reshape(-1).to(torch.float64)
+    c = torch.histc(ids, bins=n_slot + 1, min=0, max=n_slot + 1)
     return c[:n_slot].to(dtype)
 
 
@@ -122,7 +130,7 @@ def rdf_counts_allpairs(cfg, rcfg: RdfConfig, pos, types):
     dev = pos.device
     # true division by a box tensor, as jnp does (a CUDA tensor divided by
     # a Python scalar is multiplied by its reciprocal instead)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     r2 = torch.zeros((N, N), dtype=dt, device=dev)
     for k in range(3):
         d = pos[:, k, None] - pos[None, :, k]
@@ -145,7 +153,7 @@ def rdf_counts_cells(cfg, rcfg: RdfConfig, pos, types):
     coords = cl.cell_coords(gcfg, pos)
     table, _ = cl.build_cell_table(gcfg, pos)
     cand = cl.gather_candidates(gcfg, table, coords).long()     # (N, M)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=dt, device=dev)])
     d = pos[:, None, :] - pos_p[cand]
     d = d - box * torch.round(d / box)
@@ -167,7 +175,7 @@ def rdf_counts_rows(cfg, rcfg: RdfConfig, row_pos, row_gid, row_types,
     dt = pos_g.dtype
     dev = pos_g.device
     N = pos_g.shape[0]
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     r2 = torch.zeros((row_pos.shape[0], N), dtype=dt, device=dev)
     for k in range(3):
         d = row_pos[:, k, None] - pos_g[None, :, k]
@@ -192,7 +200,7 @@ def rdf_counts_rows_cells(cfg, rcfg: RdfConfig, row_pos, row_gid, row_types,
     table, _ = cl.build_cell_table(gcfg, pos_g)
     cand = cl.gather_candidates(gcfg, table, cl.cell_coords(gcfg, row_pos)
                                 ).long()                        # (R, M)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     pos_p = torch.cat([pos_g, torch.zeros((1, 3), dtype=dt, device=dev)])
     d = row_pos[:, None, :] - pos_p[cand]
     d = d - box * torch.round(d / box)
@@ -225,7 +233,7 @@ def _apply_weights(cfg, rcfg: RdfConfig, counts, spec_number, spec_nuclei,
     into the species (and nuclei) histograms."""
     dt = counts.dtype
     dev = counts.device
-    iu, ju = (torch.as_tensor(a, dtype=torch.int64, device=dev)
+    iu, ju = (const(a.tolist(), torch.int64, dev)
               for a in np.triu_indices(rcfg.n_spec))
     # (2V) / (Ni*Nj) as a true division: a Python scalar over a tensor
     # would be computed as reciprocal-times-scalar, one rounding off

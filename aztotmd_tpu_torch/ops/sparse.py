@@ -47,6 +47,7 @@ import torch
 
 from ..core.config import _morton_dims, _part1by2, _round_up
 from . import cuda_build
+from .consts import const
 from .allpairs import (_CAND_C, BLOCKS_PER_SM, CULL_SUB, CandArgs,
                        cand_args, check_tensor, cull_keep, kernel_consts,
                        kernel_tables, pair_terms, plain_candidates,
@@ -303,8 +304,8 @@ def pair_forces_sparse_plain(cfg, ff, pos, types, radii=None, parents=None,
     T, n_t = S.T, S.n_t
     use_radii = bool(cfg.use_radii and radii is not None)
     tabs = plain_tables(cfg, ff, dt)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
-    ibox = torch.tensor([1.0 / b for b in cfg.box], dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
+    ibox = const([1.0 / b for b in cfg.box], dt, dev)
     cols = [a.reshape(n_t, T) for a in (S.x, S.y, S.z, S.gid, S.types,
                                         S.radii)]
     if use_par:

@@ -61,7 +61,9 @@ def _angled_vector(v, cos_phi, theta):
     it, with a branch-free orthonormal basis."""
     v1 = v * torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-30)
     ax = torch.argmin(torch.abs(v1), dim=-1)
-    e = torch.nn.functional.one_hot(ax, 3).to(v.dtype)
+    # one_hot by comparison: F.one_hot on the CPU reads the ids' range
+    # back to the host
+    e = (ax[..., None] == torch.arange(3, device=ax.device)).to(v.dtype)
     v2 = torch.linalg.cross(v1, e, dim=-1)
     v2 = v2 * torch.rsqrt(torch.sum(v2 * v2, dim=-1, keepdim=True) + 1e-30)
     v3 = torch.linalg.cross(v1, v2, dim=-1)

@@ -47,6 +47,7 @@ from ..core.state import Energies
 from ..io.control import ELEC_EWALD, ELEC_NONE, TSTAT_NOSE, TSTAT_RADI
 from ..ops import integrate as integ
 from ..ops import thermostat as tstat
+from ..ops.consts import const
 from ..ops.allpairs import pair_forces_allpairs_rect
 from ..ops.elec import coul_eval, ewald_recip
 from ..ops.pairs import MX_FRC
@@ -197,8 +198,7 @@ def _cell_x(cfg, pos, ncx):
     positions' dtype, as in the JAX package.  make_slab_state, _migrate
     and _pair_pass must agree on it, or a boundary atom lands on a slab
     whose pair pass does not own it."""
-    scale = torch.tensor(ncx / cfg.box[0], dtype=pos.dtype,
-                         device=pos.device)
+    scale = const(ncx / cfg.box[0], pos.dtype, pos.device)
     return torch.floor(pos[..., 0] * scale).to(torch.int32) % ncx
 
 
@@ -420,9 +420,8 @@ def _pair_pass(cfg, ff, comm, sd, valid):
     sidx = comm.slab_index()
     x0 = (sidx * nloc)[:, None]
 
-    scale = torch.tensor([grid.dims[k] / cfg.box[k] for k in range(3)],
-                         dtype=dt, device=dev)
-    dims = torch.tensor(grid.dims, dtype=torch.int32, device=dev)
+    scale = const([grid.dims[k] / cfg.box[k] for k in range(3)], dt, dev)
+    dims = const(grid.dims, torch.int32, dev)
     c = torch.floor(pos * scale).to(torch.int32) % dims
     in_slab = valid & (c[..., 0] >= x0) & (c[..., 0] < x0 + nloc)
     n_cell_loc = nloc * ncy * ncz
@@ -458,7 +457,7 @@ def _pair_pass(cfg, ff, comm, sd, valid):
     br = blk(sd["radii"]) if use_radii else None
 
     # --- boundary x-planes of the neighbour slabs ---
-    box_x = torch.tensor(cfg.box[0], dtype=dt, device=dev)
+    box_x = const(cfg.box[0], dt, dev)
     first_slab = (sidx == 0).reshape(L, 1, 1, 1, 1)
     last_slab = (sidx == n_dev - 1).reshape(L, 1, 1, 1, 1)
 
@@ -484,7 +483,7 @@ def _pair_pass(cfg, ff, comm, sd, valid):
     fz = torch.zeros_like(xi)
     e_vdw = torch.zeros(L, dtype=dt, device=dev)
     e_coul = torch.zeros(L, dtype=dt, device=dev)
-    box = torch.tensor(cfg.box, dtype=dt, device=dev)
+    box = const(cfg.box, dt, dev)
     eye = torch.eye(cap, dtype=torch.bool, device=dev)[None, :, :, None]
 
     for off in grid.stencil:
@@ -722,16 +721,22 @@ def make_slab_step(cfg, aux, comm):
     return step
 
 
-def make_slab_multi_step(cfg, aux, comm):
-    """multi(st, ff, n) -> the slab state after n steps."""
-    step = make_slab_step(cfg, aux, comm)
-
-    def multi(st, ff, n: int):
-        for _ in range(n):
-            st = step(st, ff)
-        return st
-
-    return multi
+def make_slab_multi_step(cfg, aux, comm, graph: bool | None = None):
+    """multi(st, ff, n) -> the slab state after n steps
+    (``runtime.step.MultiStep``).  Over a ``LocalRing`` (every slab on one
+    device) ``graph`` is as there: on the card each step is a replay of a
+    captured CUDA graph of the slab step.  ``DistRing`` (one slab per
+    rank, collectives over torch.distributed) runs eagerly: ``graph=None``
+    takes the eager path there and ``graph=True`` raises."""
+    from ..runtime.step import MultiStep
+    from .comm import LocalRing
+    if not isinstance(comm, LocalRing):
+        if graph:
+            raise NotImplementedError(
+                "a CUDA graph of the slab step over DistRing (collectives "
+                "across processes) is not ported (ROADMAP.md, queue 1)")
+        graph = False
+    return MultiStep({"step": make_slab_step(cfg, aux, comm)}, graph)
 
 
 # ----------------------------------------------------------------------

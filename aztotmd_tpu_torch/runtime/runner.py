@@ -14,7 +14,13 @@ worklist length or the fullest cell's occupancy; on the Verlet-list
 engine the skin violations, the inner and outer neighbor counts, the
 occupied rows and the list grid's occupancy) and regrows the capacity
 (``_check_overflow``).  Each call of the multi-step starts with a full
-list rebuild, as each call of the JAX runner's host chunk loop does.
+list rebuild, as each call of the JAX runner's host chunk loop does;
+where the JAX runner's stat ring would take its two-level cadence
+(``refine_blocks``), each stat period starts with one full rebuild and
+each RDF block with an inner refine instead.  On the card the steps, the
+list passes and the RDF sample are replays of CUDA graphs
+(``runtime/graph.py``); every regrow rebuilds the programs, which
+recapture.
 
 Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
 step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
@@ -25,8 +31,9 @@ Checkpoints are single-device MDStates, which either package resumes on
 one device or on any mesh.  At each stat row the slab monitors regrow the
 cell capacity, or raise the slot capacity 1.5x and redistribute after a
 migration deleted atoms or kept deferring (``_check_slab_health``).  The
-JAX package's on-device stat ring (on one device and on the mesh), its
-atom-sharded mesh mode, debug and profile paths are not ported.
+JAX package's on-device stat ring (on one device and on the mesh; its
+list cadence is ported, its RDF neighbor list is not) and its
+atom-sharded mesh mode are not ported.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ from ..output import writers as W
 
 from ..core.config import _round_up
 from ..ops import rdf as ops_rdf
+from ..utils.profiling import StageTimer
 from .checkpoint import save_checkpoint
+from .graph import GraphedSample
 from .step import make_multi_step, torch_engine_reason
 
 _ENG_KEYS = ("tot", "kin", "vdw", "coul1", "coul2", "bond", "angle", "temp")
@@ -61,13 +70,28 @@ def _gcd_all(values):
 
 
 class MDRunner:
-    """Drive a loaded system to completion and write its output files."""
+    """Drive a loaded system to completion and write its output files.
+
+    ``graph`` is ``make_multi_step``'s: None captures CUDA graphs of the
+    step (and the neighbor engine's rebuild and refine, and the RDF
+    sample) on the card and runs eagerly on the CPU; False runs eagerly.
+    ``profile`` times the stages (``run --timings``); ``debug`` checks
+    the state's invariants after every chunk on one device (``run
+    --debug``).  Where the JAX stat ring's predicate holds, the neighbor
+    engine takes its two-level list cadence (one full rebuild per stat
+    period, an inner refine per RDF block); elsewhere every RDF block
+    restarts the schedule, as JAX's host chunk loop does."""
 
     def __init__(self, sysd: dict, out_dir: str = ".", quiet: bool = False,
                  checkpoint_every: int = 0, append: bool = False,
                  mesh_devices: int = 0, mesh_mode: str = "slab",
-                 comm=None):
+                 comm=None, graph: bool | None = None,
+                 profile: bool = False, debug: bool = False):
         self.cfg = cfg = sysd["cfg"]
+        self.graph = graph
+        self.profile = profile
+        self.debug = debug
+        self.timer = StageTimer()
         self.comm = None
         if mesh_devices or comm is not None:
             from ..parallel import comm as _comm
@@ -168,6 +192,12 @@ class MDRunner:
                                                 device=self.device)
             self._nucl_number = torch.as_tensor(
                 nucl_number.astype(np.int32), device=self.device)
+        # the host-visible periods of the JAX runner's stat ring
+        # (runner.py:193-196): the two-level cadence needs each to be a
+        # multiple of the stat period
+        self._host_periods = [p for p in (
+            self.p_traj, self.p_revcon, self.p_bindtraj, self.p_hist,
+            self.p_vaf, checkpoint_every, self.p_rdf_out) if p]
 
         self._view_cache = None
         if self.comm is not None:
@@ -194,18 +224,40 @@ class MDRunner:
         self._t0 = time.time()
 
     def _build_programs(self):
-        """(Re)build the step loop and the mesh's RDF sample from the
-        current cfg: at init and after a capacity regrow."""
+        """(Re)build the step loop and the RDF sample from the current
+        cfg: at init and after a capacity regrow.  On the card both are
+        captured as CUDA graphs at their first call (``self.graph``, as
+        ``make_multi_step``'s ``graph``), so a rebuild recaptures."""
+        cfg, rcfg = self.cfg, self.rcfg
+        # the JAX stat ring's two-level cadence (runner.py:193-200,
+        # 336-372): one full rebuild per stat period and an inner refine
+        # at the start of each RDF block
+        self.refine_blocks = bool(
+            self.comm is None and rcfg is not None and self.p_rdf
+            and self.p_stat > 0
+            and all(p % self.p_stat == 0 for p in self._host_periods)
+            and self.p_stat % self.p_rdf == 0
+            and cfg.pair_engine == "neighbor" and cfg.nb_outer > 1
+            and self.p_rdf <= cfg.nb_rebuild
+            and self.p_stat <= cfg.nb_outer * cfg.nb_rebuild)
         if self.comm is None:
-            self.multi = make_multi_step(self.cfg, self.aux)
+            self.multi = make_multi_step(cfg, self.aux, graph=self.graph)
+            if rcfg is not None:
+                self._rdf = GraphedSample(
+                    lambda st, h, nh: ops_rdf.rdf_sample(
+                        cfg, rcfg, st.pos, st.types, st.spec_number,
+                        self._spec_nuclei, self._nucl_number, h, nh),
+                    "RDF sample", self.graph)
             return
         from ..parallel import slab as _slab
-        self.multi = _slab.make_slab_multi_step(self.cfg, self.aux,
-                                                self.comm)
-        if self.rcfg is not None:
-            self._slab_rdf = _slab.make_slab_rdf_sample(
-                self.cfg, self.rcfg, self.comm, self._spec_nuclei,
-                self._nucl_number)
+        self.multi = _slab.make_slab_multi_step(cfg, self.aux, self.comm,
+                                                graph=self.graph)
+        if rcfg is not None:
+            self._rdf = GraphedSample(
+                _slab.make_slab_rdf_sample(cfg, rcfg, self.comm,
+                                           self._spec_nuclei,
+                                           self._nucl_number),
+                "mesh RDF sample", self.multi.graph)
 
     def _note_route(self):
         """One line on stderr when a run on the card will take the torch
@@ -241,27 +293,62 @@ class MDRunner:
         except KeyboardInterrupt:
             print(f"interrupted at step {int(self.state.step)}; writing "
                   "final outputs", file=sys.stderr)
+        self._sync()
+        wall = time.perf_counter() - t_loop
+        self.loop_seconds += wall
+        self.steps_run += int(self.state.step) - done
+        if self.profile:
+            n = max(total - done, 1)
+            print(f"loop wall: {wall:.1f} s for {n} steps "
+                  f"({n / wall:.1f} steps/s)", file=sys.stderr)
+            print(self.timer.report(), file=sys.stderr)
+        return self.state
+
+    def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        self.loop_seconds += time.perf_counter() - t_loop
-        self.steps_run += int(self.state.step) - done
-        return self.state
 
     def _run_loop(self, total, done):
         while done < total:
             n = min(self.chunk, total - done)
-            self._advance(n)
-            done += n
-            self._sample(done)
+            if self.profile:
+                # per-stage wall clock: wait for the card at each stage's
+                # end (only when profiling)
+                with self.timer.stage("steps", lambda: self.state.pos):
+                    self._advance(n, done)
+                done += n
+                with self.timer.stage("sampling"):
+                    self._sample(done)
+            else:
+                self._advance(n, done)
+                done += n
+                self._sample(done)
             if self.rcfg is not None and self.rdf_in_chunk \
                     and self.rdf_count > 500:
-                self.hist, self.nhist = ops_rdf.zero_hist(
-                    self.rcfg, device=self.device)
-                self.rdf_count = 0
+                self._zero_hist()
+            if self.debug and self.comm is None:
+                from .debug import assert_state_ok
+                assert_state_ok(self.cfg, self.state)
 
-    def _advance(self, n: int):
+    def _zero_hist(self):
+        """Restart the RDF window, in place (the captured sample keeps its
+        buffers)."""
+        self.hist.zero_()
+        if self.nhist is not None:
+            self.nhist.zero_()
+        self.rdf_count = 0
+
+    def _advance(self, n: int, done: int):
         if self.rcfg is not None and self.rdf_in_chunk:
             n_blocks, rem = divmod(n, self.p_rdf)
+            if self.refine_blocks and n % self.p_stat == 0 \
+                    and done % self.p_stat == 0:
+                for _ in range(n // self.p_stat):
+                    self.state = self.multi.refine_blocks(
+                        self.state, self.ff, self.p_stat // self.p_rdf,
+                        self.p_rdf, after_block=self._rdf_sample)
+                self.rdf_count += n_blocks
+                return
             for _ in range(n_blocks):
                 self.state = self.multi(self.state, self.ff, self.p_rdf)
                 self._rdf_sample()
@@ -271,14 +358,11 @@ class MDRunner:
         else:
             self.state = self.multi(self.state, self.ff, n)
 
-    def _rdf_sample(self):
-        st = self.state
-        if self.comm is not None:
-            self.hist, self.nhist = self._slab_rdf(st, self.hist, self.nhist)
-            return
-        self.hist, self.nhist = ops_rdf.rdf_sample(
-            self.cfg, self.rcfg, st.pos, st.types, st.spec_number,
-            self._spec_nuclei, self._nucl_number, self.hist, self.nhist)
+    def _rdf_sample(self, st=None):
+        """One RDF sample of ``st`` (default: the run's state) into the
+        histograms."""
+        self.hist, self.nhist = self._rdf(
+            self.state if st is None else st, self.hist, self.nhist)
 
     # ------------------------------------------------------------------
     def _sample(self, step: int):
@@ -486,9 +570,7 @@ class MDRunner:
         # overfill reset after any intermediate write at this step
         if self.rcfg is not None and not self.rdf_in_chunk \
                 and self.rdf_count > 500:
-            self.hist, self.nhist = ops_rdf.zero_hist(self.rcfg,
-                                                      device=self.device)
-            self.rdf_count = 0
+            self._zero_hist()
 
         if self.w_traj and step >= self.ctl.st_traj \
                 and step % self.p_traj == 0:
@@ -532,12 +614,15 @@ class MDRunner:
             if not (final and self._rdf_last is not None):
                 return
             hist, nhist, count = self._rdf_last
-        hist = hist.cpu().numpy() if torch.is_tensor(hist) else hist
+        # copies: a CPU tensor's numpy() shares its memory, and the live
+        # histograms are zeroed in place
+        hist = hist.cpu().numpy().copy() if torch.is_tensor(hist) else hist
         gr = ops_rdf.normalize_rdf(self.rcfg, hist, count)
         W.write_rdf_file(path, self.rcfg, gr,
                          [s.name for s in self.fld.species])
         if self.rcfg.nuclei:
-            nhist = nhist.cpu().numpy() if torch.is_tensor(nhist) else nhist
+            nhist = (nhist.cpu().numpy().copy() if torch.is_tensor(nhist)
+                     else nhist)
             ngr = ops_rdf.normalize_rdf(self.rcfg, nhist, count, nuclei=True)
             W.write_rdf_file(path.replace("rdf", "rdf_n", 1), self.rcfg,
                              ngr, list(self.fld.nnames))

@@ -13,6 +13,8 @@ No stage synchronises with the host.  On the neighbor engine the
 multi-step rebuilds the list on JAX's schedule: a full rebuild at the
 start of every call, and with the two-level list inner refines every
 ``nb_rebuild`` steps in superblocks of ``nb_outer * nb_rebuild`` steps.
+On the card the multi-step replays CUDA graphs of the step, the rebuild
+and the refine (``MultiStep``, ``runtime/graph.py``).
 """
 
 from __future__ import annotations
@@ -32,8 +34,10 @@ from ..ops import neighbors as ops_nbr
 from ..ops import thermostat as tstat
 from ..ops.allpairs import pair_forces_pallas, pallas_branch
 from ..ops.cellblock import pair_forces_block
+from ..ops.consts import const
 from ..ops.elec import ewald_recip
 from ..ops.sparse import pair_forces_sparse
+from .graph import StateGraphs, use_graph
 
 # the pair pass of each ported cell or dense engine ("neighbor" walks
 # its list inside the step)
@@ -128,7 +132,7 @@ def _neighbor_pairs(cfg, ff, state, want_bind, want_jump, auto_rebuild):
     scanned mode counts every stale step and walks the compacted rows
     when ``nb_rowcap`` is set.  Returns (state, PairResult)."""
     pos = state.pos
-    box = torch.tensor(cfg.box, dtype=pos.dtype, device=pos.device)
+    box = const(cfg.box, pos.dtype, pos.device)
     disp = pos - state.nbr_ref
     disp = disp - box * torch.round(disp / box)
     max_disp = torch.sqrt(torch.max(torch.sum(disp * disp, dim=-1)))
@@ -329,59 +333,114 @@ def _jumps(cfg, ff, state, jump_idx):
     return state
 
 
-def make_multi_step(cfg, aux: StepAux | None = None, pair_fn=None):
-    """multi(state, ff, n) -> state after n steps (a Python loop; no host
-    synchronisation inside).  On the neighbor engine the list is rebuilt
-    on the JAX package's schedule: every call starts with a full rebuild;
-    with the two-level list (``nb_outer`` Q > 1) superblocks of Q*R steps
-    each start with one and refine every R = ``nb_rebuild`` steps after
-    it, otherwise every block of R steps starts with one."""
-    if cfg.pair_engine != "neighbor":
-        step = make_step(cfg, aux, pair_fn=pair_fn)
+class MultiStep:
+    """multi(state, ff, n) -> the state after n steps, from named programs
+    ``fns`` (``fn(state, ff) -> state``): "step", and on the neighbor
+    engine "rebuild" and, with the two-level list, "refine", run on the
+    JAX package's list schedule (``make_multi_step``).
 
-        def multi(state, ff, n: int):
-            for _ in range(n):
-                state = step(state, ff)
-            return state
+    ``graph`` (the counterpart of JAX's ``jit=``): None captures the
+    programs as CUDA graphs when the state is on a CUDA device and runs
+    them eagerly on the CPU; False runs eagerly (the path checks and
+    measurements compare against); True requires a CUDA state.  With the
+    graph on, a call returns the static state of ``self.graphs``
+    (``runtime/graph.py``), and the next call advances that very object
+    in place: a caller that keeps a state clones it
+    (``graph.clone_state``).  A state that is not the static one is
+    copied into the static buffers, or recaptured when its layout
+    differs; another force-field object recaptures too.  No host
+    synchronisation inside either way."""
 
-        return multi
+    def __init__(self, fns: dict, graph: bool | None = None, R: int = 1,
+                 Q: int = 1):
+        self.fns = dict(fns)
+        self.graph = graph
+        self.R, self.Q = R, Q
+        self.graphs = StateGraphs(self.fns)
 
-    step = make_step(cfg, aux, nbr_auto_rebuild=False)
-    R = max(int(cfg.nb_rebuild), 1)
-    Q = max(int(cfg.nb_outer), 1)
+    def _start(self, state, ff):
+        """(run(name, m), current state) on the graph or the eager path."""
+        if use_graph(self.graph, state.pos.device):
+            self.graphs.load(state, ff)
+            return self.graphs.run, lambda: self.graphs.state
+        box = [state]
 
-    def run(s, ff, m):
-        for _ in range(m):
-            s = step(s, ff)
-        return s
+        def run(name, m=1):
+            fn = self.fns[name]
+            for _ in range(m):
+                box[0] = fn(box[0], ff)
+        return run, lambda: box[0]
 
-    def block(s, ff, m, full):
-        s = rebuild_neighbors_state(cfg, s) if full \
-            else refine_neighbors_state(cfg, s)
-        return run(s, ff, m)
+    def __call__(self, state, ff, n: int):
+        run, current = self._start(state, ff)
+        self.schedule(run, n)
+        return current()
 
-    def superblock(s, ff, m):
-        s = run(rebuild_neighbors_state(cfg, s), ff, min(R, m))
-        m_in, rem_in = divmod(max(m - R, 0), R)
-        for _ in range(m_in):
-            s = block(s, ff, R, False)
-        if rem_in:
-            s = block(s, ff, rem_in, False)
-        return s
+    def schedule(self, run, n: int):
+        """n steps as calls ``run(name, m)`` (program ``name`` m times):
+        the list schedule of the JAX package's multi-step."""
+        if "rebuild" not in self.fns:
+            run("step", n)
+            return
+        R, Q = self.R, self.Q
 
-    def multi(state, ff, n: int):
+        def block(m, full):
+            run("rebuild" if full else "refine")
+            run("step", m)
+
+        def superblock(m):
+            block(min(R, m), True)
+            m_in, rem_in = divmod(max(m - R, 0), R)
+            for _ in range(m_in):
+                block(R, False)
+            if rem_in:
+                block(rem_in, False)
+
         if Q > 1:
             n_sup, rem = divmod(n, Q * R)
             for _ in range(n_sup):
-                state = superblock(state, ff, Q * R)
+                superblock(Q * R)
             if rem:
-                state = superblock(state, ff, rem)
-            return state
+                superblock(rem)
+            return
         n_out, rem = divmod(n, R)
         for _ in range(n_out):
-            state = block(state, ff, R, True)
+            block(R, True)
         if rem:
-            state = block(state, ff, rem, True)
-        return state
+            block(rem, True)
 
-    return multi
+    def refine_blocks(self, state, ff, n_blocks: int, m: int,
+                      after_block=None):
+        """The two-level cadence of the JAX package's stat ring
+        (``refine_blocks``, ``aztotmd_tpu/runtime/runner.py:336-372,
+        527-545``): one full rebuild, then ``n_blocks`` blocks of an inner
+        refine and ``m`` steps, with ``after_block(state)`` (the RDF
+        sample) after each."""
+        run, current = self._start(state, ff)
+        run("rebuild")
+        for _ in range(n_blocks):
+            run("refine")
+            run("step", m)
+            if after_block is not None:
+                after_block(current())
+        return current()
+
+
+def make_multi_step(cfg, aux: StepAux | None = None, pair_fn=None,
+                    graph: bool | None = None) -> MultiStep:
+    """multi(state, ff, n) -> state after n steps (``MultiStep``; ``graph``
+    as there).  On the neighbor engine the list is rebuilt on the JAX
+    package's schedule: every call starts with a full rebuild; with the
+    two-level list (``nb_outer`` Q > 1) superblocks of Q*R steps each
+    start with one and refine every R = ``nb_rebuild`` steps after it,
+    otherwise every block of R steps starts with one."""
+    if cfg.pair_engine != "neighbor":
+        return MultiStep({"step": make_step(cfg, aux, pair_fn=pair_fn)},
+                         graph)
+    R = max(int(cfg.nb_rebuild), 1)
+    Q = max(int(cfg.nb_outer), 1)
+    fns = {"step": make_step(cfg, aux, nbr_auto_rebuild=False),
+           "rebuild": lambda s, ff: rebuild_neighbors_state(cfg, s)}
+    if Q > 1:
+        fns["refine"] = lambda s, ff: refine_neighbors_state(cfg, s)
+    return MultiStep(fns, graph, R, Q)

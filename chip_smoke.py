@@ -79,7 +79,20 @@ angle outputs checked; make_multi_step over 2*Q*R bare argon_gas steps
 with its 2 full rebuilds and 2*(Q-1) refines counted; 20 steps on the
 card against 20 on the CPU from the same state (the first build's lists
 equal, in order from the sorted build); the list passes, a bare step
-and apply_angles timed with CUDA events; a 50-step profile.  Any
+and apply_angles timed with CUDA events; a 50-step profile.
+Every run and every multi-step on the card goes through CUDA graphs
+(``aztotmd_tpu_torch/runtime/graph.py``): the launch counts add each
+replay's launches, so "every pair pass a launch" holds unchanged.  Each
+deck (the eight examples, liquid_argon on K3 and on the torch block
+engine, surkov_cluster over 2 slabs, nanoclusters over 4) runs 1 + 100
+steps eager and 1 + 100 replayed from the same state: integer fields
+exactly equal, positions within 1e-6 A, with the graph's nodes, its
+capture time and both rates; the step profiles run replayed and eager
+(the device idle share of each); argon_gas through the CLI takes the
+JAX stat ring's two-level cadence (5 rebuilds and 20 refines in 1,000
+steps); bonded_fluid's regrow (K 24 -> 32) recaptures and its graph run
+matches an eager run; run --debug --timings, run --profile and bench
+run on surkov_cluster.  The kernel-vs-plain trajectories run eager.  Any
 failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
@@ -110,7 +123,7 @@ ARGON_DECK = os.path.join(HERE, "examples", "liquid_argon")
 SALT_DECK = os.path.join(HERE, "examples", "molten_salt")
 GAS_DECK = os.path.join(HERE, "examples", "argon_gas")
 BONDED_DECK = os.path.join(HERE, "examples", "bonded_fluid")
-GAS_STEPS = 1000         # 20 runner calls, each a full list rebuild
+GAS_STEPS = 1000         # 5 stat periods: 5 full rebuilds, 20 refines
 BONDED_STEPS = 1000
 SLICE_STEPS = 1000       # the four decks of the earlier slices
 NEW_STEPS = 2000         # liquid_argon on K3, molten_salt
@@ -123,6 +136,8 @@ MESH_VEL_ATOL = 1e-4     # x max|v|
 TILED_STEPS = 200        # the 3x3x3 tiled reactive decks (K4-cand), and
                          # liquid_argon on the torch cell-block engine
 PROFILE_STEPS = 50
+GRAPH_STEPS = 100        # graph replays against eager steps, per deck
+GRAPH_POS_ATOL = 1e-6    # A: the same kernels in the same order
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
 ENERGY_REL = 1e-4
 TRAJ_POS_ATOL = 1e-4     # A after 20 steps, f32
@@ -328,8 +343,10 @@ def read_table(path, skip):
 def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
     """One path through the run CLI (``--mesh mesh`` when set; or
     ``runner_fn(out)``, which runs and returns an MDRunner) with every
-    launch count set to 0 just before it; returns (runner, launches per
-    kernel, steps/s)."""
+    launch count set to 0 just before it, and the counts held against
+    the launches torch.profiler records over a window of the same runner
+    (``launch_window``); returns (runner, launches per kernel, steps/s)."""
+    import torch
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
@@ -386,6 +403,7 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
               f"{name} jumps.dat shows no jumps")
         log(f"  jumps.dat: n_jump {int(jmp[-1][2])} (pos {int(jmp[-1][3])},"
             f" neg {int(jmp[-1][4])})")
+    launch_window(torch, runner, counters, name, rate)
     return runner, launches, rate
 
 
@@ -396,7 +414,7 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
     runs = []
     for fn in (None, plain_fn):
         d = load_deck_dir(deck, device=dev, **load_kw)
-        s = make_multi_step(d["cfg"], d["aux"], pair_fn=fn)(
+        s = make_multi_step(d["cfg"], d["aux"], pair_fn=fn, graph=False)(
             d["state"], d["ff"], 20)
         torch.cuda.synchronize()
         runs.append(s)
@@ -452,7 +470,9 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
     equal, the list passes and a step timed with CUDA events, and a
     50-step profile.  Returns the numbers it measured."""
     from aztotmd_tpu_torch.ops import angles, neighbors as nbr
+    from aztotmd_tpu_torch.runtime import graph as graph_mod
     from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
     res = {}
 
@@ -468,14 +488,28 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
             f"nb_grid {cfg0.nb_grid.dims} cap {cfg0.nb_grid.cap}, sorted "
             f"build {nbr.sorted_build_ok(cfg0)}")
         step_mod.nbr_counts.update(rebuild=0, refine=0)
+        graph_mod.capture_counts.update(state=0, sample=0)
         runner, launches, rate = drive(cli, counters, nm, deck,
                                        os.path.join(out, nm), steps)
         check(all(v == 0 for v in launches.values()),
               f"{nm}: a CUDA kernel ran on the neighbor path")
-        log(f"  list rebuilds {step_mod.nbr_counts['rebuild']}, refines "
-            f"{step_mod.nbr_counts['refine']} (every runner call, one each "
-            f"RDF block of {runner.p_rdf} steps, starts with a full "
-            "rebuild)")
+        got = dict(step_mod.nbr_counts)
+        caps = dict(graph_mod.capture_counts)
+        if runner.refine_blocks:
+            want = {"rebuild": steps // runner.p_stat,
+                    "refine": steps // runner.p_rdf}
+            log(f"  list rebuilds {got['rebuild']}, refines "
+                f"{got['refine']}: the JAX stat ring's two-level cadence, "
+                f"one full rebuild per stat period of {runner.p_stat} steps "
+                f"and one refine per RDF block of {runner.p_rdf} (expected "
+                f"{want['rebuild']} and {want['refine']})")
+            check(got == want, f"{nm}: the CLI ran another cadence")
+        else:
+            log(f"  list rebuilds {got['rebuild']}, refines "
+                f"{got['refine']} (no ring cadence on this deck: each RDF "
+                f"block of {runner.p_rdf} steps restarts the schedule)")
+        log(f"  CUDA-graph captures: {caps['state']} of the step programs, "
+            f"{caps['sample']} of the RDF sample")
         neighbor_run_checks(torch, runner, cfg0, nm)
         res[nm + "_steps_per_s"] = rate
         res[nm + "_rebuilds"] = step_mod.nbr_counts["rebuild"]
@@ -490,6 +524,34 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
                   "revangles.txt does not list the deck's angles")
             log(f"  engAngle {rows[0][8]:.4f} .. {rows[-1][8]:.4f} eV; "
                 f"revangles.txt lists {n_in} angles, as angles.txt")
+            # the regrow rebuilds the programs: the graphs recapture
+            check(runner.cfg.n_neigh != cfg0.n_neigh and caps["state"] >= 2,
+                  "bonded_fluid: no regrow, or no recapture after it")
+            log(f"  regrow K {cfg0.n_neigh} -> {runner.cfg.n_neigh}: the "
+                f"step programs were captured {caps['state']} times (the "
+                "first call, and again after the regrow)")
+            eo = os.path.join(out, nm + "_eager")
+            er = MDRunner(load_deck_dir(deck, device=dev), out_dir=eo,
+                          quiet=True, graph=False)
+            er.run(steps)
+            er.finalize()
+            from aztotmd_tpu_torch.runtime.graph import state_leaves
+            ga, ea = dict(state_leaves(runner.state)), dict(
+                state_leaves(er.state))
+            differ = [k for k in ea if not ea[k].is_floating_point()
+                      and not torch.equal(ga[k], ea[k])]
+            dpos = float((ga["pos"] - ea["pos"]).abs().max())
+            erows = read_table(os.path.join(eo, "stat.dat"), 2)
+            drow = max(abs(a - b) for ra, rb in zip(rows, erows)
+                       for a, b in zip(ra, rb))
+            log(f"  bonded_fluid graph run against an eager run "
+                f"(graph=False), {steps} steps: regrown K equal "
+                f"({er.cfg.n_neigh}), integer fields "
+                f"{'equal' if not differ else differ}, max|dpos| {dpos:.3e}"
+                f" A, stat.dat rows within {drow:.3e}")
+            check(er.cfg.n_neigh == runner.cfg.n_neigh and not differ
+                  and dpos <= GRAPH_POS_ATOL and len(erows) == len(rows),
+                  "bonded_fluid: the graph run left the eager run")
     log(f"neighbor engine steps/s on {card}: argon_gas "
         f"{res['argon_gas_steps_per_s']:.1f}, bonded_fluid "
         f"{res['bonded_fluid_steps_per_s']:.1f}")
@@ -610,9 +672,12 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
     rb, rf = ms["full rebuild (rebuild_neighbors_state)"], \
         ms["inner refine (refine_neighbors_state)"]
     sched = (rb + (Q - 1) * rf) / (Q * R)
-    cli_cost = rb / 50.0
-    log(f"  list cost a step: the CLI's full rebuild every 50 steps (each "
-        f"RDF block) {cli_cost:.4f} ms/step; the two-level schedule (one "
+    cli_cost = (rb + 4 * rf) / 200.0
+    log(f"  list cost a step (eager pass times): the CLI's ring cadence (a "
+        f"full rebuild each 200-step stat period, a refine each 50-step "
+        f"RDF block) {cli_cost:.4f} ms/step (a rebuild every 50 steps, "
+        f"each RDF block restarting the schedule: {rb / 50.0:.4f}); the "
+        f"two-level schedule (one "
         f"rebuild and {Q - 1} refines per {Q * R} steps) {sched:.4f} "
         f"ms/step; a bare step {ms['bare step']:.4f} ms")
     res.update({k: v for k, v in ms.items()})
@@ -629,14 +694,17 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
         f"{am[0]:.4f} ms; bare step {am[1]:.4f} ms on {card}")
     res["apply_angles_ms"], res["bonded_fluid_step_ms"] = am
 
-    phase("neighbor engine profile: argon_gas, 50 bare steps (the call's "
-          "full rebuild first, as each CLI call)")
+    phase("neighbor engine profiles: argon_gas and bonded_fluid, 50 bare "
+          "steps (the call's full rebuild first), eager and replayed")
+    profile(GAS_DECK, graph=False)
     by = profile(GAS_DECK)
+    profile(BONDED_DECK, graph=False)
+    profile(BONDED_DECK)
     if by is not None:
         n_k = sum(c for name, (_, c) in by.items()
                   if not name.startswith(("Memcpy", "Memset")))
-        log(f"  argon_gas: {n_k / PROFILE_STEPS:.1f} device kernels a step "
-            "(torch ops; none of the port's CUDA kernels)")
+        log(f"  argon_gas: {n_k / PROFILE_STEPS:.1f} device kernels a "
+            "replayed step (torch ops; none of the port's CUDA kernels)")
         res["kernels_a_step"] = n_k / PROFILE_STEPS
     return res
 
@@ -663,11 +731,102 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cuLaunchKernel", "cuLaunchKernelEx")
 
 
+# device idle shares of the step profiles, by (deck tag, "graph" or
+# "eager"), and their device busy time over the wall time of the same
+# steps run without the profiler; None where not measured
+IDLE = {}
+BUSY = {}
+
+
+def profiled(torch, counters, fn):
+    """``fn()`` under torch.profiler, with every launch count set to 0
+    just before it and the card synchronised after it.  Returns (wall
+    seconds, {device event name: (seconds, events)}, the host's
+    kernel-launch calls, the launches of each of the port's kernels that
+    the counters saw, the launches of each that the profiler recorded),
+    the last two keyed as PROFILED_KERNELS."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_name, host_launches = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, c = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-6, c + 1)
+        elif e.name in RUNTIME_LAUNCHES:
+            host_launches += 1
+    ran = {fn_: sum(getattr(*counters[k]) for k in keys)
+           for fn_, keys in PROFILED_KERNELS.items()}
+    seen = {fn_: sum(c for name, (_, c) in by_name.items() if fn_ in name)
+            for fn_ in PROFILED_KERNELS}
+    return wall, by_name, host_launches, ran, seen, len(prof.events())
+
+
+def launch_window(torch, runner, counters, name, rate):
+    """The launches a run counts on the graph path are worked out: a
+    replay adds the launches its capture saw.  Hold them against the
+    launches torch.profiler records on the card over a window of the same
+    runner's loop (``_advance``: the same programs and the same RDF
+    sample): one stat period where that takes at most a quarter second at
+    the run's rate, else 10 steps; one fifth of it again where the
+    profiler kept fewer events than ran.  Fails where neither window
+    recorded exactly the launches the counters saw.  The state, the
+    histograms and every count are put back afterwards.  Returns (window
+    steps, launches counted, launches recorded) by kernel."""
+    from aztotmd_tpu_torch.runtime import graph as graph_mod
+    state = graph_mod.clone_state(runner.state)
+    hists = [h.clone() for h in (runner.hist, runner.nhist)
+             if h is not None]
+    rdf_count = runner.rdf_count
+    kept = [(h, k, h[k] if isinstance(h, dict) else getattr(h, k))
+            for h, k in graph_mod.launch_counters()]
+    caps = dict(graph_mod.capture_counts)
+    w = runner.p_stat if 0 < runner.p_stat <= rate / 4 else 10
+    try:
+        for steps in (w, max(2, w // 5)):
+            done = int(runner.state.step)
+            _, _, _, ran, seen, _ = profiled(
+                torch, counters, lambda: runner._advance(steps, done))
+            short = {fn: (seen[fn], ran[fn]) for fn in ran
+                     if seen[fn] != ran[fn]}
+            log(f"  {name}: launches over a {steps}-step window of the same "
+                "runner, counted / recorded by torch.profiler: "
+                + ", ".join(f"{fn.strip(':<(')} {ran[fn]} / {seen[fn]}"
+                            for fn in ran))
+            if not short:
+                break
+        else:
+            check(False, f"{name}: the launch counters disagree with the "
+                  "kernel launches torch.profiler recorded")
+    finally:
+        graph_mod.copy_into(runner.state, state)
+        for h, h0 in zip((x for x in (runner.hist, runner.nhist)
+                          if x is not None), hists):
+            h.copy_(h0)
+        runner.rdf_count = rdf_count
+        for h, k, v in kept:
+            if isinstance(h, dict):
+                h[k] = v
+            else:
+                setattr(h, k, v)
+        graph_mod.capture_counts.update(caps)
+    return steps, ran, seen
+
+
 def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
-                  dev, n=PROFILE_STEPS, mesh=0, **load_kw):
+                  dev, n=PROFILE_STEPS, mesh=0, graph=None, **load_kw):
     """Device busy time and the kernels that take it over ``n`` bare steps
     (no output, no RDF; over ``mesh`` slabs when set), from
-    torch.profiler.  The profiler may keep fewer device events than ran,
+    torch.profiler: replays of the captured step (``graph`` None, the
+    run's path) or eager steps (``graph=False``).  The profiler may keep fewer device events than ran,
     so the profile counts only when it recorded every launch of the
     port's kernels that their counters saw (set to 0 just before it); an
     incomplete profile is taken once more over n // 5 steps, and when
@@ -677,44 +836,34 @@ def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
     beside its sum over the steps; the host's kernel-launch calls are
     logged beside the kernel events recorded.  Returns (device seconds,
     launches) by kernel name."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     if mesh:
         from aztotmd_tpu_torch.parallel import slab
         cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, mesh, dev)
-        multi = slab.make_slab_multi_step(cfg, aux, comm)
+        multi = slab.make_slab_multi_step(cfg, aux, comm, graph=graph)
         d = {"ff": ff}
         state = multi(st, ff, 10)
     else:
         d = load_deck_dir(deck, device=dev, **load_kw)
-        multi = make_multi_step(d["cfg"], d["aux"])
+        multi = make_multi_step(d["cfg"], d["aux"], graph=graph)
         state = multi(d["state"], d["ff"], 10)
-    tag = os.path.basename(deck) + (f" over {mesh} slabs" if mesh else "")
+    mode = "eager" if graph is False else "graph"
+    tag = os.path.basename(deck) + (f" over {mesh} slabs" if mesh else "") \
+        + (f" ({load_kw['pair_engine']})" if "pair_engine" in load_kw
+           else "")
+    IDLE[(tag, mode)] = BUSY[(tag, mode)] = None
+    tag = f"{tag}, {mode}"
     for steps in (n, max(2, n // 5)):
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        # the same steps without the profiler, which slows each launch
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            multi(state, d["ff"], steps)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        by_name, host_launches = {}, 0
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                t, c = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (t + e.time_range.elapsed_us() * 1e-6,
-                                   c + 1)
-            elif e.name in RUNTIME_LAUNCHES:
-                host_launches += 1
-        ran = {fn: sum(getattr(*counters[k]) for k in keys)
-               for fn, keys in PROFILED_KERNELS.items()}
-        seen = {fn: sum(c for name, (_, c) in by_name.items() if fn in name)
-                for fn in PROFILED_KERNELS}
+        t0 = time.perf_counter()
+        multi(state, d["ff"], steps)
+        torch.cuda.synchronize()
+        bare = time.perf_counter() - t0
+        wall, by_name, host_launches, ran, seen, events = profiled(
+            torch, counters, lambda: multi(state, d["ff"], steps))
         if seen == ran:
             break
-        log(f"profile {tag}, {steps} bare steps: incomplete, the profiler "
+        log(f"profile {tag}, {steps} steps: incomplete, the profiler "
             "recorded " + ", ".join(f"{seen[fn]} of {ran[fn]} launches of "
                                     f"{fn.strip(':<(')}" for fn in ran
                                     if seen[fn] != ran[fn]))
@@ -729,10 +878,15 @@ def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
         return None
     kernels = sum(c for name, (_, c) in by_name.items()
                   if not name.startswith(("Memcpy", "Memset")))
-    log(f"profile {tag}, {steps} bare steps: wall {wall * 1e3:.1f} ms "
+    IDLE[(tag.rsplit(", ", 1)[0], mode)] = 1.0 - busy / wall
+    BUSY[(tag.rsplit(", ", 1)[0], mode)] = busy / bare
+    log(f"profile {tag}, {steps} steps: wall {wall * 1e3:.1f} ms "
         f"({wall * 1e3 / steps:.3f} ms/step), device busy {busy * 1e3:.1f} "
-        f"ms, device idle share {1.0 - busy / wall:.3f}, "
-        f"{len(prof.events())} events (torch.profiler); every launch of "
+        f"ms, device idle share {1.0 - busy / wall:.3f}; without the "
+        f"profiler the same steps took {bare * 1e3:.1f} ms "
+        f"({bare * 1e3 / steps:.3f} ms/step): busy over that "
+        f"{busy / bare:.3f}; {events} events (torch.profiler); "
+        "every launch of "
         f"the port's kernels recorded ({sum(ran.values())}); "
         f"{kernels} kernel events against {host_launches} host launch "
         "calls")
@@ -806,6 +960,133 @@ def mesh_trajectory(torch, load_deck_dir, make_multi_step, name, deck,
           and int(st.mig_lost) == 0,
           f"{name}: mesh and one-device trajectories diverge")
     return dpos
+
+
+def graph_case(torch, name, multi, state, ff, n=GRAPH_STEPS):
+    """1 + n steps eager and 1 + n replayed from CUDA graphs (the first
+    call captures), from the same cloned state, with the programs of
+    ``multi`` (a ``MultiStep``): every integer field exactly equal, the
+    positions within GRAPH_POS_ATOL.  Logs the largest position (and
+    other float) difference, the graphs' nodes, their capture time and
+    both rates over the n timed steps; returns (eager steps/s, graph
+    steps/s, graph nodes per step)."""
+    from aztotmd_tpu_torch.runtime.graph import clone_state, state_leaves
+    from aztotmd_tpu_torch.runtime.step import MultiStep
+    runs = {}
+    for graph in (False, True):
+        m = MultiStep(multi.fns, graph, multi.R, multi.Q)
+        st = m(clone_state(state), ff, 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = m(st, ff, n)
+        torch.cuda.synchronize()
+        runs[graph] = (m, st, n / (time.perf_counter() - t0))
+    (_, se, re_), (mg, sg, rg) = runs[False], runs[True]
+    a, b = dict(state_leaves(sg)), dict(state_leaves(se))
+    ints = [k for k in b if not b[k].is_floating_point()]
+    differ = [k for k in ints if not torch.equal(a[k], b[k])]
+    dpos = float((a["pos"] - b["pos"]).abs().max())
+    dfl, kfl = max((float((a[k] - b[k]).abs().max()), k) for k in b
+                   if b[k].is_floating_point())
+    progs = mg.graphs.programs
+    nodes = {k: p.nodes for k, p in progs.items()}
+    cap = sum(p.capture_seconds for p in progs.values())
+    log(f"  {name:34s} {n + 1} steps: max|dpos| {dpos:.3e} A (limit "
+        f"{GRAPH_POS_ATOL}), largest float difference {dfl:.3e} ({kfl}); "
+        f"{len(ints)} integer fields {'equal' if not differ else differ}; "
+        f"graph nodes {nodes}; capture {cap:.2f} s; eager {re_:.1f} "
+        f"steps/s, graph {rg:.1f} steps/s ({rg / re_:.2f}x)")
+    check(not differ and dpos <= GRAPH_POS_ATOL,
+          f"{name}: graph replays and eager steps differ")
+    return re_, rg, nodes.get("step")
+
+
+def _share(v):
+    return "not measured" if v is None else f"{v:.3f}"
+
+
+def rdf_case(torch, name, runner, card):
+    """One RDF sample of the deck's first state (the runner's sample
+    function and histograms): its time eager and as a graph replay (CUDA
+    events, medians), beside the eager sample whose counts come from
+    ``torch.bincount`` (the library call, which syncs with the host and
+    cannot be captured), whose histogram it must equal bit for bit;
+    returns (eager ms, replay ms, the replay's ms a step at the deck's
+    RDF period)."""
+    from aztotmd_tpu_torch.ops import rdf as ops_rdf
+    from aztotmd_tpu_torch.runtime.graph import GraphedSample
+    fn, st = runner._rdf.fn, runner.state
+    zero = lambda h: None if h is None else torch.zeros_like(h)
+    h0, nh0 = zero(runner.hist), zero(runner.nhist)
+    got = fn(st, h0.clone(), None if nh0 is None else nh0.clone())
+    ours = ops_rdf._hist_counts
+
+    def counts_bincount(flat, n_slot, dtype):
+        c = torch.bincount(flat.reshape(-1).to(torch.int64),
+                           minlength=n_slot + 1)
+        return c[:n_slot].to(dtype)
+
+    def with_bincount():
+        ops_rdf._hist_counts = counts_bincount
+        try:
+            return fn(st, h0.clone(), None if nh0 is None else nh0.clone())
+        finally:
+            ops_rdf._hist_counts = ours
+
+    ref = with_bincount()
+    same = all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got, ref))
+    sample = GraphedSample(fn, "RDF sample")
+    h1, nh1 = h0.clone(), None if nh0 is None else nh0.clone()
+    eager, replay, lib = timed(torch, [lambda: fn(st, h0, nh0),
+                                       lambda: sample(st, h1, nh1),
+                                       with_bincount], n=10)
+    per = replay / runner.p_rdf
+    log(f"  {name:18s} N={runner.cfg.n_at:6d} {runner.rcfg.n_bin} bins x "
+        f"{runner.rcfg.n_pair}: eager {eager:.4f} ms, replayed {replay:.4f}"
+        f" ms, eager with torch.bincount {lib:.4f} ms on {card}; every "
+        f"{runner.p_rdf} steps: {per:.4f} ms a step; histogram "
+        f"{'equal to' if same else 'DIFFERS from'} bincount's")
+    check(same, f"{name}: the RDF counts differ from torch.bincount's")
+    return eager, replay, per
+
+
+def cli_flag_runs(cli, out, card):
+    """``run --debug --timings`` (200 steps) and ``run --profile LOG_DIR``
+    (50 steps; the trace goes to a temporary directory, removed after its
+    size is read) on surkov_cluster and ``bench`` (its eager and graph
+    lines): each must finish, the profile must write its trace."""
+    import contextlib
+    import io
+    log_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    for steps, flags in ((200, ["--debug", "--timings"]),
+                         (50, ["--profile", log_dir])):
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            r = cli(["run", SURKOV_DECK, "--steps", str(steps), "-o",
+                     os.path.join(out, "surkov_flags"), "--quiet"] + flags)
+        text = err.getvalue()
+        check(r.steps_run == steps and "loop wall:" in text
+              and "steps" in text.split("loop wall:")[1],
+              f"run {' '.join(flags)}: no stage report")
+        log(f"  run {' '.join(flags)}: " + "; ".join(
+            ln.strip() for ln in text.splitlines()
+            if ln.startswith(("loop wall", "steps ", "sampling "))))
+    trace = os.path.join(log_dir, "trace.json")
+    size = os.path.getsize(trace)
+    shutil.rmtree(log_dir, ignore_errors=True)
+    check(size > 0, "run --profile wrote no trace")
+    log(f"  run --profile: {size} bytes of Chrome trace")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = cli(["bench", SURKOV_DECK, "--steps", "200", "--warmup", "20"])
+    for line in buf.getvalue().splitlines():
+        log(f"  bench: {line}")
+    check(res["steps_per_sec"] > 0 and res["graph_steps_per_sec"] > 0,
+          "bench gave no rate")
+    log(f"  bench surkov_cluster on {card}: eager "
+        f"{res['steps_per_sec']:.1f}, graph {res['graph_steps_per_sec']:.1f}"
+        " steps/s")
 
 
 def dist_phase(out):
@@ -1185,8 +1466,52 @@ def run(dev, out):
         f"({'regrown' if runner.cfg.sparse_pair_cap != cap else 'no regrow'}"
         f"); worklist need at the last check "
         f"{int(runner.state.cell_overflow)}")
-    log(f"steps/s on {card}: " + ", ".join(
+    log(f"steps/s on {card} (CUDA-graph replays through run): " + ", ".join(
         f"{nm} {r[2]:.1f}" for nm, r in runs.items()))
+
+    # --- CUDA-graph replays against eager steps, every deck ---
+    phase(f"CUDA-graph replays vs eager steps: 1 + {GRAPH_STEPS} steps each "
+          "from the same state (integer fields exactly, positions within "
+          f"{GRAPH_POS_ATOL} A; rates over the {GRAPH_STEPS} timed steps)")
+    rates = {}
+    for nm, deck, kw in (("surkov_cluster", SURKOV_DECK, {}),
+                         ("nanoclusters", NANO_DECK, {}),
+                         ("reactive_polymer", POLY_DECK, {}),
+                         ("ejump_redox", EJUMP_DECK, {}),
+                         ("molten_salt", SALT_DECK, {}),
+                         ("liquid_argon (pallas, K3)", ARGON_DECK,
+                          {"pair_engine": "pallas"}),
+                         ("liquid_argon (auto, block engine)", ARGON_DECK,
+                          {}),
+                         ("argon_gas", GAS_DECK, {}),
+                         ("bonded_fluid", BONDED_DECK, {})):
+        d = load_deck_dir(deck, device=dev, **kw)
+        rates[nm] = graph_case(torch, nm, make_multi_step(d["cfg"], d["aux"]),
+                               d["state"], d["ff"])
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK)):
+        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck,
+                                             MESH_DEV[nm], dev)
+        key = f"{nm} --mesh {MESH_DEV[nm]}"
+        rates[key] = graph_case(torch, key, slab.make_slab_multi_step(
+            cfg, aux, comm), st, ff)
+    log(f"bare steps/s on {card}, eager -> graph (nodes a step): " + ", ".join(
+        f"{nm} {e:.1f} -> {g:.1f} ({n})" for nm, (e, g, n) in rates.items()))
+
+    phase("the RDF sample, one device: eager and replayed (CUDA events, "
+          "medians of 20), counts against torch.bincount's")
+    for nm, deck in (("surkov_cluster", SURKOV_DECK),
+                     ("nanoclusters", NANO_DECK),
+                     ("reactive_polymer", POLY_DECK),
+                     ("ejump_redox", EJUMP_DECK), ("molten_salt", SALT_DECK),
+                     ("liquid_argon", ARGON_DECK), ("argon_gas", GAS_DECK),
+                     ("bonded_fluid", BONDED_DECK)):
+        rdf_case(torch, nm, MDRunner(load_deck_dir(deck, device=dev),
+                                     out_dir=os.path.join(out, "rdf_" + nm),
+                                     quiet=True), card)
+
+    phase("run --debug --timings, run --profile LOG_DIR, bench")
+    cli_flag_runs(cli, out, card)
 
     # --- 20 steps with each kernel against 20 with its plain version ---
     phase("20 kernel steps vs 20 plain steps")
@@ -1216,32 +1541,49 @@ def run(dev, out):
         return profile_steps(torch, load_deck_dir, make_multi_step,
                              counters, deck, dev, **kw)
 
+    # each deck replayed from its captured step (the run's path; the
+    # kernels' profiler times) and eager (graph=False), for the idle share
     prof = {}
     for deck in (SURKOV_DECK, NANO_DECK, POLY_DECK, EJUMP_DECK, SALT_DECK):
-        # ejump_redox's five jump passes give ~18,600 profiler events a
-        # step, whose processing dominated this phase: 10 steps of it
-        prof[deck] = profile(deck, n=10 if deck == EJUMP_DECK else
-                             PROFILE_STEPS)
+        # ejump_redox's five jump passes give ~18,600 profiler events an
+        # eager step, whose processing dominated this phase: 10 eager
+        # steps of it (a replay has ~4,300 kernel events: 50 replays)
+        n = 10 if deck == EJUMP_DECK else PROFILE_STEPS
+        profile(deck, n=n, graph=False)
+        prof[deck] = profile(deck)
+    profile(ARGON_DECK, pair_engine="pallas", graph=False)
     prof[ARGON_DECK] = profile(ARGON_DECK, pair_engine="pallas")
-    profile(ARGON_DECK, n=10)                # "auto": the torch block engine
+    profile(ARGON_DECK, n=10, graph=False)   # "auto": the torch block engine
+    profile(ARGON_DECK, n=10)
     poly_x3 = tiled["reactive_polymer"]
+    profile(poly_x3, pair_engine="sparse", graph=False)
     prof[poly_x3] = profile(poly_x3, pair_engine="sparse")
     for nm, deck in (("surkov_cluster", SURKOV_DECK),
                      ("nanoclusters", NANO_DECK)):
+        profile(deck, mesh=MESH_DEV[nm], graph=False)
         prof[nm + "_mesh"] = profile(deck, mesh=MESH_DEV[nm])
 
     # --- timing at the paths' sizes: wrapper, kernel alone, plain ---
     phase("timing")
+    def replayed(name, fn):
+        """``fn`` captured as a CUDA graph: a call replays it (the
+        wrapper's device time, launch overhead gone)."""
+        from aztotmd_tpu_torch.runtime.graph import Program
+        p = Program(name, fn, fn, dev)
+        return p.replay
+
     def timing(nm, fns, args, kw, alone):
         # the plain K4-cand passes take ~0.6 s a call: fewer calls there
         n = 10 if args[0].n_at < 9000 else 4
-        ms, ms_alone, ms_plain = timed(torch, [
-            lambda: fns[0](*args, **kw), alone,
-            lambda: fns[1](*args, **kw)], n=n)
-        log(f"timing {nm} N={args[0].n_at}: wrapper {ms:.4f} ms, kernel "
-            f"alone {ms_alone:.4f} ms, plain {ms_plain:.4f} ms per call "
-            f"(medians of {2 * n}, CUDA events) on {card}")
-        return ms, ms_alone, ms_plain
+        wrapper = lambda: fns[0](*args, **kw)
+        ms, ms_alone, ms_plain, ms_rep = timed(torch, [
+            wrapper, alone, lambda: fns[1](*args, **kw),
+            replayed(nm, wrapper)], n=n)
+        log(f"timing {nm} N={args[0].n_at}: wrapper {ms:.4f} ms, wrapper "
+            f"replayed {ms_rep:.4f} ms, kernel alone {ms_alone:.4f} ms, "
+            f"plain {ms_plain:.4f} ms per call (medians of {2 * n}, CUDA "
+            f"events) on {card}")
+        return ms, ms_alone, ms_plain, ms_rep
 
     def k1_alone(args, kw):
         cfg = args[0]
@@ -1339,9 +1681,10 @@ def run(dev, out):
             cfg, *tab, args[0], args[1], args[2], kw["radii_i"], args[3],
             args[4], args[5], kw["radii_j"])
         n = 10
-        ms, ms_alone = timed(torch, [
-            lambda: allpairs.pair_forces_allpairs_rect(cfg, ff, *args, **kw),
-            alone], n=n)
+        wrapper = lambda: allpairs.pair_forces_allpairs_rect(cfg, ff, *args,
+                                                             **kw)
+        ms, ms_alone, ms_rep = timed(torch, [
+            wrapper, alone, replayed("K2 " + nm, wrapper)], n=n)
         ms_plain, = timed(torch, [
             lambda: allpairs.pair_forces_allpairs_rect_plain(cfg, ff, *args,
                                                              **kw)], n=2)
@@ -1355,11 +1698,11 @@ def run(dev, out):
             f"{-(-ni // tile)} i tiles = {n_split * L * -(-ni // tile)} "
             f"blocks of {groups} x {tile} threads")
         log(f"timing K2 {nm} over {args[0].shape[0]} slabs: wrapper "
-            f"{ms:.4f} ms, kernel alone {ms_alone:.4f} ms (medians of "
-            f"{2 * n}), plain {ms_plain:.4f} ms (median of 4), CUDA events, "
-            f"on {card}")
+            f"{ms:.4f} ms, wrapper replayed {ms_rep:.4f} ms, kernel alone "
+            f"{ms_alone:.4f} ms (medians of {2 * n}), plain {ms_plain:.4f} "
+            f"ms (median of 4), CUDA events, on {card}")
         alones["K2" if nm == "surkov_cluster" else "K2 " + nm] = alone
-        return ms, ms_alone, ms_plain
+        return ms, ms_alone, ms_plain, ms_rep
 
     times["K2"] = k2_timing("surkov_cluster")
     times["K2 nanoclusters"] = k2_timing("nanoclusters")
@@ -1529,6 +1872,16 @@ def run(dev, out):
 
     nbr_res = neighbor_phases(torch, dev, out, cli, counters, card, profile)
     log("neighbor engine numbers: " + json.dumps(nbr_res))
+    log(f"device idle share on {card}, eager -> graph (torch.profiler; "
+        "per profile above): " + ", ".join(
+            f"{tag} {_share(IDLE.get((tag, 'eager')))} -> "
+            f"{_share(IDLE.get((tag, 'graph')))}"
+            for tag in dict.fromkeys(t for t, _ in IDLE)))
+    log(f"device busy time (profiled) over the wall time of the same steps "
+        f"without the profiler, on {card}, eager -> graph: " + ", ".join(
+            f"{tag} {_share(BUSY.get((tag, 'eager')))} -> "
+            f"{_share(BUSY.get((tag, 'graph')))}"
+            for tag in dict.fromkeys(t for t, _ in BUSY)))
 
     def prof_ms(deck, kernel):
         """Profiler device ms a launch of the kernel instantiation whose
@@ -1540,10 +1893,11 @@ def run(dev, out):
         return sum(t for t, _ in by) * 1e3 / c if c else None
 
     def entry(name, source, replaces, launches, err, key, extra=None):
-        ms, alone, plain = times[key]
+        ms, alone, plain, rep = times[key]
         rec = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches,
                "max_abs_err": err, "ms": ms, "kernel_ms": alone,
+               "wrapper_replay_ms": rep,
                "plain_ms": plain, "bound_ms": bounds[key][2][0],
                "bound_by": bounds[key][2][1], "library_ms": None,
                "kernel_profiler_ms": kprof[key]}
@@ -1568,6 +1922,7 @@ def run(dev, out):
                "bound_filled_ms": filled_bounds["K2"][0],
                "nanoclusters": {
                    "ms": k2n[0], "kernel_ms": k2n[1], "plain_ms": k2n[2],
+                   "wrapper_replay_ms": k2n[3],
                    "bound_ms": bounds["K2 nanoclusters"][2][0],
                    "bound_filled_ms": filled_bounds["K2 nanoclusters"][0],
                    "kernel_profiler_ms": kprof["K2 nanoclusters"],
@@ -1581,6 +1936,7 @@ def run(dev, out):
                                       "false, false>"),
                "molten_salt": {
                    "ms": salt[0], "kernel_ms": salt[1], "plain_ms": salt[2],
+                   "wrapper_replay_ms": salt[3],
                    "bound_ms": bounds["K1 molten_salt"][2][0],
                    "kernel_profiler_ms": kprof["K1 molten_salt"],
                    "profiler_ms": prof_ms(SALT_DECK, "allpairs_kernel<false, "
@@ -1598,6 +1954,7 @@ def run(dev, out):
                                       "false, true>"),
                "ejump_redox": {
                    "ms": ej1[0], "kernel_ms": ej1[1], "plain_ms": ej1[2],
+                   "wrapper_replay_ms": ej1[3],
                    "bound_ms": bounds["K1-cand ejump_redox"][2][0],
                    "kernel_profiler_ms": kprof["K1-cand ejump_redox"],
                    "profiler_ms": prof_ms(EJUMP_DECK, "allpairs_kernel<false, "
@@ -1617,6 +1974,7 @@ def run(dev, out):
                    worklist_bounds["K4-cand reactive_polymer x3"][0],
                "ejump_redox_x3": {
                   "ms": ej4[0], "kernel_ms": ej4[1], "plain_ms": ej4[2],
+                  "wrapper_replay_ms": ej4[3],
                   "bound_ms": bounds["K4-cand ejump_redox x3"][2][0],
                   "bound_worklist_ms":
                       worklist_bounds["K4-cand ejump_redox x3"][0],

@@ -1,0 +1,233 @@
+"""The captured step (``aztotmd_tpu_torch/runtime/graph.py``) on every
+path, on the CPU: small decks built in-tree, run through the runner's own
+programs (``MDRunner.multi.fns``: the step and, on the neighbor engine,
+the full rebuild and the inner refine; the RDF sample).
+
+(a) Capture safety: a call after the first builds no tensor from host
+    data and makes no host sync.  A ``TorchDispatchMode`` records every
+    op of the second call; none may be ``aten.lift_fresh`` (a
+    ``torch.tensor`` or ``as_tensor`` of host data),
+    ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``int()``,
+    ``bool()`` of a tensor), ``aten.nonzero``, an op that reads a size
+    back from the card (``bincount``, ``masked_select``,
+    ``repeat_interleave`` of a tensor, ``unique``), or an
+    ``aten.index.Tensor`` / ``index_put`` whose index is a bool tensor.
+(b) In place equals functional: the in-place programs that the graphs
+    capture (``graph.advance_in_place``: the program, then every field
+    copied back into the static state) on the multi-step's own schedule
+    equal the functional multi-step bit for bit in every field after 20
+    steps.
+
+The ``cuda``-marked test replays the graphs against eager steps on the
+card (it skips here).
+"""
+
+import dataclasses
+import os
+
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from aztotmd_tpu_torch import systems
+from aztotmd_tpu_torch.runtime.graph import (advance_in_place, clone_state,
+                                             state_leaves)
+from aztotmd_tpu_torch.runtime.runner import MDRunner
+from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+
+torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EX = os.path.join(ROOT, "examples")
+
+# ops that take host data or wait for the card
+_HOST_OPS = ("aten.lift_fresh", "aten._local_scalar_dense", "aten.nonzero",
+             "aten.bincount", "aten.masked_select",
+             "aten.repeat_interleave.Tensor", "aten._unique",
+             "aten.unique", "aten.item")
+
+
+class _Recorder(TorchDispatchMode):
+    """Every op's name; the ops that break a capture."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = 0
+        self.bad = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = str(func)
+        self.ops += 1
+        if name.startswith(_HOST_OPS):
+            self.bad.append(name)
+        elif name.startswith(("aten.index.Tensor", "aten.index_put")):
+            idx = args[1] if len(args) > 1 else ()
+            if any(torch.is_tensor(i) and i.dtype == torch.bool
+                   for i in idx if i is not None):
+                self.bad.append(name + " with a bool index")
+        return func(*args, **(kwargs or {}))
+
+
+def _salt_deck(d, cells=4, a=5.64):
+    """examples/molten_salt's rock salt cut to cells^3 unit cells (512
+    ions), its control and field, k-vectors up to 5."""
+    os.makedirs(d)
+    src = os.path.join(EX, "molten_salt")
+    with open(os.path.join(src, "field.txt")) as f:
+        field = f.read()
+    with open(os.path.join(src, "control.txt")) as f:
+        control = f.read().replace("\t8\t8\t8", "\t5\t5\t5")
+    box = a * cells
+    rows = [f"{'Na' if (i + j + k) % 2 == 0 else 'Cl'}\t{i * a / 2:.6f}\t"
+            f"{j * a / 2:.6f}\t{k * a / 2:.6f}"
+            for i in range(2 * cells) for j in range(2 * cells)
+            for k in range(2 * cells)]
+    for name, text in (("field.txt", field), ("control.txt", control),
+                       ("atoms.xyz", f"{len(rows)}\n1 {box:.6f} {box:.6f} "
+                        f"{box:.6f}\n" + "\n".join(rows) + "\n")):
+        with open(os.path.join(d, name), "w") as f:
+            f.write(text)
+
+
+# path -> (deck writer or example, load keywords, cfg overrides, runner
+# keywords)
+PATHS = {
+    "pallas dense": (lambda d: systems.write_surkov_cluster_deck(
+        d, n_atoms=300, box=20.0, steps=100, n_equil=20), {}, {}, {}),
+    "pallas bind candidates": ("reactive_polymer", {}, {}, {}),
+    "pallas jump candidates": ("ejump_redox", {}, {}, {}),
+    "sparse": (lambda d: systems.write_nanoclusters_deck(
+        d, n_clusters=3, per=128, box=50.0, min_sep=25.0, steps=40),
+        {"pair_engine": "sparse"}, {}, {}),
+    "block": (lambda d: systems.write_liquid_argon_deck(
+        d, n_side=8, density=0.012, rcut=4.0, steps=40),
+        {"pair_engine": "block"}, {}, {}),
+    "neighbor single-level": (
+        lambda d: systems.write_argon_gas_deck(d, n_atoms=1000, steps=200),
+        {}, {"nb_outer": 1, "nb_rebuild": 6, "nb_rowcap": 0}, {}),
+    "neighbor two-level rowcap": (
+        lambda d: systems.write_argon_gas_deck(d, n_atoms=1000, steps=200),
+        {}, {"nb_outer": 3, "nb_rebuild": 5, "nb_rowcap": 128}, {}),
+    "ewald": (_salt_deck, {}, {}, {}),
+    "angles": ("bonded_fluid", {}, {}, {}),
+    "slab LocalRing 2": (lambda d: systems.write_surkov_cluster_deck(
+        d, n_atoms=300, box=24.0, steps=100, n_equil=20), {}, {},
+        {"mesh_devices": 2}),
+}
+
+
+def _runner(name, tmp_path, device="cpu"):
+    """The runner of a path (f32; eager on the CPU)."""
+    deck, load_kw, cfg_kw, run_kw = PATHS[name]
+    if callable(deck):
+        d = str(tmp_path / "deck")
+        deck(d)
+    else:
+        d = os.path.join(EX, deck)
+    sysd = load_deck_dir(d, dtype="f32", device=device, **load_kw)
+    if cfg_kw:
+        c = sysd["cfg"] = dataclasses.replace(sysd["cfg"], **cfg_kw)
+        N = c.n_at
+        full = lambda *s: torch.full(s, N, dtype=torch.int32, device=device)
+        sysd["state"] = sysd["state"].replace(
+            nbr_idx=full(N, c.n_neigh), nbr2_idx=full(N, max(c.n_neigh2, 1)),
+            nbrow_idx=full(max(c.nb_rowcap, 1),
+                           1 + (c.n_neigh if c.nb_rowcap else 1)))
+    r = MDRunner(sysd, out_dir=str(tmp_path / "out"), quiet=True, **run_kw)
+    return r
+
+
+def _check_path(name, r):
+    cfg = r.cfg
+    if name.startswith("pallas"):
+        assert cfg.pair_engine == "pallas"
+    if "bind" in name:
+        assert cfg.use_bnd == 2 and cfg.use_linkage
+    if "jump" in name:
+        assert cfg.ejtype
+    if name.startswith("neighbor"):
+        assert cfg.pair_engine == "neighbor" and ("refine" in r.multi.fns) \
+            == (cfg.nb_outer > 1)
+        assert bool(cfg.nb_rowcap) == name.endswith("rowcap")
+    if name == "ewald":
+        assert cfg.elec_type == 2
+    if name == "angles":
+        assert cfg.use_angl
+    if name.startswith("slab"):
+        assert r.comm is not None and r.comm.n_dev == 2
+    else:
+        assert cfg.pair_engine == PATHS[name][1].get("pair_engine",
+                                                     cfg.pair_engine)
+
+
+@pytest.mark.parametrize("name", list(PATHS))
+def test_second_call_takes_no_host_data_and_no_sync(name, tmp_path):
+    """(a) on every program of the path and on the RDF sample."""
+    r = _runner(name, tmp_path)
+    _check_path(name, r)
+    st, ff = r.state, r.ff
+    order = [p for p in ("rebuild", "refine", "step") if p in r.multi.fns]
+    assert r.rcfg is not None
+    calls = [(p, lambda s, p=p: r.multi.fns[p](s, ff)) for p in order]
+    calls.append(("RDF sample", lambda s: (s, r._rdf.fn(s, r.hist,
+                                                        r.nhist))))
+    for prog, fn in calls:
+        out = fn(st)
+        rec = _Recorder()
+        with rec:
+            out = fn(st)
+        assert rec.ops > 0
+        assert not rec.bad, (prog, sorted(set(rec.bad)))
+        if prog != "RDF sample":
+            st = out
+
+
+@pytest.mark.parametrize("name", list(PATHS))
+def test_in_place_program_equals_functional(name, tmp_path):
+    """(b) 20 steps of the in-place programs on the multi-step's schedule
+    against 20 functional steps, every field bit for bit."""
+    r = _runner(name, tmp_path)
+    multi, ff = r.multi, r.ff
+    want = multi(clone_state(r.state), ff, 20)
+    static = clone_state(r.state)
+
+    def run(prog, m=1):
+        for _ in range(m):
+            advance_in_place(multi.fns[prog], static, ff)
+
+    multi.schedule(run, 20)
+    got, ref = dict(state_leaves(static)), dict(state_leaves(want))
+    assert sorted(got) == sorted(ref)
+    assert int(got["step"]) == int(r.state.step) + 20
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pallas dense", "neighbor two-level rowcap",
+                                  "slab LocalRing 2"])
+def test_graph_replays_equal_eager_on_the_card(name, tmp_path):
+    """On the card: 30 steps replayed from CUDA graphs against 30 eager
+    steps from the same state, integer fields exactly equal, positions
+    within 1e-6 A; the launch counters count the replays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA graphs have no CPU mode")
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.step import MultiStep
+    r = _runner(name, tmp_path, torch.device("cuda", 0))
+    st, ff, fns = r.state, r.ff, r.multi.fns
+    eager = MultiStep(fns, False, r.multi.R, r.multi.Q)(clone_state(st), ff,
+                                                         30)
+    step_mod.nbr_counts.update(rebuild=0, refine=0)
+    graph = MultiStep(fns, True, r.multi.R, r.multi.Q)
+    got = graph(clone_state(st), ff, 30)
+    torch.cuda.synchronize()
+    if "rebuild" in fns:
+        assert step_mod.nbr_counts["rebuild"] >= 1
+    a, b = dict(state_leaves(got)), dict(state_leaves(eager))
+    for k in b:
+        if b[k].is_floating_point():
+            assert float((a[k] - b[k]).abs().max()) <= 1e-6, k
+        else:
+            assert torch.equal(a[k], b[k]), k
+

@@ -183,11 +183,15 @@ def test_run_cli_matches_jax_cli(gas, which, tmp_path, monkeypatch):
 
 def _runners(deck, tmp_path, monkeypatch, n, **cfg_kw):
     """Both packages' runners over ``n`` steps with ``cfg_kw`` replaced
-    in the deck's config; returns (port runner, JAX runner)."""
+    in the deck's config and an inner rebuild period R shorter than the
+    RDF period, so that the stat ring's predicate fails in both packages:
+    each takes the host chunk loop, whose every RDF block restarts the
+    schedule.  Returns (port runner, JAX runner)."""
     monkeypatch.setenv("AZTOTMD_NO_RING", "1")
-    j, p = _both(deck, **cfg_kw)
+    j, p = _both(deck, nb_rebuild=40, **cfg_kw)
     pr = MDRunner(p, str(tmp_path / "torch"), quiet=True)
     jr = JRunner(j, str(tmp_path / "jax"), quiet=True)
+    assert pr.p_rdf > 40 and not pr.refine_blocks
     pr.run(n)
     jr.run(n)
     return pr, jr
@@ -276,3 +280,46 @@ def test_argon_gas_deck_is_case_study_1_shaped(tmp_path):
     g = cfg.nb_grid
     assert (g.dims, g.cap, len(g.stencil)) == ((28, 28, 28), 12, 27)
     assert step_mod.ops_nbr.sorted_build_ok(cfg)
+
+
+def test_ring_cadence_matches_jax_ring(tmp_path, monkeypatch):
+    """The two-level cadence of JAX's stat ring (``refine_blocks``): a
+    600-atom gas at 1e-3 atoms/A^3 with the RDF to 30 A every 50 steps
+    and stat every 200 (Q 8, R 57), on which JAX's runner takes the ring
+    with refine_blocks and without its RDF list (k_cap 0: neither
+    rdf_from_outer nor rdf_covers_outer).  400 f64 steps of each runner:
+    the port's stat.dat and rdf.dat rows and final positions within rtol
+    1e-8 of the ring's, and its counts one full rebuild per stat period
+    and one inner refine per RDF block."""
+    monkeypatch.delenv("AZTOTMD_NO_RING", raising=False)
+    deck = str(tmp_path / "gas600")
+    systems.write_argon_gas_deck(deck, n_atoms=600, density=1e-3, steps=400)
+    ctl = os.path.join(deck, "control.txt")
+    with open(ctl) as f:
+        text = f.read()
+    with open(ctl, "w") as f:
+        f.write(text.replace("rdf\t14.0", "rdf\t30.0"))
+    out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    jr = JRunner(j_load_deck_dir(deck, dtype="f64"), out_j, quiet=True)
+    plan = jr._ring_plan
+    assert jr.ring_ok and plan["refine_blocks"] and not plan["rdf_from_outer"] \
+        and not plan["rdf_covers_outer"]
+    pr = MDRunner(load_deck_dir(deck, dtype="f64"), out_t, quiet=True)
+    assert pr.refine_blocks and (pr.p_stat, pr.p_rdf) == (200, 50)
+    step_mod.nbr_counts.update(rebuild=0, refine=0)
+    pr.run(400)
+    assert step_mod.nbr_counts == {"rebuild": 2, "refine": 8}
+    jr.run(400)
+    pr.finalize()
+    jr.finalize()
+    for name in ("stat.dat", "rdf.dat"):
+        a, b = _table(os.path.join(out_t, name)), _table(
+            os.path.join(out_j, name))
+        assert a.shape == b.shape and a.size, name
+        # the files print six decimals: a value within rtol 1e-8 of the
+        # ring's can still round to the neighbouring last digit (the
+        # ring packs its row on the device)
+        np.testing.assert_allclose(a, b, rtol=1e-8, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(pr.state.pos.numpy(), np.asarray(jr.state.pos),
+                               rtol=1e-8, atol=1e-12)
+    assert int(pr.state.nbr_viol) == int(jr.state.nbr_viol) == 0
