@@ -18,6 +18,27 @@ from .pairs import min_image
 MAX_BOND_NEI = 8        # partners kept per atom (the reference's nei[8])
 
 
+def angle_terms(dij, dik, r2ij, r2ik, k, cos0):
+    """The harmonic-cosine law of one angle on each entry of a batch:
+    ligand vectors ``dij``, ``dik`` (..., 3) from the central atom, their
+    squared lengths (1 where the angle is not live), the constants ``k``
+    and ``cos0``.  Returns (f1, f2, fc, e): the forces on the two ligands
+    and on the central atom, and the energy."""
+    rij = torch.sqrt(r2ij)
+    rik = torch.sqrt(r2ik)
+    cos_th = torch.sum(dij * dik, dim=-1) / (rij * rik)
+    dcos = cos_th - cos0
+    c1 = -k * dcos
+    c2 = 1.0 / (rij * rik)
+
+    f1 = c1[..., None] * (dik * c2[..., None]
+                          - cos_th[..., None] * dij / r2ij[..., None])
+    f2 = c1[..., None] * (dij * c2[..., None]
+                          - cos_th[..., None] * dik / r2ik[..., None])
+    fc = -(f1 + f2)
+    return f1, f2, fc, 0.5 * k * dcos * dcos
+
+
 def apply_angles(cfg, ff, state):
     """Angle forces added to ``state.frc`` and the angle energy:
     (state, eng_angle)."""
@@ -31,21 +52,8 @@ def apply_angles(cfg, ff, state):
     dik = min_image(pos[l2] - pos[c], cfg)
     r2ij = torch.where(live, torch.sum(dij * dij, dim=-1), one)
     r2ik = torch.where(live, torch.sum(dik * dik, dim=-1), one)
-    rij = torch.sqrt(r2ij)
-    rik = torch.sqrt(r2ik)
-
-    k = ff.ang_p[at, 0]
-    cos0 = ff.ang_p[at, 1]
-    cos_th = torch.sum(dij * dik, dim=-1) / (rij * rik)
-    dcos = cos_th - cos0
-    c1 = -k * dcos
-    c2 = 1.0 / (rij * rik)
-
-    f1 = c1[:, None] * (dik * c2[:, None]
-                        - cos_th[:, None] * dij / r2ij[:, None])
-    f2 = c1[:, None] * (dij * c2[:, None]
-                        - cos_th[:, None] * dik / r2ik[:, None])
-    fc = -(f1 + f2)
+    f1, f2, fc, e = angle_terms(dij, dik, r2ij, r2ik, ff.ang_p[at, 0],
+                                ff.ang_p[at, 1])
     lv = live[:, None]
     f1 = torch.where(lv, f1, torch.zeros_like(f1))
     f2 = torch.where(lv, f2, torch.zeros_like(f2))
@@ -53,7 +61,6 @@ def apply_angles(cfg, ff, state):
 
     frc = state.frc.index_add(0, c, fc).index_add(0, l1, f1) \
         .index_add(0, l2, f2)
-    e = 0.5 * k * dcos * dcos
     eng = torch.sum(torch.where(live, e, torch.zeros_like(e)))
     return state.replace(frc=frc), eng
 

@@ -6,9 +6,10 @@ fixed-capacity array of C slots, and one step runs the whole schedule on
 every slab:
 
   [Nose-Hoover] -> verlet-1 (drift + wrap) -> migrate crossers to the
-  neighbour slabs (fixed-size buffers) -> pair pass on the slab and its
-  halos -> [Ewald reciprocal space: partial S(k) + one psum] -> verlet-2
-  -> thermostat -> global scalars by psum.
+  neighbour slabs (fixed-size buffers) -> [reactive pre-pair stage] ->
+  pair pass on the slab and its halos -> [constant bonds and angles] ->
+  [Ewald reciprocal space: partial S(k) + one psum] -> [reactive
+  post-pair stages] -> verlet-2 -> thermostat -> global scalars by psum.
 
 The step is written once over tensors whose first axis is the local slab
 axis L (``SlabState``'s per-slot fields are (L, C, ...)), against a
@@ -17,20 +18,23 @@ process (L = D, batched launches), ``DistRing`` one slab per rank over
 ``torch.distributed``.  The replicated scalars have no slab axis.
 
 Two pair passes, as in the JAX package: decks on the ``"pallas"`` or
-``"sparse"`` engine in f32 take the dense rectangular pass
-(``_pair_pass_dense``: the slab's slots against [own; left; right] slab
-halos through the K2 kernel, ``ops.allpairs.pair_forces_allpairs_rect``);
-f64 and ``"block"`` decks take the cell-block stencil pass (``_pair_pass``,
-torch ops).  The radiative thermostat stays trajectory-identical to one
-device because its noise is keyed by (seed, step, global atom id).
+``"sparse"`` engine in f32 that are not reactive take the dense
+rectangular pass (``_pair_pass_dense``: the slab's slots against [own;
+left; right] slab halos through the K2 kernel,
+``ops.allpairs.pair_forces_allpairs_rect``); f64, ``"block"`` and reactive
+decks take the cell-block stencil pass (``_pair_pass``, torch ops).  The
+radiative thermostat stays trajectory-identical to one device because its
+noise is keyed by (seed, step, global atom id).
+
+Topology, as in the JAX package: constant bonds and angles are per-atom
+records that migrate with their atoms, evaluated against a gid-keyed
+position table of the slab and its two neighbours (``_bonded_pass``);
+reactive decks (bonds that form, break and mutate; electron jumps) keep
+replicated topology tables beside the sharded geometry
+(``parallel/slab_react.py``, ``SlabState.rg``).
 
 Empty-slot invariant: gid == -1 marks a free slot; its pos/vel/frc/engs
 are zero and every stage keeps them so.
-
-Not ported yet (ROADMAP.md): reactive decks on a mesh
-(``slab_react.py``), constant bonds and angles on a mesh (``_bonded_pass``,
-which needs the angles of the neighbor engine), the mesh stat ring.  Each
-raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -45,13 +49,18 @@ import torch
 from ..core.config import _round_up, make_block_grid
 from ..core.state import Energies
 from ..io.control import ELEC_EWALD, ELEC_NONE, TSTAT_NOSE, TSTAT_RADI
+from ..ops import angles as ops_angles
+from ..ops import bonds as ops_bonds
 from ..ops import integrate as integ
 from ..ops import thermostat as tstat
 from ..ops.consts import const
 from ..ops.allpairs import pair_forces_allpairs_rect
 from ..ops.elec import coul_eval, ewald_recip
-from ..ops.pairs import MX_FRC
+from ..ops.pairs import MX_FRC, min_image
 from ..ops.vdw import vdw_eval
+from .slab_react import (ReactiveGlobals, _masked, assemble_global,
+                         make_globals, reactive_mode, reactive_pass)
+
 
 @dataclass
 class SlabState:
@@ -64,14 +73,18 @@ class SlabState:
     frc: torch.Tensor
     engs: torch.Tensor         # (L, C) thermal internal energy
     radii: torch.Tensor        # (L, C) thermal radius
-    # per-atom bond and angle records (1 wide and empty: a deck with
-    # bonds or angles is refused on the mesh for now)
-    bnd_partner: torch.Tensor  # (L, C, B) int32, -1 = empty
-    bnd_type: torch.Tensor     # (L, C, B) int32, 0 = empty
-    ang_c: torch.Tensor        # (L, C, A) int32
+    # constant topology, travelling with the atom on migration: each side
+    # of a bond holds a record by global partner id, computes the force
+    # on itself and half the energy; every participant of an angle holds
+    # its record, applies its own share of the force, and the central
+    # atom's holder counts the energy (1 wide and empty on reactive and
+    # bond-free decks)
+    bnd_partner: torch.Tensor  # (L, C, B) int32 partner gid, -1 = empty
+    bnd_type: torch.Tensor     # (L, C, B) int32 bond type, 0 = empty
+    ang_c: torch.Tensor        # (L, C, A) int32 central gid, -1 = empty
     ang_l1: torch.Tensor
     ang_l2: torch.Tensor
-    ang_t: torch.Tensor
+    ang_t: torch.Tensor        # (L, C, A) int32 angle type, 0 = empty
 
     # --- replicated scalars ---
     rng: torch.Tensor          # (2,) int64 holding uint32 words
@@ -91,7 +104,12 @@ class SlabState:
     mig_lost: torch.Tensor     # () int32 atoms deleted (receiver full)
     mig_defer: torch.Tensor    # () int32 sends deferred to a later step
     slab_occ: torch.Tensor     # () int32 fullest cell seen (stencil pass)
-    bond_miss: torch.Tensor    # () int32 (no bonds on the mesh yet)
+    bond_miss: torch.Tensor    # () int32 bond/angle records whose partner
+    #                            was outside the +-1-slab position table
+    #                            (their forces dropped; the runner warns)
+    # reactive decks only: the replicated topology tables
+    # (slab_react.ReactiveGlobals); None on the other decks
+    rg: ReactiveGlobals | None = None
 
     def replace(self, **kw) -> "SlabState":
         return dataclasses.replace(self, **kw)
@@ -100,17 +118,9 @@ class SlabState:
 PER_SLOT = ("gid", "types", "pos", "vel", "frc", "engs", "radii",
             "bnd_partner", "bnd_type", "ang_c", "ang_l1", "ang_l2",
             "ang_t")
-# per-atom topology records (1 wide, empty until bonds run on a mesh)
-_TOPO = ("bnd_partner", "bnd_type", "ang_c", "ang_l1", "ang_l2", "ang_t")
 # empty-slot marker per field
 _FILL = {"gid": -1, "bnd_partner": -1, "ang_c": -1, "ang_l1": -1,
          "ang_l2": -1}
-
-
-def reactive_mode(cfg) -> bool:
-    """True when the deck needs the replicated-topology path of the JAX
-    package (reactive bonds or angles, electron jumps)."""
-    return cfg.use_bnd == 2 or cfg.use_angl == 2 or cfg.ejtype != 0
 
 
 def slab_caps(cfg, n_dev: int, cap_factor: float = 1.6):
@@ -137,19 +147,6 @@ def check_slab_cfg(cfg, n_dev: int):
                                  for o in off):
         raise ValueError("slab decomposition needs a 27-point stencil "
                          "(cell edge >= cutoff, >= 3 cells per axis)")
-
-
-def check_ported(cfg):
-    """Raise for the mesh features the port does not run yet."""
-    if reactive_mode(cfg):
-        raise NotImplementedError(
-            "reactive decks on a mesh are not ported yet (ROADMAP.md, "
-            "modules to port: the rest of parallel/, slab_react.py)")
-    if cfg.use_bnd or cfg.use_angl:
-        raise NotImplementedError(
-            "constant bonds and angles on a mesh are not ported yet "
-            "(ROADMAP.md, modules to port: the rest of parallel/, the slab "
-            "_bonded_pass after angles)")
 
 
 def prepare_slab_cfg(cfg, n_dev: int):
@@ -202,18 +199,70 @@ def _cell_x(cfg, pos, ncx):
     return torch.floor(pos[..., 0] * scale).to(torch.int32) % ncx
 
 
+def _topology_records(state, reactive: bool):
+    """The per-atom bond and angle records of a constant-topology deck
+    from the MDState's global tables, as numpy arrays by atom id: each
+    side of a live bond gets a (partner, type) record, each participant
+    of an angle the full (c, l1, l2, type) record.  Widths B (the largest
+    bond degree) and A (the largest angle participation) are at least 1;
+    reactive decks keep 1-wide empty records, so the migration payload
+    stays small (their topology is replicated, ``slab_react``)."""
+    h = lambda t: t.detach().cpu().numpy()
+    N = state.pos.shape[0]
+    b_at1, b_at2, b_t = h(state.bond_at1), h(state.bond_at2), \
+        h(state.bond_type)
+    live_b = (b_t != 0) & (not reactive)
+    deg = np.zeros(N, np.int64)
+    for a in (b_at1[live_b], b_at2[live_b]):
+        np.add.at(deg, a, 1)
+    B = max(1, int(deg.max()) if live_b.any() else 1)
+    rec = {"bnd_partner": np.full((N, B), -1, np.int32),
+           "bnd_type": np.zeros((N, B), np.int32)}
+    fill_n = np.zeros(N, np.int64)
+    for me, other in ((b_at1, b_at2), (b_at2, b_at1)):
+        for k in np.flatnonzero(live_b):
+            i = me[k]
+            rec["bnd_partner"][i, fill_n[i]] = other[k]
+            rec["bnd_type"][i, fill_n[i]] = b_t[k]
+            fill_n[i] += 1
+
+    a_c, a_1, a_2, a_t = (h(state.ang_central), h(state.ang_lig1),
+                          h(state.ang_lig2), h(state.ang_type))
+    live_a = (a_t != 0) & (not reactive)
+    dega = np.zeros(N, np.int64)
+    for a in (a_c[live_a], a_1[live_a], a_2[live_a]):
+        np.add.at(dega, a, 1)
+    A = max(1, int(dega.max()) if live_a.any() else 1)
+    for k, f in (("ang_c", -1), ("ang_l1", -1), ("ang_l2", -1),
+                 ("ang_t", 0)):
+        rec[k] = np.full((N, A), f, np.int32)
+    fill_n[:] = 0
+    for role in (a_c, a_1, a_2):
+        for k in np.flatnonzero(live_a):
+            i = role[k]
+            j = fill_n[i]
+            rec["ang_c"][i, j] = a_c[k]
+            rec["ang_l1"][i, j] = a_1[k]
+            rec["ang_l2"][i, j] = a_2[k]
+            rec["ang_t"][i, j] = a_t[k]
+            fill_n[i] += 1
+    return rec
+
+
 def make_slab_state(cfg, state, comm, cap_factor: float = 1.6) -> SlabState:
     """Distribute a single-device MDState by x-slab onto the slabs of
     ``comm``: C slots each (grown to the worst slab's occupancy plus
-    headroom), atoms in ascending id order within a slab."""
+    headroom), atoms in ascending id order within a slab, each with its
+    bond and angle records (``_topology_records``); a reactive deck gets
+    the replicated topology tables as ``rg``."""
     n_dev = comm.n_dev
     check_slab_cfg(cfg, n_dev)
-    check_ported(cfg)
     C, _ = slab_caps(cfg, n_dev, cap_factor)
     N = cfg.n_at
     ncx = cfg.grid.dims[0]
     nloc = ncx // n_dev
     dev = state.pos.device
+    reactive = reactive_mode(cfg)
 
     dev_of = (_cell_x(cfg, state.pos, ncx) // nloc).cpu().numpy()
     occ0 = int(np.bincount(dev_of, minlength=n_dev).max())
@@ -223,10 +272,9 @@ def make_slab_state(cfg, state, comm, cap_factor: float = 1.6) -> SlabState:
            "engs": state.engs, "radii": state.radii, "types": state.types,
            "gid": torch.arange(N, dtype=torch.int32, device=dev)}
     src = {k: v.detach().cpu().numpy() for k, v in src.items()}
+    src.update(_topology_records(state, reactive))
     out = {k: np.full((n_dev, C) + a.shape[1:], _FILL.get(k, 0), a.dtype)
            for k, a in src.items()}
-    for k in _TOPO:
-        out[k] = np.full((n_dev, C, 1), _FILL.get(k, 0), np.int32)
     for d in range(n_dev):
         idx = np.flatnonzero(dev_of == d)
         if len(idx) > C:
@@ -247,7 +295,8 @@ def make_slab_state(cfg, state, comm, cap_factor: float = 1.6) -> SlabState:
         mom_buf_neg=state.mom_buf_neg.clone(), i_mom=state.i_mom.clone(),
         cross_pos=state.cross_pos.clone(), cross_neg=state.cross_neg.clone(),
         mig_total=zi(), mig_lost=zi(), mig_defer=zi(), slab_occ=zi(),
-        bond_miss=zi(), **slots)
+        bond_miss=zi(), rg=make_globals(state) if reactive else None,
+        **slots)
 
 
 GATHER_FIELDS = ("pos", "vel", "frc", "engs", "radii", "types")
@@ -355,6 +404,96 @@ def _migrate(cfg, comm, nloc, M, sd, valid):
     n_lost = torch.clamp(n_recv - n_free, min=0)
     n_defer = ov_r + ov_l + n_stray
     return sd, valid, n_recv, n_lost, n_defer
+
+
+# ----------------------------------------------------------------------
+def _bonded_pass(cfg, ff, comm, sd, valid):
+    """Constant bond and angle forces from the per-atom records.
+
+    Each slab builds a gid-keyed position table of its own slots and both
+    neighbour slabs' (the shifts of (pos, gid): a bond's reach is at most
+    a cell edge, at most a slab's width, so every partner of a slab's atom
+    lies within one slab) and evaluates each record on its holder: a bond
+    record applies the force on its holder and half the energy (both
+    partners hold it); an angle record applies the holder's share of the
+    force, and the central atom's holder counts the energy.  Returns
+    (frc (L, C, 3), e_bond (L,), e_angle (L,), n_miss (L,)): n_miss
+    counts the records whose partner was not in the table (topology
+    stretched beyond a slab, its forces dropped; the runner warns)."""
+    N = cfg.n_at
+    pos, gid = sd["pos"], sd["gid"]
+    L = valid.shape[0]
+    dt = pos.dtype
+    dev = pos.device
+
+    # the tables of the L local slabs, flat: slab l's row g is l*(N+1)+g
+    base = (torch.arange(L, device=dev) * (N + 1))[:, None]
+    pos_tab = torch.zeros((L * (N + 1), 3), dtype=dt, device=dev)
+    present = torch.zeros(L * (N + 1), dtype=torch.bool, device=dev)
+    for p, g in ((pos, gid),
+                 (comm.shift_from_left(pos), comm.shift_from_left(gid)),
+                 (comm.shift_from_right(pos), comm.shift_from_right(gid))):
+        idx = (torch.where(g >= 0, g, torch.full_like(g, N)).long()
+               + base).reshape(-1)
+        pos_tab[idx] = p.reshape(-1, 3)
+        present[idx] = (g >= 0).reshape(-1)
+    present.reshape(L, N + 1)[:, N].fill_(False)
+
+    def lookup(g, live):
+        """(positions, present) of the gids ``g`` (L, C, K) where live."""
+        idx = (torch.where(live & (g >= 0), g, torch.full_like(g, N)).long()
+               + base[:, :, None])
+        return pos_tab[idx], present[idx]
+
+    frc = torch.zeros_like(pos)
+    one = torch.ones((), dtype=dt, device=dev)
+    e_bond = e_angle = torch.zeros(L, dtype=dt, device=dev)
+    n_miss = torch.zeros(L, dtype=torch.int32, device=dev)
+
+    if cfg.use_bnd:
+        bp = sd["bnd_partner"]                         # (L, C, B)
+        bt = sd["bnd_type"]
+        live = (bt != 0) & (bp >= 0) & valid[..., None]
+        ppos, ok = lookup(bp, live)
+        there = live & ok
+        delta = min_image(pos[:, :, None, :] - ppos, cfg)
+        r2 = torch.where(there, torch.sum(delta * delta, -1), one)
+        r = torch.sqrt(r2)
+        kind = torch.where(there, ff.bond_kind[bt.long()],
+                           torch.zeros_like(bt))
+        f, e = ops_bonds.bond_eval(kind, ff.bond_p[bt.long()], r2, r,
+                                   kinds=cfg.bond_kinds)
+        f = torch.where(there, f, torch.zeros_like(f))
+        frc = frc + torch.sum(f[..., None] * delta, 2)
+        e_bond = 0.5 * torch.where(there, e, torch.zeros_like(e)).sum((1, 2))
+        n_miss = n_miss + (live & ~ok).sum((1, 2), dtype=torch.int32)
+
+    if cfg.use_angl:
+        ac, al1, al2, at_ = (sd["ang_c"], sd["ang_l1"], sd["ang_l2"],
+                             sd["ang_t"])                # (L, C, A)
+        live = (at_ != 0) & valid[..., None]
+        pc, okc = lookup(ac, live)
+        p1, ok1 = lookup(al1, live)
+        p2, ok2 = lookup(al2, live)
+        ok = live & okc & ok1 & ok2
+        dij = min_image(p1 - pc, cfg)
+        dik = min_image(p2 - pc, cfg)
+        r2ij = torch.where(ok, torch.sum(dij * dij, -1), one)
+        r2ik = torch.where(ok, torch.sum(dik * dik, -1), one)
+        f1, f2, fc, ea = ops_angles.angle_terms(
+            dij, dik, r2ij, r2ik, ff.ang_p[at_.long(), 0],
+            ff.ang_p[at_.long(), 1])
+        g3 = gid[..., None]
+        mine = torch.where((g3 == ac)[..., None], fc,
+                           torch.where((g3 == al1)[..., None], f1, f2))
+        frc = frc + torch.sum(torch.where(ok[..., None], mine,
+                                          torch.zeros_like(mine)), 2)
+        e_angle = torch.where(ok & (g3 == ac), ea,
+                              torch.zeros_like(ea)).sum((1, 2))
+        n_miss = n_miss + (live & ~(okc & ok1 & ok2)).sum(
+            (1, 2), dtype=torch.int32)
+
+    return frc, e_bond, e_angle, n_miss
 
 
 # ----------------------------------------------------------------------
@@ -578,18 +717,11 @@ class _AtomView:
         return _AtomView(**d)
 
 
-def _masked(valid, t):
-    """``t`` (L, C, ...) with the empty slots zeroed."""
-    m = valid.reshape(valid.shape + (1,) * (t.dim() - 2))
-    return torch.where(m, t, torch.zeros_like(t))
-
-
 def make_slab_step(cfg, aux, comm):
     """step(SlabState, ForceField) -> SlabState over the slabs of
     ``comm``."""
     n_dev = comm.n_dev
     check_slab_cfg(cfg, n_dev)
-    check_ported(cfg)
     nloc = cfg.grid.dims[0] // n_dev
     _, M = slab_caps(cfg, n_dev)
     photons = aux.photons if aux is not None else None
@@ -598,6 +730,7 @@ def make_slab_step(cfg, aux, comm):
     if cfg.elec_type == ELEC_EWALD and ewald_rk is None:
         raise ValueError("Ewald deck needs aux.rk/kweights "
                          "(runtime.setup builds them)")
+    reactive = reactive_mode(cfg)
 
     def step(st: SlabState, ff) -> SlabState:
         valid = st.gid >= 0
@@ -642,14 +775,32 @@ def make_slab_step(cfg, aux, comm):
         mig_lost = st.mig_lost + comm.psum(n_lost)
         mig_defer = st.mig_defer + comm.psum(n_defer)
 
+        # --- reactive topology, pre-pair stage: bond forces, repair and
+        # mutation on the replicated view (the one-device step's order,
+        # so type mutations feed the pair pass as there) ---
+        rg, rng = st.rg, st.rng
+        e_bond = torch.zeros((), dtype=fdt, device=dev)
+        e_angle = torch.zeros((), dtype=fdt, device=dev)
+        if reactive:
+            stage2, frc_b, e_bond, sd, rg = reactive_pass(
+                cfg, ff, comm, cfg.n_at, sd, valid, rg, rng, st.step)
+            sd["frc"] = sd["frc"] + frc_b
+
         # --- pair pass on the slab and its halos ---
         pfrc, e_vdw, e_coul, occ = _pair_pass(cfg, ff, comm, sd, valid)
         sd["frc"] = sd["frc"] + pfrc
         e_vdw = comm.psum(e_vdw)
         e_coul = comm.psum(e_coul)
         slab_occ = torch.maximum(st.slab_occ, comm.pmax(occ))
-        e_bond = torch.zeros((), dtype=fdt, device=dev)
-        e_angle = torch.zeros((), dtype=fdt, device=dev)
+
+        # --- constant bonds and angles (per-atom records, gid table) ---
+        bond_miss = st.bond_miss
+        if (cfg.use_bnd or cfg.use_angl) and not reactive:
+            bfrc, eb, ea, miss = _bonded_pass(cfg, ff, comm, sd, valid)
+            sd["frc"] = sd["frc"] + bfrc
+            e_bond = comm.psum(eb).to(fdt)
+            e_angle = comm.psum(ea).to(fdt)
+            bond_miss = bond_miss + comm.psum(miss)
 
         # --- Ewald reciprocal space: partial S(k) per slab, one psum ---
         e_coul2 = torch.zeros((), dtype=fdt, device=dev)
@@ -660,6 +811,16 @@ def make_slab_step(cfg, aux, comm):
                                          ewald_rk, ewald_w,
                                          allsum=comm.allsum)
             sd["frc"] = sd["frc"] + _masked(valid, unflat(frc_r))
+
+        # --- reactive topology, post-pair stages: bond creation, jumps,
+        # angles on the replicated view ---
+        if reactive:
+            frc_post, e_angle, rg, rng = stage2(rg, rng)
+            sd["frc"] = sd["frc"] + frc_post
+            sd["types"] = _masked(valid, rg.types[
+                torch.clamp(sd["gid"], 0, cfg.n_at - 1).long()])
+            if cfg.use_bnd:
+                rg = ops_bonds.bond_means(cfg, rg)
 
         # --- verlet 2 (global kinetic energy) ---
         vel, _ = integ.verlet2(cfg, ff, flat(sd["vel"]), flat(sd["frc"]),
@@ -673,7 +834,7 @@ def make_slab_step(cfg, aux, comm):
 
         # --- thermostat ---
         eng_temp = torch.zeros((), dtype=fdt, device=dev)
-        rng = st.rng
+        # rng was threaded through the reactive pass (Metropolis draws)
         if cfg.n_equil and cfg.freq_equil:
             do_scale = (st.step <= cfg.n_equil) & \
                 (st.step % cfg.freq_equil == 0)
@@ -715,8 +876,8 @@ def make_slab_step(cfg, aux, comm):
             neg_mom=neg_mom, mom_buf_pos=buf_p, mom_buf_neg=buf_n,
             i_mom=i_mom, cross_pos=cross_pos, cross_neg=cross_neg,
             mig_total=mig_total, mig_lost=mig_lost, mig_defer=mig_defer,
-            slab_occ=slab_occ, rng=rng, chit=chit, consint=consint,
-            step=st.step + 1, **sd)
+            slab_occ=slab_occ, bond_miss=bond_miss, rg=rg, rng=rng,
+            chit=chit, consint=consint, step=st.step + 1, **sd)
 
     return step
 
@@ -740,20 +901,6 @@ def make_slab_multi_step(cfg, aux, comm, graph: bool | None = None):
 
 
 # ----------------------------------------------------------------------
-def assemble_global(comm, n_at: int, gid, valid, arr):
-    """The gid-keyed global table of a per-slot tensor ``arr`` (L, C,
-    ...): every slab scatters its filled slots and one psum adds the
-    tables.  Each gid lives in one slot of one slab, so the sum
-    reproduces the values exactly."""
-    idx = torch.where(valid, gid.to(torch.int64),
-                      torch.full_like(gid, n_at, dtype=torch.int64))
-    vals = _masked(valid, arr)
-    tab = torch.zeros((n_at + 1,) + tuple(arr.shape[2:]), dtype=arr.dtype,
-                      device=arr.device)
-    tab[idx.reshape(-1)] = vals.reshape((-1,) + tuple(arr.shape[2:]))
-    return comm.allsum(tab[:n_at])
-
-
 def make_slab_rdf_sample(cfg, rcfg, comm, spec_nuclei, nucl_number):
     """sample(st, hist, nhist) -> (hist, nhist): one RDF sample on the
     mesh.  Each slab histograms its own rows against the psum-assembled

@@ -26,11 +26,15 @@ Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
 step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
 stencil, the state is distributed by x-slab, the chunk loop calls the
 slab multi-step with the RDF sample on the mesh at its period, and the
-stat rows and output files read the state gathered in global-id order.
-Checkpoints are single-device MDStates, which either package resumes on
-one device or on any mesh.  At each stat row the slab monitors regrow the
-cell capacity, or raise the slot capacity 1.5x and redistribute after a
-migration deleted atoms or kept deferring (``_check_slab_health``).  The
+stat rows and output files read the state gathered in global-id order,
+with the bond, angle and jump tables of the replicated reactive topology
+(``SlabState.rg``) or, on a constant-topology deck, of the initial
+MDState.  Checkpoints are single-device MDStates with the live topology,
+which either package resumes on one device or on any mesh.  At each stat
+row the slab monitors regrow the cell capacity, warn about bond or angle
+records whose partner lay beyond one slab, or raise the slot capacity
+1.5x and redistribute after a migration deleted atoms or kept deferring
+(``_check_slab_health``).  The
 JAX package's on-device stat ring (on one device and on the mesh; its
 list cadence is ported, its RDF neighbor list is not) and its
 atom-sharded mesh mode are not ported.
@@ -106,7 +110,6 @@ class MDRunner:
                                  "(use 'slab' or 'atoms')")
             n_dev = comm.n_dev if comm is not None else mesh_devices
             self.cfg = cfg = _slab.prepare_slab_cfg(cfg, n_dev)
-            _slab.check_ported(cfg)
             self.comm = comm or _comm.LocalRing(n_dev,
                                                 sysd["state"].pos.device)
         self.ff = sysd["ff"]
@@ -210,6 +213,7 @@ class MDRunner:
                 types_h, minlength=cfg.n_spec).astype(np.int32)
             self._slab_mig_seen = (0, 0)
             self._defer_hits = 0
+            self._bond_miss_seen = 0
             self.state = _slab.make_slab_state(
                 cfg, self.state, self.comm, cap_factor=self._slab_cap_factor)
         # the escalating skin monitor's record (_check_neighbor_monitors)
@@ -270,8 +274,8 @@ class MDRunner:
                 if self.cfg.pair_engine != "pallas" \
                         or self.cfg.dtype == "f64":
                     note = ("the slab mesh takes its cell-block stencil "
-                            "pass for this deck (f64, or a deck not on the "
-                            "pallas/sparse engine)")
+                            "pass for this deck (f64, a reactive deck, or a "
+                            "deck not on the pallas/sparse engine)")
             else:
                 note = torch_engine_reason(self.cfg, self.state.pos.dtype)
         if note and note != self._route_note:
@@ -381,10 +385,9 @@ class MDRunner:
             self.w_stat.write_row(t, step, eng, pos_mom, neg_mom, pressure,
                                   _host(st.spec_number))
             if self.w_bnd:
-                self.w_bnd.write_row(t, step, n_bond,
-                                     st.bt_count.cpu().numpy(),
-                                     st.bt_r_mean.cpu().numpy(),
-                                     st.bt_lt_mean.cpu().numpy())
+                self.w_bnd.write_row(t, step, n_bond, _host(st.bt_count),
+                                     _host(st.bt_r_mean),
+                                     _host(st.bt_lt_mean))
             self.w_msd.write_row(t, step, cross_pos, cross_neg)
             if self.w_jmp:
                 self.w_jmp.write_row(t, step, int(st.n_jump),
@@ -683,8 +686,10 @@ class MDRunner:
     def _view(self):
         """What the writers read: the MDState on one device; on a mesh an
         MDState-shaped view whose per-atom arrays are gathered host-side
-        in global-id order (once a step) and whose replicated scalars are
-        the slab state's."""
+        in global-id order (once a step), whose replicated scalars are the
+        slab state's, and whose topology is the replicated tables of a
+        reactive deck or, on a constant-topology deck, the template's
+        (they never change)."""
         if self.comm is None:
             return self.state
         from types import SimpleNamespace
@@ -697,28 +702,59 @@ class MDRunner:
         g = _slab.gather_state(st, cfg.n_at, self.comm)
         nbt = max(cfg.n_bond_types, 1)
         z = np.zeros((), np.int32)
+        rg = st.rg
+        if rg is not None:
+            topo, n_bond = rg, rg.n_bond
+            rows = dict(spec_number=rg.spec_number, bt_count=rg.bt_count,
+                        bt_r_mean=rg.bt_r_mean, bt_lt_mean=rg.bt_lt_mean,
+                        n_jump=rg.n_jump, jump_pos=rg.jump_pos,
+                        jump_neg=rg.jump_neg, parents=rg.parents,
+                        nbonds=rg.nbonds)
+        else:
+            topo = self._mdstate_template if (cfg.use_bnd or cfg.use_angl) \
+                else None
+            n_bond = z
+            if cfg.use_bnd:
+                # each bond has a record on both sides
+                live = self.comm.psum((st.bnd_type != 0).sum(
+                    (1, 2), dtype=torch.int32))
+                n_bond = np.asarray((int(live) + 1) // 2, np.int32)
+            rows = dict(spec_number=self._slab_spec_number,
+                        bt_count=np.zeros(nbt, np.int32),
+                        bt_r_mean=np.zeros(nbt, np.float32),
+                        bt_lt_mean=np.zeros(nbt, np.float32), n_jump=z,
+                        jump_pos=z, jump_neg=z,
+                        parents=np.full(cfg.n_at, -1, np.int32),
+                        nbonds=np.zeros(cfg.n_at, np.int32))
+        if topo is not None:
+            # the finalize writers' bond and angle tables
+            for k in ("bond_at1", "bond_at2", "bond_type", "ang_central",
+                      "ang_lig1", "ang_lig2", "ang_type", "n_angle"):
+                rows[k] = getattr(topo, k)
         view = SimpleNamespace(
             energies=st.energies, pos_mom=st.pos_mom, neg_mom=st.neg_mom,
-            pressure=st.pressure, spec_number=self._slab_spec_number,
-            cross_pos=st.cross_pos, cross_neg=st.cross_neg, n_bond=z,
-            bt_count=np.zeros(nbt, np.int32),
-            bt_r_mean=np.zeros(nbt, np.float32),
-            bt_lt_mean=np.zeros(nbt, np.float32), n_jump=z, jump_pos=z,
-            jump_neg=z, parents=np.full(cfg.n_at, -1, np.int32),
-            nbonds=np.zeros(cfg.n_at, np.int32), step=st.step, **g)
+            pressure=st.pressure, cross_pos=st.cross_pos,
+            cross_neg=st.cross_neg, n_bond=n_bond, step=st.step, **rows,
+            **g)
         self._view_cache = (step, view)
         return view
 
     def mdstate(self):
         """The run's state as a single-device MDState: the state itself,
-        or on a mesh the slab state reassembled in global-id order (the
-        mesh-independent checkpoint and the redistribution after a
-        capacity regrow)."""
+        or on a mesh the slab state reassembled in global-id order, with a
+        reactive deck's live topology tables (the mesh-independent
+        checkpoint and the redistribution after a capacity regrow)."""
         if self.comm is None:
             return self.state
         from ..parallel import slab as _slab
+        from ..parallel.slab_react import merge_into_state
         st = self.state
         t = self._mdstate_template
+        if st.rg is not None:
+            # the live replicated topology supersedes the template's
+            # initial tables (types come from the gathered slots, which the
+            # step keeps in step with rg.types)
+            t = merge_into_state(t, st.rg)
         dev = t.pos.device
         g = _slab.gather_state(st, self.cfg.n_at, self.comm)
         put = lambda a, like: torch.as_tensor(a).to(device=dev,
@@ -739,9 +775,10 @@ class MDRunner:
         """The slab monitors, read at stat rows (the mesh's
         ``_check_overflow``, with the JAX runner's rules and warnings):
         grow grid.cap when a cell overflowed (atoms of rank >= cap got no
-        pair force); raise the slot capacity 1.5x and redistribute when a
-        migration deleted atoms, or when deferrals kept accruing over
-        three checks."""
+        pair force); warn when bond or angle records lost their partner
+        (``bond_miss``); raise the slot capacity 1.5x and redistribute
+        when a migration deleted atoms, or when deferrals kept accruing
+        over three checks."""
         st = self.state
         occ, lost, defer = (int(st.slab_occ), int(st.mig_lost),
                             int(st.mig_defer))
@@ -755,6 +792,13 @@ class MDRunner:
             self.cfg = dataclasses.replace(
                 cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
             rebuild = True
+        miss = int(st.bond_miss)
+        if miss > self._bond_miss_seen:
+            print(f"WARNING: {miss} bond/angle records had partners "
+                  "outside the +-1-slab reach (stretched topology; "
+                  "their forces were dropped) — the trajectory is "
+                  "suspect", file=sys.stderr)
+            self._bond_miss_seen = miss
         seen = self._slab_mig_seen
         if (lost, defer) > seen:
             self._slab_mig_seen = (lost, defer)

@@ -53,7 +53,17 @@ over 4 (the slab stencil pass in torch ops); no atom may be lost to a
 migration; 20 mesh steps are held against 20 one-device kernel steps
 (K1, K4) with the JAX package's slab bounds, and 50 bare mesh steps are
 profiled.  With two or more cards it also runs the slabs one per process
-over NCCL.  It
+over NCCL.  Topology on the slab mesh (``topology_mesh_phases``):
+reactive_polymer and ejump_redox tiled 3x3x3 through ``run --mesh 4`` and
+``--mesh 3`` (the replicated reactive tables, the stencil pass),
+examples/bonded_fluid through ``run --mesh 4`` (the per-atom bond and
+angle records) and over 4 slabs on "pallas" (K2 beside the bonded pass,
+every pair pass a K2 launch); graph replays against eager slab steps
+with the replicated tables exactly equal; f64 mesh against f64 one
+device on reactive_polymer over 4 and ejump_redox over 3 (topology
+exactly, positions within 1e-7 A) and f32 on the tiled decks; profiles;
+and the time of the work that runs once for all slabs beside a step's.
+It
 checks that every pair pass went through that path's kernel, that
 stat.dat is finite and rdf.dat non-zero, that bonds and jumps happened
 (stat_bnd.dat, jumps.dat) and revbonds.txt and lengths.dat were
@@ -136,6 +146,16 @@ MESH_VEL_ATOL = 1e-4     # x max|v|
 TILED_STEPS = 200        # the 3x3x3 tiled reactive decks (K4-cand), and
                          # liquid_argon on the torch cell-block engine
 PROFILE_STEPS = 50
+BONDED_K2_STEPS = 1000   # bonded_fluid's slab steps before K2's second
+                         # comparison on its path (its CLI run's length)
+TOPO_F64_STEPS = 40      # f64 mesh against f64 one device, topology decks
+TOPO_F64_ATOL = 1e-7     # A: the JAX package's slab-vs-one-device bound
+TOPO_F32_STEPS = 20      # f32 mesh against one device, the tiled decks
+# ejump_redox x3 over 3 slabs takes ~0.63 s a step on the H100 (JAX's
+# environment-dU sweep over N x C a slab, five passes a step): its
+# topology phases run at this cut depth (CLI steps, graph steps, profiled
+# steps, timed calls) to keep the script within half its time limit
+EJUMP_MESH_DEPTH = (100, 10, 4, 3)
 GRAPH_STEPS = 100        # graph replays against eager steps, per deck
 GRAPH_POS_ATOL = 1e-6    # A: the same kernels in the same order
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
@@ -386,17 +406,26 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
         f"r={(peak + 0.5) * runner.rcfg.d_rdf:.3f} A")
     cfg = runner.cfg
     if cfg.use_bnd:
+        # on a mesh the topology is the replicated tables of a reactive
+        # deck (``rg``) or the per-atom records of a constant one, which
+        # the runner's view counts
+        topo = runner.state.rg if mesh else runner.state
         bnd = read_table(os.path.join(out, "stat_bnd.dat"), 1)
         check(len(bnd) == len(rows) and bnd[-1][2] > 0,
               f"{name} stat_bnd.dat shows no bonds")
         with open(os.path.join(out, "revbonds.txt")) as f:
             n_list = int(f.readline())
-        check(n_list == int(runner.state.n_bond) and os.path.getsize(
+        check(n_list == int(runner._view().n_bond) and os.path.getsize(
             os.path.join(out, "lengths.dat")) > 0,
             f"{name} revbonds.txt / lengths.dat not written")
+        broken = (f"{int(topo.bt_lt_count.sum())} bonds broken or mutated"
+                  if topo is not None else "constant bonds")
         log(f"  stat_bnd.dat: n_bond {int(bnd[-1][2])} at the end, "
-            f"{int(runner.state.bt_lt_count.sum())} bonds broken or "
-            f"mutated; revbonds.txt lists {n_list}")
+            f"{broken}; revbonds.txt lists {n_list}")
+    if mesh and (cfg.use_bnd or cfg.use_angl):
+        miss = int(runner.state.bond_miss)
+        log(f"  bond/angle records beyond one slab (bond_miss): {miss}")
+        check(miss == 0, f"{name}: bond or angle records lost their partner")
     if cfg.ejtype:
         jmp = read_table(os.path.join(out, "jumps.dat"), 1)
         check(len(jmp) == len(rows) and jmp[-1][2] > 0,
@@ -709,11 +738,11 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
     return res
 
 
-def mesh_system(load_deck_dir, deck, n_dev, dev):
+def mesh_system(load_deck_dir, deck, n_dev, dev, **load_kw):
     """(cfg, ff, aux, comm, slab state) of a deck over n_dev slabs on the
     one card."""
     from aztotmd_tpu_torch.parallel import LocalRing, slab
-    d = load_deck_dir(deck, device=dev)
+    d = load_deck_dir(deck, device=dev, **load_kw)
     cfg = slab.prepare_slab_cfg(d["cfg"], n_dev)
     comm = LocalRing(n_dev, dev)
     return cfg, d["ff"], d["aux"], comm, slab.make_slab_state(
@@ -776,7 +805,8 @@ def launch_window(torch, runner, counters, name, rate):
     launches torch.profiler records on the card over a window of the same
     runner's loop (``_advance``: the same programs and the same RDF
     sample): one stat period where that takes at most a quarter second at
-    the run's rate, else 10 steps; one fifth of it again where the
+    the run's rate, else 10 steps, or 2 where 10 take over 5 s; one fifth
+    of it again where the
     profiler kept fewer events than ran.  Fails where neither window
     recorded exactly the launches the counters saw.  The state, the
     histograms and every count are put back afterwards.  Returns (window
@@ -789,7 +819,8 @@ def launch_window(torch, runner, counters, name, rate):
     kept = [(h, k, h[k] if isinstance(h, dict) else getattr(h, k))
             for h, k in graph_mod.launch_counters()]
     caps = dict(graph_mod.capture_counts)
-    w = runner.p_stat if 0 < runner.p_stat <= rate / 4 else 10
+    w = (runner.p_stat if 0 < runner.p_stat <= rate / 4
+         else 10 if rate >= 2 else 2)
     try:
         for steps in (w, max(2, w // 5)):
             done = int(runner.state.step)
@@ -838,7 +869,8 @@ def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
     launches) by kernel name."""
     if mesh:
         from aztotmd_tpu_torch.parallel import slab
-        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, mesh, dev)
+        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, mesh, dev,
+                                             **load_kw)
         multi = slab.make_slab_multi_step(cfg, aux, comm, graph=graph)
         d = {"ff": ff}
         state = multi(st, ff, 10)
@@ -1087,6 +1119,208 @@ def cli_flag_runs(cli, out, card):
     log(f"  bench surkov_cluster on {card}: eager "
         f"{res['steps_per_sec']:.1f}, graph {res['graph_steps_per_sec']:.1f}"
         " steps/s")
+
+
+def topology_mesh_phases(torch, dev, out, cli, counters, card, tiled,
+                         profile):
+    """Topology on the slab mesh (constant bonds and angles through
+    ``slab._bonded_pass``, reactive topology through ``slab_react``), all
+    slabs batched on the one card:
+
+    - the four paths through the run CLI (or the runner, for the engine
+      switch), counts set to 0 just before each: reactive_polymer x3 over
+      4 slabs and ejump_redox x3 over 3 (the stencil pass; bonds form and
+      electrons jump across slab boundaries), bonded_fluid over 4 on the
+      stencil pass and on "pallas" in f32 (K2 beside the bonded pass): K2
+      launches equal to the pair passes there, no kernel launch on the
+      stencil paths, no record beyond one slab;
+    - 1 + GRAPH_STEPS replays against eager slab steps (every integer
+      field exactly, ``rg`` included; positions within GRAPH_POS_ATOL);
+      ejump_redox x3 runs at the cut depth EJUMP_MESH_DEPTH throughout;
+    - f64 mesh against f64 one device, TOPO_F64_STEPS steps:
+      reactive_polymer over 4, ejump_redox over 3 (topology exactly,
+      positions within TOPO_F64_ATOL, the JAX package's bounds);
+    - f32 mesh against one device on the tiled decks, TOPO_F32_STEPS
+      steps (positions within MESH_POS_ATOL, n_bond and n_jump equal);
+    - profiles of replayed bare steps (busy time, idle share);
+    - CUDA-event times of replayed programs: a step, and the parts of it
+      that run once for all slabs on one card (the replicated reactive
+      work: the reactive pass with its continuation, the candidate rows,
+      assemble_global; the bonded pass on the constant decks).
+
+    Returns ({path: numbers}, K2 launches of the bonded "pallas" run)."""
+    from aztotmd_tpu_torch.parallel import slab, slab_react
+    from aztotmd_tpu_torch.runtime.graph import Program, advance_in_place
+    from aztotmd_tpu_torch.runtime.graph import clone_state
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    from aztotmd_tpu_torch.runtime.step import make_multi_step
+
+    k2_path = "bonded_fluid --mesh 4 (pallas, K2)"
+    paths = {   # name -> (deck, slabs, load keywords)
+        "reactive_polymer x3 --mesh 4": (tiled["reactive_polymer"], 4, {}),
+        "ejump_redox x3 --mesh 3": (tiled["ejump_redox"], 3, {}),
+        "bonded_fluid --mesh 4": (BONDED_DECK, 4, {}),
+        k2_path: (BONDED_DECK, 4, {"pair_engine": "pallas"})}
+    # (CLI steps, graph steps, profiled replayed steps, timed calls)
+    depth = {nm: (TILED_STEPS if "x3" in nm else BONDED_STEPS, GRAPH_STEPS,
+                  20, 10) for nm in paths}
+    depth["ejump_redox x3 --mesh 3"] = EJUMP_MESH_DEPTH
+    res = {nm: {} for nm in paths}
+
+    phase("topology on the slab mesh: the paths (counts set to 0 just "
+          "before each)")
+    k2_launches = 0
+    for nm, (deck, n_dev, kw) in paths.items():
+        steps = depth[nm][0]
+        o = os.path.join(out, "topo_" + re.sub(r"\W+", "_", nm))
+
+        def go(o, deck=deck, n_dev=n_dev, steps=steps, kw=kw):
+            r = MDRunner(load_deck_dir(deck, device=dev, **kw), out_dir=o,
+                         quiet=True, mesh_devices=n_dev)
+            r.run(steps)
+            r.finalize()
+            return r
+        runner, launches, rate = drive(
+            cli, counters, nm, None if kw else deck, o, steps,
+            runner_fn=go if kw else None, mesh=n_dev)
+        cfg = runner.cfg
+        k2 = nm == k2_path
+        want = {k: (runner.steps_run if k2 and k == "allpairs_rect" else 0)
+                for k in counters}
+        check(launches == want, f"{nm}: the pair passes did not all go "
+              f"through {'K2' if k2 else 'torch ops'}")
+        check(cfg.pair_engine == ("pallas" if k2 else "block"),
+              f"{nm}: routed to {cfg.pair_engine}")
+        if k2:
+            k2_launches = launches["allpairs_rect"]
+        st = runner.state
+        if st.rg is not None:
+            log(f"  replicated topology: n_bond {int(st.rg.n_bond)}, n_jump "
+                f"{int(st.rg.n_jump)}, species {st.rg.spec_number.tolist()}")
+        if cfg.use_angl:
+            with open(os.path.join(o, "revangles.txt")) as f:
+                n_ang = int(f.readline())
+            check(n_ang == int(runner._view().n_angle) > 0,
+                  f"{nm}: revangles.txt not written")
+        res[nm].update(cli_steps_per_s=rate, atoms=cfg.n_at, slabs=n_dev,
+                       slot_capacity=st.pos.shape[1])
+
+    phase(f"topology on the slab mesh: CUDA-graph replays vs eager slab "
+          f"steps, 1 + {GRAPH_STEPS} steps each (1 + "
+          f"{EJUMP_MESH_DEPTH[1]} on ejump_redox x3; integer fields, rg "
+          f"included, exactly; positions within {GRAPH_POS_ATOL} A)")
+    systems_ = {}
+    for nm, (deck, n_dev, kw) in paths.items():
+        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, n_dev, dev,
+                                             **kw)
+        multi = slab.make_slab_multi_step(cfg, aux, comm)
+        e, g, nodes = graph_case(torch, nm, multi, st, ff, n=depth[nm][1])
+        res[nm].update(eager_steps_per_s=e, graph_steps_per_s=g,
+                       graph_nodes=nodes)
+        systems_[nm] = (cfg, ff, aux, comm, st, multi)
+
+    phase(f"topology on the slab mesh: f64 mesh vs f64 one device, "
+          f"{TOPO_F64_STEPS} steps (topology exactly, positions within "
+          f"{TOPO_F64_ATOL} A), and f32 on the tiled decks, "
+          f"{TOPO_F32_STEPS} steps (positions within {MESH_POS_ATOL} A, "
+          "n_bond and n_jump equal)")
+    for nm, deck, n_dev, dtype, n, atol in (
+            ("reactive_polymer", POLY_DECK, 4, "f64", TOPO_F64_STEPS,
+             TOPO_F64_ATOL),
+            ("ejump_redox", EJUMP_DECK, 3, "f64", TOPO_F64_STEPS,
+             TOPO_F64_ATOL),
+            ("reactive_polymer x3", tiled["reactive_polymer"], 4, "f32",
+             TOPO_F32_STEPS, MESH_POS_ATOL),
+            ("ejump_redox x3", tiled["ejump_redox"], 3, "f32",
+             TOPO_F32_STEPS, MESH_POS_ATOL)):
+        cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck, n_dev, dev,
+                                             dtype=dtype)
+        st = slab.make_slab_multi_step(cfg, aux, comm)(st, ff, n)
+        g = slab.gather_state(st, cfg.n_at, comm)
+        d = load_deck_dir(deck, device=dev, dtype=dtype)
+        one = make_multi_step(d["cfg"], d["aux"])(d["state"], d["ff"], n)
+        torch.cuda.synchronize()
+        dpos = float(abs(g["pos"] - one.pos.cpu().numpy()).max())
+        exact = ("n_bond", "n_jump") if dtype == "f32" else (
+            "n_bond", "n_jump", "bond_at1", "bond_at2", "bond_type", "types",
+            "parents", "spec_number")
+        differ = [k for k in exact
+                  if not torch.equal(getattr(st.rg, k), getattr(one, k))]
+        log(f"  {nm} ({dtype}) over {n_dev} slabs vs one device "
+            f"({d['cfg'].pair_engine} engine), {n} steps: max|dpos| "
+            f"{dpos:.3e} A (limit {atol}); n_bond {int(st.rg.n_bond)} vs "
+            f"{int(one.n_bond)}, n_jump {int(st.rg.n_jump)} vs "
+            f"{int(one.n_jump)}; {', '.join(exact)} "
+            f"{'equal' if not differ else 'DIFFER: ' + str(differ)}; "
+            f"{int(st.mig_total)} migrated, {int(st.mig_lost)} lost")
+        check(dpos <= atol and not differ and int(st.mig_lost) == 0,
+              f"{nm} ({dtype}): mesh and one-device steps differ")
+        check(int(st.rg.n_bond) > 0 or int(st.rg.n_jump) > 0,
+              f"{nm}: no bond and no jump in {n} steps")
+
+    phase("topology on the slab mesh: profiles of replayed bare steps")
+    for nm, (deck, n_dev, kw) in paths.items():
+        profile(deck, mesh=n_dev, n=depth[nm][2], **kw)
+        tag = os.path.basename(deck) + f" over {n_dev} slabs" + (
+            f" ({kw['pair_engine']})" if kw else "")
+        res[nm].update(busy_graph=BUSY.get((tag, "graph")),
+                       idle_graph=IDLE.get((tag, "graph")))
+
+    phase("topology on the slab mesh: replayed programs timed with CUDA "
+          "events: a step, and the work that runs once for all slabs")
+    for nm, (cfg, ff, aux, comm, st, multi) in systems_.items():
+        static = clone_state(multi(clone_state(st), ff, 2))
+        scratch = clone_state(static)
+        torch.cuda.synchronize()
+        step_fn = multi.fns["step"]
+        N = cfg.n_at
+        parts = {"step": (lambda: advance_in_place(step_fn, static, ff),
+                          lambda: step_fn(scratch, ff))}
+
+        def per_slot(s):
+            return {k: getattr(s, k) for k in slab.PER_SLOT}, s.gid >= 0
+
+        if static.rg is not None:
+            def reactive_work(s):
+                sd, valid = per_slot(s)
+                stage2, *_, rg = slab_react.reactive_pass(
+                    cfg, ff, comm, N, sd, valid, s.rg, s.rng, s.step)
+                return stage2(rg, s.rng)
+
+            def candidate_rows(s):
+                sd, valid = per_slot(s)
+                pos_g = slab_react.assemble_global(comm, N, s.gid, valid,
+                                                   s.pos)
+                return slab_react.candidate_rows(
+                    cfg, ff, comm, s.gid, valid, s.pos, pos_g, s.rg.types,
+                    s.rg.parents, cfg.use_bnd == 2 and cfg.use_linkage != 0,
+                    cfg.ejtype != 0)
+
+            parts["reactive pass + continuation"] = reactive_work
+            parts["candidate rows"] = candidate_rows
+            parts["assemble_global (pos)"] = lambda s: \
+                slab_react.assemble_global(comm, N, s.gid, s.gid >= 0, s.pos)
+        else:
+            parts["bonded pass"] = lambda s: slab._bonded_pass(
+                cfg, ff, comm, *per_slot(s))
+        progs = {}
+        for key, fn in parts.items():
+            body, warm = fn if key == "step" else (
+                lambda fn=fn: fn(static), lambda fn=fn: fn(scratch))
+            progs[key] = Program(f"{nm} {key}", body, warm, dev)
+        keys = list(progs)
+        n = depth[nm][3]
+        ms = dict(zip(keys, timed(torch, [progs[k].replay for k in keys],
+                                  n=n)))
+        shares = {k: ms[k] / ms["step"] for k in keys if k != "step"}
+        log(f"  {nm}: step {ms['step']:.4f} ms replayed; " + ", ".join(
+            f"{k} {ms[k]:.4f} ms ({shares[k]:.3f} of a step)"
+            for k in shares) + f" (CUDA events, medians of {2 * n}) on "
+            f"{card}")
+        res[nm].update(step_ms=ms["step"], parts_ms={
+            k: ms[k] for k in shares}, parts_share=shares)
+    return res, k2_launches
 
 
 def dist_phase(out):
@@ -1371,9 +1605,27 @@ def run(dev, out):
             f"{cfg.grid.cap}, slot capacity {st.pos.shape[1]}, atoms a "
             f"slab {occ}")
         k2_in[nm] = (cfg, ff) + rect_args(slab, cfg, comm, st)
-    k2_err = compare_rect("surkov_cluster over 2 slabs (radii)",
-                          *k2_in["surkov_cluster"])
-    compare_rect("nanoclusters over 4 slabs", *k2_in["nanoclusters"])
+    # bonded_fluid over 4 slabs on "pallas": K2 beside the bonded pass,
+    # at its first step (no B-B pair in range yet) and after
+    # BONDED_K2_STEPS slab steps, where its pairs are in range and atoms
+    # have migrated between the slabs (timed and bounded at that state)
+    cfg, ff, aux, comm, st = mesh_system(load_deck_dir, BONDED_DECK, 4, dev,
+                                         pair_engine="pallas")
+    check(cfg.pair_engine == "pallas" and cfg.dtype == "f32",
+          f"bonded_fluid over 4 slabs routed to {cfg.pair_engine}")
+    bonded_k2_first = (cfg, ff) + rect_args(slab, cfg, comm, st)
+    st = slab.make_slab_multi_step(cfg, aux, comm)(st, ff, BONDED_K2_STEPS)
+    log(f"  bonded_fluid over 4 slabs: slot capacity {st.pos.shape[1]}, "
+        f"atoms a slab {(st.gid >= 0).sum(1).tolist()} after "
+        f"{BONDED_K2_STEPS} steps ({int(st.mig_total)} migrated)")
+    k2_in["bonded_fluid"] = (cfg, ff) + rect_args(slab, cfg, comm, st)
+    k2_err = max(compare_rect("surkov_cluster over 2 slabs (radii)",
+                              *k2_in["surkov_cluster"]),
+                 compare_rect("nanoclusters over 4 slabs",
+                              *k2_in["nanoclusters"]),
+                 compare_rect("bonded_fluid over 4 slabs", *bonded_k2_first),
+                 compare_rect(f"bonded_fluid over 4, step {BONDED_K2_STEPS}",
+                              *k2_in["bonded_fluid"]))
     for case in (dict(nsp=1, elec=0), dict(nsp=2, elec=1),
                  dict(nsp=3, elec=2), dict(nsp=3, elec=3, radii=True)):
         for n_i, n_slab in ((700, 1), (333, 3)):
@@ -1563,6 +1815,11 @@ def run(dev, out):
         profile(deck, mesh=MESH_DEV[nm], graph=False)
         prof[nm + "_mesh"] = profile(deck, mesh=MESH_DEV[nm])
 
+    # --- bonds, angles and reactive topology on the slab mesh ---
+    topo, k2_topo = topology_mesh_phases(torch, dev, out, cli, counters,
+                                         card, tiled, profile)
+    log(f"topology mesh numbers on {card}: " + json.dumps(topo))
+
     # --- timing at the paths' sizes: wrapper, kernel alone, plain ---
     phase("timing")
     def replayed(name, fn):
@@ -1706,6 +1963,7 @@ def run(dev, out):
 
     times["K2"] = k2_timing("surkov_cluster")
     times["K2 nanoclusters"] = k2_timing("nanoclusters")
+    times["K2 bonded_fluid"] = k2_timing("bonded_fluid")
     kprof = {}
     for key, fn in alones.items():
         kprof[key], seen = profile_alone(fn)
@@ -1862,6 +2120,8 @@ def run(dev, out):
     bounds["K2"] = k2_bound("K2", "surkov_cluster", "surk")
     bounds["K2 nanoclusters"] = k2_bound("K2 nanoclusters", "nanoclusters",
                                          "lnjs")
+    bounds["K2 bonded_fluid"] = k2_bound("K2 bonded_fluid", "bonded_fluid",
+                                         "lnjs")
     for key, (slots, pairs, b) in bounds.items():
         log(f"bound {key}: {slots} slot pairs, {pairs} in range: "
             f"{b[0]:.4g} ms ({b[2]}); computed from the operation count "
@@ -1913,11 +2173,13 @@ def run(dev, out):
     ej1 = times["K1-cand ejump_redox"]
     ej4 = times["K4-cand ejump_redox x3"]
     k2n = times["K2 nanoclusters"]
+    k2b = times["K2 bonded_fluid"]
     return [
         entry("allpairs_rect", "aztotmd_tpu_torch/csrc/allpairs_rect.cu",
               "aztotmd_tpu/ops/pallas_pair.py:708",
               l["surkov_cluster_mesh"]["allpairs_rect"]
-              + l["nanoclusters_mesh"]["allpairs_rect"], k2_err, "K2",
+              + l["nanoclusters_mesh"]["allpairs_rect"] + k2_topo, k2_err,
+              "K2",
               {"profiler_ms": prof_ms("surkov_cluster_mesh", "rect_kernel"),
                "bound_filled_ms": filled_bounds["K2"][0],
                "nanoclusters": {
@@ -1927,7 +2189,13 @@ def run(dev, out):
                    "bound_filled_ms": filled_bounds["K2 nanoclusters"][0],
                    "kernel_profiler_ms": kprof["K2 nanoclusters"],
                    "profiler_ms": prof_ms("nanoclusters_mesh",
-                                          "rect_kernel")}}),
+                                          "rect_kernel")},
+               "bonded_fluid": {
+                   "ms": k2b[0], "kernel_ms": k2b[1], "plain_ms": k2b[2],
+                   "wrapper_replay_ms": k2b[3],
+                   "bound_ms": bounds["K2 bonded_fluid"][2][0],
+                   "bound_filled_ms": filled_bounds["K2 bonded_fluid"][0],
+                   "kernel_profiler_ms": kprof["K2 bonded_fluid"]}}),
         entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
               "aztotmd_tpu/ops/pallas_pair.py:335",
               l["surkov_cluster"]["allpairs"] + l["molten_salt"]["allpairs"],

@@ -190,8 +190,10 @@ def test_prng_words_bit_exact(seed):
 def test_other_engines_raise_naming_roadmap_item(lj_deck):
     """The argon deck takes the Verlet-list engine, whose step the port
     builds; an engine the port does not run ("gather") raises naming the
-    ROADMAP, and so does a bonded deck on a slab mesh."""
-    from aztotmd_tpu_torch.parallel.slab import check_ported
+    ROADMAP; a bonded deck builds its step on one device and on a slab
+    mesh."""
+    from aztotmd_tpu_torch.parallel import slab
+    from aztotmd_tpu_torch.parallel.comm import LocalRing
     from aztotmd_tpu_torch.runtime.step import make_step
     d = load_deck_dir(lj_deck, dtype="f32")
     assert d["cfg"].pair_engine == "neighbor"
@@ -201,8 +203,8 @@ def test_other_engines_raise_naming_roadmap_item(lj_deck):
         make_step(gather, d["aux"])
     bonded = load_deck_dir(os.path.join(ROOT, "examples", "bonded_fluid"))
     assert callable(make_step(bonded["cfg"], bonded["aux"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        check_ported(bonded["cfg"])
+    assert callable(slab.make_slab_step(
+        slab.prepare_slab_cfg(bonded["cfg"], 4), bonded["aux"], LocalRing(4)))
     # the block engine and Ewald decks build their steps
     for name in ("molten_salt", "liquid_argon"):
         d = load_deck_dir(os.path.join(ROOT, "examples", name))

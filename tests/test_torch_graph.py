@@ -113,6 +113,10 @@ PATHS = {
     "slab LocalRing 2": (lambda d: systems.write_surkov_cluster_deck(
         d, n_atoms=300, box=24.0, steps=100, n_equil=20), {}, {},
         {"mesh_devices": 2}),
+    "slab bonded LocalRing 4": ("bonded_fluid", {}, {}, {"mesh_devices": 4}),
+    "slab reactive LocalRing 2": ("reactive_polymer", {}, {},
+                                  {"mesh_devices": 2}),
+    "slab jumps LocalRing 3": ("ejump_redox", {}, {}, {"mesh_devices": 3}),
 }
 
 
@@ -154,7 +158,10 @@ def _check_path(name, r):
     if name == "angles":
         assert cfg.use_angl
     if name.startswith("slab"):
-        assert r.comm is not None and r.comm.n_dev == 2
+        assert r.comm is not None
+        assert r.comm.n_dev == PATHS[name][3]["mesh_devices"]
+        assert (r.state.rg is not None) == ("reactive" in name
+                                            or "jumps" in name)
     else:
         assert cfg.pair_engine == PATHS[name][1].get("pair_engine",
                                                      cfg.pair_engine)

@@ -170,9 +170,10 @@ def test_slab_health_regrows_and_redistributes(lj_deck, tmp_path, capsys):
 
 
 def test_mesh_cli_refusals(lj_deck, tmp_path):
-    """The atom-sharded mode and reactive decks raise NotImplementedError
-    naming the ROADMAP item; molten_salt's 3^3 grid is refused as in the
-    JAX package."""
+    """The atom-sharded mode raises NotImplementedError naming the ROADMAP
+    item; molten_salt's 3^3 grid is refused as in the JAX package; a
+    reactive deck, once refused, now runs on the mesh (a short run whose
+    bond table the replicated topology carries)."""
     out = str(tmp_path / "o")
     with pytest.raises(NotImplementedError, match="parallel/mesh.py.*ROADMAP"):
         main(["run", lj_deck, "--mesh", "4", "--mesh-mode", "atoms",
@@ -180,9 +181,11 @@ def test_mesh_cli_refusals(lj_deck, tmp_path):
     with pytest.raises(ValueError, match="27-point stencil"):
         main(["run", os.path.join(ROOT, "examples", "molten_salt"),
               "--mesh", "2", "--cpu", "-o", out])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slab_react"):
-        main(["run", os.path.join(ROOT, "examples", "reactive_polymer"),
-              "--mesh", "2", "--cpu", "-o", out])
+    r = main(["run", os.path.join(ROOT, "examples", "reactive_polymer"),
+              "--mesh", "2", "--cpu", "--steps", "4", "-o", out, "--quiet"])
+    assert int(r.state.step) == 4 and r.state.rg is not None
+    assert int(r.state.rg.n_bond) > 0
+    assert os.path.getsize(os.path.join(out, "revbonds.txt")) > 0
 
 
 def test_dist_cli_under_torchrun_equals_one_process(lj_deck, tmp_path):

@@ -344,7 +344,8 @@ def test_prepare_slab_cfg_refusals_and_routing(capsys):
     """molten_salt (a 3^3 grid) and a single slab are refused with JAX's
     messages; the nanoclusters deck is routed to the dense pass with
     JAX's note; an f64 pallas deck stays on the stencil pass; reactive and
-    bonded decks raise NotImplementedError naming the ROADMAP item."""
+    bonded decks are routed as in JAX (the stencil pass) and build their
+    slab steps."""
     from aztotmd_tpu.runtime.setup import load_deck_dir as j_load
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
     salt = os.path.join(ROOT, "examples", "molten_salt")
@@ -373,13 +374,14 @@ def test_prepare_slab_cfg_refusals_and_routing(capsys):
     f64 = load_deck_dir(nano, dtype="f64")["cfg"]
     assert slab.prepare_slab_cfg(f64, 4).pair_engine == "block"
 
-    for deck, what in (("reactive_polymer", "reactive"),
-                       ("bonded_fluid", "bonds and angles")):
-        cfg = load_deck_dir(os.path.join(ROOT, "examples", deck))["cfg"]
-        cfg = slab.prepare_slab_cfg(cfg, 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as e:
-            slab.check_ported(cfg)
-        assert what in str(e.value)
+    for deck in ("reactive_polymer", "bonded_fluid"):
+        path = os.path.join(ROOT, "examples", deck)
+        d = load_deck_dir(path)
+        cfg = slab.prepare_slab_cfg(d["cfg"], 2)
+        jcfg = jslab.prepare_slab_cfg(j_load(path)["cfg"], 2)
+        assert cfg.pair_engine == jcfg.pair_engine == "block"
+        assert cfg.grid.dims == tuple(jcfg.grid.dims)
+        assert callable(slab.make_slab_step(cfg, d["aux"], LocalRing(2)))
 
 
 # --- the two communicators ---
