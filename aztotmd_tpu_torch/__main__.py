@@ -4,9 +4,11 @@
 control.txt / field.txt / atoms.xyz from the deck directory, runs it on
 the GPU and writes the output files.  ``--cpu`` runs it on the CPU with
 the kernels' plain versions.  ``--mesh N`` runs the slab-decomposed step
-over N slabs on the one device; with ``--dist``, under ``torchrun
---nproc-per-node N``, one slab per process (NCCL on the GPUs, gloo with
-``--cpu``), where rank 0 writes to ``-o`` and rank r to ``<out>/rank<r>``.
+over N slabs on the one device, and with ``--mesh-mode atoms`` the
+atom-sharded step over N row shards; with ``--dist``, under ``torchrun
+--nproc-per-node N``, one slab or shard per process (NCCL on the GPUs,
+gloo with ``--cpu``), where rank 0 writes to ``-o`` and rank r to
+``<out>/rank<r>``.
 ``--debug`` checks the state's invariants after every chunk,
 ``--timings`` prints per-stage wall-clock timings and ``--profile
 LOG_DIR`` also writes a torch.profiler trace there.  On the card each
@@ -75,14 +77,16 @@ def main(argv=None):
                    help="print per-stage wall-clock timings without the "
                         "profiler trace")
     r.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="run the slab-decomposed step over N x-slabs")
+                   help="run over an N-shard mesh (see --mesh-mode)")
     r.add_argument("--mesh-mode", choices=("slab", "atoms"),
                    default="slab",
-                   help="slab: spatial decomposition with migration; "
-                        "atoms: not ported yet")
+                   help="slab: the slab-decomposed step over N x-slabs, "
+                        "with migration; atoms: per-atom arrays in N equal "
+                        "row shards, the one-device step over their "
+                        "gather (any deck whose atom count N divides)")
     r.add_argument("--dist", action="store_true",
-                   help="one slab per process under torchrun (with "
-                        "--mesh N = the number of processes)")
+                   help="one slab or shard per process under torchrun "
+                        "(with --mesh N = the number of processes)")
 
     b = sub.add_parser("bench", parents=[common],
                        help="benchmark a deck (steps/sec)")

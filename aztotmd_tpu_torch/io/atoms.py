@@ -1,6 +1,6 @@
-"""atoms.xyz reader (the port's copy of ``aztotmd_tpu/io/atoms.py``'s
-parser, without the JAX package's native row parser: rows are split in
-Python).
+"""atoms.xyz reader and writers (the port's copy of
+``aztotmd_tpu/io/atoms.py``, without the JAX package's native row parser:
+rows are split in Python).
 
 Format (reference: src/sys_init.cpp:487-566 ``read_atoms_box``,
 src/box.cpp:9-27 ``read_box``, src/out_md.cpp:65-87 ``out_atoms``):
@@ -62,3 +62,41 @@ def parse_atoms(text: str) -> AtomsData:
 def parse_atoms_file(path) -> AtomsData:
     with open(path, "r", errors="replace") as f:
         return parse_atoms(f.read())
+
+
+def write_atoms(path, names, pos, box) -> None:
+    """Write an .xyz configuration (reference: out_md.cpp:65-87 format —
+    ``%s\\t%f\\t%f\\t%f`` rows after the count and box lines)."""
+    pos = np.asarray(pos, dtype=np.float64)
+    with open(path, "w") as f:
+        f.write(f"{len(names)}\n")
+        f.write("%d %f %f %f\n" % (BOX_RECT, box[0], box[1], box[2]))
+        for nm, (x, y, z) in zip(names, pos):
+            f.write("%s\t%f\t%f\t%f\n" % (nm, x, y, z))
+
+
+def write_velocities(path, spec_names, types, vel) -> None:
+    """velocities.dat writer (reference: out_md.cpp:126-194
+    ``out_velocities``): columns grouped by species, |v| then components."""
+    vel = np.asarray(vel, dtype=np.float64)
+    types = np.asarray(types)
+    nsp = len(spec_names)
+    per_spec = [np.nonzero(types == t)[0] for t in range(nsp)]
+    mx = max((len(ix) for ix in per_spec), default=0)
+    speed = np.sqrt((vel * vel).sum(axis=1))
+    with open(path, "w") as f:
+        f.write("No")
+        for nm in spec_names:
+            f.write(f"\t{nm}\tx\ty\tz")
+        f.write("\n")
+        for i in range(mx):
+            f.write(str(i + 1))
+            for t in range(nsp):
+                ix = per_spec[t]
+                if i < len(ix):
+                    a = ix[i]
+                    f.write("\t%f\t%f\t%f\t%f"
+                            % (speed[a], vel[a, 0], vel[a, 1], vel[a, 2]))
+                else:
+                    f.write("\t\t\t\t")
+            f.write("\n")

@@ -1,4 +1,4 @@
-"""bonds.txt / angles.txt readers (the port's copy of the parsers of
+"""bonds.txt / angles.txt readers and writers (the port's copy of
 ``aztotmd_tpu/io/toplists.py``).
 
 Formats (reference: src/bonds.cpp:25-123 ``read_bondlist``/``save_bondlist``;
@@ -125,3 +125,18 @@ def parse_anglelist(text: str, atom_types=None, angle_specs=None) -> AngleList:
 def parse_anglelist_file(path, atom_types=None, angle_specs=None) -> AngleList:
     with open(path, "r", errors="replace") as f:
         return parse_anglelist(f.read(), atom_types, angle_specs)
+
+
+def write_bondlist(path, at1, at2, btype) -> None:
+    """save_bondlist format (bonds.cpp:112-123)."""
+    with open(path, "w") as f:
+        f.write(f"{len(at1)}\n")
+        for a, b, k in zip(at1, at2, btype):
+            f.write(f"{int(a)} {int(b)} {int(k)}\n")
+
+
+def write_anglelist(path, central, lig1, lig2, atype) -> None:
+    with open(path, "w") as f:
+        f.write(f"{len(central)}\n")
+        for c, a, b, k in zip(central, lig1, lig2, atype):
+            f.write(f"{int(c)} {int(a)} {int(b)} {int(k)}\n")

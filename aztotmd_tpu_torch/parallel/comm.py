@@ -16,18 +16,21 @@ communicator:
   local slabs (a psum of per-slab partials computed on flattened slots);
 - ``slab_index()``: the (L,) int64 indices of the local slabs;
 - ``local_slabs(a)``: the local rows of a host-built (D, ...) array;
-- ``gather_slabs(x)``: every slab's rows, (D, ...), on every rank.
+- ``gather_slabs(x)``: every slab's rows, (D, ...), on every rank;
+- ``gather_rows(x)``: the (L, n, ...) row shards of every rank as one
+  (D * n, ...) tensor on every rank (the all-gather of the atom-sharded
+  mode, ``parallel/mesh.py``).
 
 Two backends share the one code path:
 
 - ``LocalRing``: all D slabs in one process on one device, L = D.  The
   shifts are ``torch.roll`` along the slab axis, ``psum`` a sum over it:
-  each small op of the step runs once for all slabs.  The tests, ``--cpu``
-  and a one-card run use it.
+  each small op of the step runs once for all slabs; ``gather_rows`` is a
+  reshape (no copy).  The tests, ``--cpu`` and a one-card run use it.
 - ``DistRing``: one slab per rank, L = 1, over ``torch.distributed`` (gloo
   for CPU tensors, NCCL for CUDA tensors): the shifts are paired
   ``isend``/``irecv`` with the neighbour ranks, ``psum``/``pmax`` an
-  ``all_reduce``.
+  ``all_reduce``, ``gather_rows`` an all-gather into one tensor.
 
 Two slabs make the degenerate ring, left neighbour == right neighbour;
 the step keeps the JAX package's rules for it (one halo copy in the dense
@@ -75,6 +78,9 @@ class LocalRing:
 
     def gather_slabs(self, x):
         return x
+
+    def gather_rows(self, x):
+        return x.reshape((-1,) + tuple(x.shape[2:]))
 
 
 class DistRing:
@@ -137,6 +143,18 @@ class DistRing:
         parts = [torch.empty_like(x) for _ in range(self.n_dev)]
         self._dist.all_gather(parts, x.contiguous())
         return torch.cat(parts, 0)
+
+    def gather_rows(self, x):
+        dist = self._dist
+        gather = (getattr(dist, "all_gather_single", None)
+                  or dist.all_gather_into_tensor)
+        flag = x.dtype == torch.bool
+        src = (x.to(torch.uint8) if flag else x).reshape(
+            (-1,) + tuple(x.shape[2:])).contiguous()
+        out = src.new_empty((self.n_dev * src.shape[0],)
+                            + tuple(src.shape[1:]))
+        gather(out, src)
+        return out.to(torch.bool) if flag else out
 
 
 def make_comm(n_dev: int, device=None, dist: bool = False):

@@ -22,7 +22,7 @@ Two pair passes, as in the JAX package: decks on the ``"pallas"`` or
 rectangular pass (``_pair_pass_dense``: the slab's slots against [own;
 left; right] slab halos through the K2 kernel,
 ``ops.allpairs.pair_forces_allpairs_rect``); f64, ``"block"`` and reactive
-decks take the cell-block stencil pass (``_pair_pass``, torch ops).  The
+decks take the cell-block stencil pass (``stencil_pass``, torch ops).  The
 radiative thermostat stays trajectory-identical to one device because its
 noise is keyed by (seed, step, global atom id).
 
@@ -537,14 +537,21 @@ def _pair_pass_dense(cfg, ff, comm, sd, valid):
 
 
 def _pair_pass(cfg, ff, comm, sd, valid):
-    """Bin each slab's atoms into its cells, exchange the boundary cell
-    planes, run the stencil pair pass; decks on the dense engine go to
-    ``_pair_pass_dense``.  Returns (frc (L, C, 3), e_vdw (L,), e_coul
-    (L,), occ (L,)): occ is the fullest cell; an atom of rank >= cap in
-    its cell gets no pair force, and the caller monitors occ against
-    grid.cap."""
+    """The slab step's pair pass: ``_pair_pass_dense`` for decks on the
+    dense engine in f32, else ``stencil_pass``."""
     if cfg.pair_engine == "pallas" and cfg.dtype != "f64":
         return _pair_pass_dense(cfg, ff, comm, sd, valid)
+    return stencil_pass(cfg, ff, comm, sd, valid)
+
+
+def stencil_pass(cfg, ff, comm, sd, valid):
+    """Bin each slab's atoms (the valid slots inside it) into its cells,
+    exchange the boundary cell planes, run the stencil pair pass.
+    Returns (frc (L, C, 3), e_vdw (L,), e_coul (L,), occ (L,)): occ is
+    the fullest cell; an atom of rank >= cap in its cell gets no pair
+    force, and the caller monitors occ against grid.cap.  The energies
+    need the caller's psum.  ``parallel/domain.py`` runs it over
+    replicated positions."""
     n_dev = comm.n_dev
     grid = cfg.grid
     ncx, ncy, ncz = grid.dims

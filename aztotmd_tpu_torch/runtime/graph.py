@@ -73,18 +73,24 @@ def state_leaves(tree, prefix: str = ""):
     return out
 
 
-def clone_state(tree):
-    """A copy of a state dataclass with every tensor cloned (fields that
-    shared a tensor no longer do)."""
+def map_leaves(tree, fn, prefix: str = ""):
+    """A copy of a state dataclass with every tensor field ``t`` replaced
+    by ``fn(name, t)``, named as ``state_leaves`` names them; other fields
+    as they are."""
     kw = {}
     for f in dataclasses.fields(tree):
         v = getattr(tree, f.name)
         if dataclasses.is_dataclass(v):
-            v = clone_state(v)
+            kw[f.name] = map_leaves(v, fn, prefix + f.name + ".")
         elif torch.is_tensor(v):
-            v = v.clone()
-        kw[f.name] = v
+            kw[f.name] = fn(prefix + f.name, v)
     return dataclasses.replace(tree, **kw)
+
+
+def clone_state(tree):
+    """A copy of a state dataclass with every tensor cloned (fields that
+    shared a tensor no longer do)."""
+    return map_leaves(tree, lambda _, t: t.clone())
 
 
 def same_layout(a, b) -> bool:

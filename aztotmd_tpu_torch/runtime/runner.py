@@ -34,10 +34,16 @@ which either package resumes on one device or on any mesh.  At each stat
 row the slab monitors regrow the cell capacity, warn about bond or angle
 records whose partner lay beyond one slab, or raise the slot capacity
 1.5x and redistribute after a migration deleted atoms or kept deferring
-(``_check_slab_health``).  The
-JAX package's on-device stat ring (on one device and on the mesh; its
-list cadence is ported, its RDF neighbor list is not) and its
-atom-sharded mesh mode are not ported.
+(``_check_slab_health``).
+
+Atom-sharded mode (``mesh_devices=N, mesh_mode="atoms"``, ``run --mesh N
+--mesh-mode atoms``) keeps the per-atom fields in N equal row shards
+(``parallel/mesh.py``) and runs the one-device programs over their
+gather; the writers, the RDF sample and checkpoints read the gathered
+state, so a checkpoint resumes on one device, and a list regrow gathers,
+regrows and shards again.  The JAX package's on-device stat ring (on one
+device and on the mesh; its list cadence is ported, its RDF neighbor
+list is not) is not ported.
 """
 
 from __future__ import annotations
@@ -97,21 +103,26 @@ class MDRunner:
         self.debug = debug
         self.timer = StageTimer()
         self.comm = None
+        self._atoms_mesh = None
         if mesh_devices or comm is not None:
             from ..parallel import comm as _comm
             from ..parallel import slab as _slab
+            n_dev = comm.n_dev if comm is not None else mesh_devices
+            dev = sysd["state"].pos.device
             if mesh_mode == "atoms":
-                raise NotImplementedError(
-                    "the atom-sharded mesh mode (parallel/mesh.py) is not "
-                    "ported yet (ROADMAP.md, modules to port: the rest of "
-                    "parallel/)")
-            if mesh_mode != "slab":
+                # atom-sharded mode (parallel/mesh.py): per-atom fields in
+                # equal row shards, the unchanged step over their gather
+                if cfg.n_at % n_dev:
+                    raise ValueError(
+                        f"n_at={cfg.n_at} not divisible by mesh size "
+                        f"{n_dev} (atom-sharded mode needs equal shards)")
+                self._atoms_mesh = comm or _comm.LocalRing(n_dev, dev)
+            elif mesh_mode != "slab":
                 raise ValueError(f"unknown mesh_mode {mesh_mode!r} "
                                  "(use 'slab' or 'atoms')")
-            n_dev = comm.n_dev if comm is not None else mesh_devices
-            self.cfg = cfg = _slab.prepare_slab_cfg(cfg, n_dev)
-            self.comm = comm or _comm.LocalRing(n_dev,
-                                                sysd["state"].pos.device)
+            else:
+                self.cfg = cfg = _slab.prepare_slab_cfg(cfg, n_dev)
+                self.comm = comm or _comm.LocalRing(n_dev, dev)
         self.ff = sysd["ff"]
         self.state = sysd["state"]
         self.aux = sysd["aux"]
@@ -203,6 +214,9 @@ class MDRunner:
             self.p_vaf, checkpoint_every, self.p_rdf_out) if p]
 
         self._view_cache = None
+        if self._atoms_mesh is not None:
+            # the run carries the row shards; _view() and mdstate() gather
+            self.state = self._shard(self.state)
         if self.comm is not None:
             from ..parallel import slab as _slab
             # keep the MDState as the template of mesh-independent
@@ -245,13 +259,21 @@ class MDRunner:
             and self.p_rdf <= cfg.nb_rebuild
             and self.p_stat <= cfg.nb_outer * cfg.nb_rebuild)
         if self.comm is None:
-            self.multi = make_multi_step(cfg, self.aux, graph=self.graph)
+            if self._atoms_mesh is not None:
+                from ..parallel import mesh as _mesh
+                self.multi = _mesh.make_sharded_multi_step(
+                    cfg, self.aux, self._atoms_mesh, self._atoms_spec,
+                    graph=self.graph)
+            else:
+                self.multi = make_multi_step(cfg, self.aux, graph=self.graph)
             if rcfg is not None:
-                self._rdf = GraphedSample(
-                    lambda st, h, nh: ops_rdf.rdf_sample(
+                def sample(st, h, nh):
+                    st = self._gather(st)
+                    return ops_rdf.rdf_sample(
                         cfg, rcfg, st.pos, st.types, st.spec_number,
-                        self._spec_nuclei, self._nucl_number, h, nh),
-                    "RDF sample", self.graph)
+                        self._spec_nuclei, self._nucl_number, h, nh)
+                self._rdf = GraphedSample(sample, "RDF sample",
+                                          self.multi.graph)
             return
         from ..parallel import slab as _slab
         self.multi = _slab.make_slab_multi_step(cfg, self.aux, self.comm,
@@ -332,7 +354,7 @@ class MDRunner:
                 self._zero_hist()
             if self.debug and self.comm is None:
                 from .debug import assert_state_ok
-                assert_state_ok(self.cfg, self.state)
+                assert_state_ok(self.cfg, self._view())
 
     def _zero_hist(self):
         """Restart the RDF window, in place (the captured sample keeps its
@@ -460,8 +482,9 @@ class MDRunner:
             upd["nbrow_idx"] = full(cfg.nb_rowcap, 1 + cfg.n_neigh)
         if "n_neigh2" in cap:
             upd["nbr2_idx"] = full(N, cfg.n_neigh2)
-        self.state = self.state.replace(nbr_ref=self.state.nbr_ref + 1e9,
-                                        **upd)
+        st = self._gather(self.state)
+        self.state = self._shard(st.replace(nbr_ref=st.nbr_ref + 1e9, **upd))
+        self._view_cache = None
         self._build_programs()
 
     def _check_neighbor_monitors(self):
@@ -683,13 +706,39 @@ class MDRunner:
     # ------------------------------------------------------------------
     # mesh mode
 
+    def _shard(self, state):
+        """An atom-sharded run's row shards of a single-device state,
+        with the shardings derived anew from its shapes (a regrow changes
+        the lists'); the state itself elsewhere."""
+        if self._atoms_mesh is None:
+            return state
+        from ..parallel import mesh as _mesh
+        self._atoms_spec = _mesh.state_shardings(self._atoms_mesh, state,
+                                                 self.cfg.n_at)
+        return _mesh.shard_state(self._atoms_mesh, state, self._atoms_spec)
+
+    def _gather(self, state):
+        """The single-device state of an atom-sharded run's ``state``
+        (its rows gathered: views over a ``LocalRing``); the state itself
+        elsewhere."""
+        if self._atoms_mesh is None:
+            return state
+        from ..parallel import mesh as _mesh
+        return _mesh.gather_state(self._atoms_mesh, state, self._atoms_spec)
+
     def _view(self):
-        """What the writers read: the MDState on one device; on a mesh an
-        MDState-shaped view whose per-atom arrays are gathered host-side
-        in global-id order (once a step), whose replicated scalars are the
-        slab state's, and whose topology is the replicated tables of a
-        reactive deck or, on a constant-topology deck, the template's
-        (they never change)."""
+        """What the writers read: the MDState on one device, or of an
+        atom-sharded run its rows gathered (once a step); on a slab mesh
+        an MDState-shaped view whose per-atom arrays are gathered
+        host-side in global-id order (once a step), whose replicated
+        scalars are the slab state's, and whose topology is the replicated
+        tables of a reactive deck or, on a constant-topology deck, the
+        template's (they never change)."""
+        if self._atoms_mesh is not None:
+            step = int(self.state.step)
+            if self._view_cache is None or self._view_cache[0] != step:
+                self._view_cache = (step, self._gather(self.state))
+            return self._view_cache[1]
         if self.comm is None:
             return self.state
         from types import SimpleNamespace
@@ -743,9 +792,10 @@ class MDRunner:
         """The run's state as a single-device MDState: the state itself,
         or on a mesh the slab state reassembled in global-id order, with a
         reactive deck's live topology tables (the mesh-independent
-        checkpoint and the redistribution after a capacity regrow)."""
+        checkpoint and the redistribution after a capacity regrow); of an
+        atom-sharded run its rows gathered."""
         if self.comm is None:
-            return self.state
+            return self._gather(self.state)
         from ..parallel import slab as _slab
         from ..parallel.slab_react import merge_into_state
         st = self.state
@@ -837,3 +887,18 @@ class MDRunner:
 def _host(a):
     """A numpy array of a tensor or of a host array."""
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def run_deck(deck_dir: str, out_dir: str = ".", n_steps: int | None = None,
+             dtype: str = "f32", seed: int = 12345, quiet: bool = False,
+             checkpoint_every: int = 0, device=None):
+    """Load a reference deck directory and run it to completion, on the
+    card unless ``device`` says otherwise (``default_device``)."""
+    from .setup import default_device, load_deck_dir
+    sysd = load_deck_dir(deck_dir, dtype=dtype, seed=seed,
+                         device=default_device(device))
+    runner = MDRunner(sysd, out_dir=out_dir, quiet=quiet,
+                      checkpoint_every=checkpoint_every)
+    runner.run(n_steps)
+    runner.finalize()
+    return runner

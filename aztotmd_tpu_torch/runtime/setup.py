@@ -107,6 +107,19 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
     return cfg, ff, state, aux
 
 
+def default_device(device=None) -> torch.device:
+    """``device`` as a torch.device; None picks the current CUDA device
+    and raises where there is none (``device="cpu"`` runs on the CPU).
+    The package API (``load``, ``run``, ``run_deck``, ``entry``) takes its
+    device from here."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("aztotmd_tpu_torch: no CUDA device is available; "
+                           "pass device=\"cpu\" to run on the CPU")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
 def load_deck_dir(path, dtype: str = "f32", seed: int = 12345,
                   device=None, **kw):
     """Load a deck directory (control.txt + field.txt + atoms.xyz

@@ -14,7 +14,9 @@ density.  ``write_lj_deck`` writes the same argon deck as
 LJ liquid that the cell-block engines run; ``liquid_argon_specs`` is the
 same system at test sizes.  ``write_argon_gas_deck`` writes
 ``examples/argon_gas/``, the dilute argon gas of the reference's case
-study 1 that the Verlet-list engine runs.
+study 1 that the Verlet-list engine runs.  ``build_lj_argon`` (with
+``lj_argon_field``) and ``clustered_slab_system`` build the JAX package's
+in-memory systems of those names, state for state.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import numpy as np
 
 from . import units
 from .io.atoms import parse_atoms_file
-from .io.control import JUMP_METR, ControlSpec, ElecSpec, TStatSpec
+from .io.control import (INITVEL_GAUSS, JUMP_METR, TSTAT_NONE, ControlSpec,
+                         ElecSpec, TStatSpec)
 from .io.field import (_VDW_ABBR, VDW_LJ, VDW_SURK, FieldSpec, SpeciesSpec,
                        VdWSpec, parse_field)
 from .output.writers import write_atoms_xyz
@@ -307,6 +310,7 @@ Fe3 O 2.4 1
 # argon LJ parameters (the reference's case study 1 field)
 AR_EPS = 0.01006        # eV
 AR_SIG = 3.3952         # A
+AR_MASS = 39.9
 
 
 def lattice_positions(n_atoms: int, density: float,
@@ -322,6 +326,78 @@ def lattice_positions(n_atoms: int, density: float,
     pos = np.stack(np.meshgrid(g, g, g, indexing="ij"), -1).reshape(-1, 3)
     pos = pos[:n_atoms] + rng.uniform(-jitter, jitter, (n_atoms, 3)) * spacing
     return pos % box, box
+
+
+def lj_argon_field(rcut: float = 4.0, eps: float = AR_EPS,
+                   sig: float = AR_SIG) -> FieldSpec:
+    """One-species argon LJ field, pre-scaled as the reference reader
+    does (p0 = 4 eps, p1 = sigma^2, p2 = 24 eps)."""
+    f = FieldSpec()
+    f.species = [SpeciesSpec(name="Ar", nuclei=0, mass=AR_MASS * units.M_SCALE,
+                             charge=0.0, energy=0.0)]
+    f.nnames = ["Ar"]
+    f.nnumbers = [0]
+    f.pairpots = [VdWSpec(type=VDW_LJ, spec1=0, spec2=0, r2cut=rcut * rcut,
+                          p0=4 * eps, p1=sig * sig, p2=24 * eps)]
+    f.vdw_index = [[0]]
+    f.maxRvdw = rcut
+    return f
+
+
+def build_lj_argon(n_atoms: int = 4096, density: float = 0.012,
+                   temp: float = 120.0, rcut: float = 4.0,
+                   tstat: int = TSTAT_NONE, dt: float = 0.001,
+                   dtype: str = "f32", seed: int = 7, **kw):
+    """Argon LJ on ``lattice_positions`` at ``density`` atoms/A^3 with
+    Gaussian velocities at ``temp``: (cfg, ff, state, aux), the system of
+    ``aztotmd_tpu.systems.build_lj_argon`` at the same arguments.  ``kw``
+    goes to ``runtime.setup.build_system`` (``device``, ``pair_engine``,
+    ...); the tensors are on the CPU unless ``device`` says otherwise."""
+    from .io.atoms import AtomsData
+    from .runtime.setup import build_system
+    pos, box = lattice_positions(n_atoms, density, seed=seed)
+    ctl = ControlSpec(t_step=dt, n_step=100,
+                      tstat=TStatSpec(type=tstat, temp=temp, tau=0.5),
+                      elec=ElecSpec(type=0))
+    ctl.init_vel = INITVEL_GAUSS
+    ctl.tstat.temp = temp
+    fld = lj_argon_field(rcut=rcut)
+    atoms = AtomsData(names=["Ar"] * n_atoms, pos=pos, box=(box, box, box))
+    return build_system(ctl, fld, atoms, dtype=dtype, seed=seed, **kw)
+
+
+def clustered_slab_system(n_dev: int = 4, seed: int = 11, device=None):
+    """Two 6x6x6 jittered LJ clusters spanning slab boundaries in a dilute
+    40 A box, the dense regime that the slab step's rectangular pass (K2)
+    takes: (cfg, ff, state, aux) with cfg slab-prepared for ``n_dev``
+    slabs, as ``aztotmd_tpu.systems.clustered_slab_system``."""
+    import dataclasses
+
+    import torch
+
+    from .parallel import slab
+
+    n_side = 6
+    n_at = 2 * n_side ** 3
+    box = 40.0
+    cfg, ff, state, aux = build_lj_argon(n_atoms=n_at,
+                                         density=n_at / box ** 3,
+                                         dtype="f32", seed=seed, temp=30.0,
+                                         device=device)
+    assert abs(cfg.box[0] - box) < 1e-6
+    rng = np.random.default_rng(seed)
+    g = np.arange(n_side) * 3.6
+    lat = np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                   axis=-1).reshape(-1, 3)
+    pos = np.concatenate([lat + np.array([2.0, 2.0, 2.0]),
+                          lat + np.array([20.0, 18.0, 16.0])])
+    pos = (pos + rng.uniform(-0.25, 0.25, (n_at, 3))) % box
+    pos = torch.as_tensor(pos.astype(np.float32), device=device)
+    cfg = dataclasses.replace(cfg, pair_engine="pallas")
+    cfg = slab.prepare_slab_cfg(cfg, n_dev)
+    assert cfg.pair_engine == "pallas"      # the dense slab pass
+    state = state.replace(pos=pos, pos0=pos.clone(), nbr_ref=pos + 1e9)
+    return cfg, ff, state, aux
 
 
 def write_liquid_argon_deck(path, n_side: int = 32, density: float = 0.021,

@@ -102,8 +102,20 @@ capture time and both rates; the step profiles run replayed and eager
 JAX stat ring's two-level cadence (5 rebuilds and 20 refines in 1,000
 steps); bonded_fluid's regrow (K 24 -> 32) recaptures and its graph run
 matches an eager run; run --debug --timings, run --profile and bench
-run on surkov_cluster.  The kernel-vs-plain trajectories run eager.  Any
-failure exits non-zero.
+run on surkov_cluster.  The kernel-vs-plain trajectories run eager.
+The atom-sharded mode (``parallel/mesh.py``, ``atoms_mesh_phases``):
+molten_salt (1,000 steps, K1 + Ewald), ejump_redox (1,000, K1-cand) and
+nanoclusters (500, K4) through ``run --mesh 4 --mesh-mode atoms``, every
+pair pass a launch of the deck's kernel; 1 + 100 atoms-mode steps
+replayed against eager ones and against the one-device replays (integer
+fields exactly, positions within 1e-6 A), with graph nodes and rates
+beside one device's.  The domain pass (``domain_phase``) over 4 x-slabs
+on 4,096 argon atoms against the all-pairs plain pass, both timed.  The
+entry points (``entry_api_phases``): ``entry()`` steps once on the card,
+``dryrun_multichip(4)`` passes, and ``aztotmd_tpu_torch.run`` writes the
+CLI's stat.dat byte for byte.  K2 alone on bonded_fluid over 4 is
+profiled over 200 back-to-back launches and timed over a graph of 200.
+Any failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
 bounds.  The runs' output files go to --out (default: a temporary
@@ -156,6 +168,13 @@ TOPO_F32_STEPS = 20      # f32 mesh against one device, the tiled decks
 # topology phases run at this cut depth (CLI steps, graph steps, profiled
 # steps, timed calls) to keep the script within half its time limit
 EJUMP_MESH_DEPTH = (100, 10, 4, 3)
+ATOMS_STEPS = {"molten_salt": 1000, "ejump_redox": 1000,
+               "nanoclusters": 500}    # run --mesh 4 --mesh-mode atoms
+ATOMS_DEV = 4
+DOMAIN_ATOMS = 4096      # the domain pass on build_lj_argon's system
+API_STEPS = 200          # aztotmd_tpu_torch.run against the CLI: one stat
+                         # row of surkov_cluster (stat every 200 steps)
+ALONE_LAUNCHES = 200     # K2 alone on bonded_fluid over 4: back-to-back
 GRAPH_STEPS = 100        # graph replays against eager steps, per deck
 GRAPH_POS_ATOL = 1e-6    # A: the same kernels in the same order
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
@@ -360,19 +379,22 @@ def read_table(path, skip):
         return [[float(v) for v in ln.split()] for ln in f.readlines()[skip:]]
 
 
-def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
-    """One path through the run CLI (``--mesh mesh`` when set; or
-    ``runner_fn(out)``, which runs and returns an MDRunner) with every
-    launch count set to 0 just before it, and the counts held against
-    the launches torch.profiler records over a window of the same runner
-    (``launch_window``); returns (runner, launches per kernel, steps/s)."""
+def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0,
+          mesh_mode="slab"):
+    """One path through the run CLI (``--mesh mesh --mesh-mode mesh_mode``
+    when set; or ``runner_fn(out)``, which runs and returns an MDRunner)
+    with every launch count set to 0 just before it, and the counts held
+    against the launches torch.profiler records over a window of the same
+    runner (``launch_window``); returns (runner, launches per kernel,
+    steps/s)."""
     import torch
     for mod, attr in counters.values():
         setattr(mod, attr, 0)
     t0 = time.perf_counter()
     if runner_fn is None:
         runner = cli(["run", deck, "--steps", str(steps), "-o", out,
-                      "--quiet"] + (["--mesh", str(mesh)] if mesh else []))
+                      "--quiet"] + (["--mesh", str(mesh), "--mesh-mode",
+                                     mesh_mode] if mesh else []))
     else:
         runner = runner_fn(out)
     wall = time.perf_counter() - t0
@@ -384,7 +406,14 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
     log(f"  kernel launches {launches}, pair-force evaluations "
         f"{runner.steps_run}")
     check(runner.steps_run == steps, f"{name} run stopped early")
-    if mesh:
+    slab_mesh = mesh and mesh_mode == "slab"
+    if mesh_mode == "atoms":
+        n_dev = runner._atoms_mesh.n_dev
+        check(runner.comm is None and n_dev == mesh and tuple(
+            runner.state.pos.shape) == (mesh, runner.cfg.n_at // mesh, 3),
+            f"{name}: not {mesh} atom row shards")
+        log(f"  atom row shards {n_dev} of {runner.cfg.n_at // n_dev} rows")
+    if slab_mesh:
         lost = int(runner.state.mig_lost)
         log(f"  slabs {mesh}, slot capacity {runner.state.pos.shape[1]}: "
             f"{int(runner.state.mig_total)} atoms migrated, {lost} lost, "
@@ -409,7 +438,7 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
         # on a mesh the topology is the replicated tables of a reactive
         # deck (``rg``) or the per-atom records of a constant one, which
         # the runner's view counts
-        topo = runner.state.rg if mesh else runner.state
+        topo = runner.state.rg if slab_mesh else runner._view()
         bnd = read_table(os.path.join(out, "stat_bnd.dat"), 1)
         check(len(bnd) == len(rows) and bnd[-1][2] > 0,
               f"{name} stat_bnd.dat shows no bonds")
@@ -422,7 +451,7 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0):
                   if topo is not None else "constant bonds")
         log(f"  stat_bnd.dat: n_bond {int(bnd[-1][2])} at the end, "
             f"{broken}; revbonds.txt lists {n_list}")
-    if mesh and (cfg.use_bnd or cfg.use_angl):
+    if slab_mesh and (cfg.use_bnd or cfg.use_angl):
         miss = int(runner.state.bond_miss)
         log(f"  bond/angle records beyond one slab (bond_miss): {miss}")
         check(miss == 0, f"{name}: bond or angle records lost their partner")
@@ -994,14 +1023,15 @@ def mesh_trajectory(torch, load_deck_dir, make_multi_step, name, deck,
     return dpos
 
 
-def graph_case(torch, name, multi, state, ff, n=GRAPH_STEPS):
+def graph_case(torch, name, multi, state, ff, n=GRAPH_STEPS, keep=False):
     """1 + n steps eager and 1 + n replayed from CUDA graphs (the first
     call captures), from the same cloned state, with the programs of
     ``multi`` (a ``MultiStep``): every integer field exactly equal, the
     positions within GRAPH_POS_ATOL.  Logs the largest position (and
     other float) difference, the graphs' nodes, their capture time and
     both rates over the n timed steps; returns (eager steps/s, graph
-    steps/s, graph nodes per step)."""
+    steps/s, graph nodes per step), and with ``keep`` the replayed state
+    after them."""
     from aztotmd_tpu_torch.runtime.graph import clone_state, state_leaves
     from aztotmd_tpu_torch.runtime.step import MultiStep
     runs = {}
@@ -1030,11 +1060,155 @@ def graph_case(torch, name, multi, state, ff, n=GRAPH_STEPS):
         f"steps/s, graph {rg:.1f} steps/s ({rg / re_:.2f}x)")
     check(not differ and dpos <= GRAPH_POS_ATOL,
           f"{name}: graph replays and eager steps differ")
-    return re_, rg, nodes.get("step")
+    return (re_, rg, nodes.get("step")) + ((sg,) if keep else ())
 
 
 def _share(v):
     return "not measured" if v is None else f"{v:.3f}"
+
+
+def atoms_mesh_phases(torch, dev, out, cli, counters, card, rates,
+                      one_graph):
+    """The atom-sharded mode (``parallel/mesh.py``) over ATOMS_DEV row
+    shards on the one card: molten_salt (K1 + Ewald), ejump_redox
+    (K1-cand) and nanoclusters (K4) through ``run --mesh 4 --mesh-mode
+    atoms`` (``drive``: every pair pass a launch of the deck's kernel, the
+    counts against the profiler's over a window); then from each deck's
+    first state 1 + 100 atoms-mode steps eager and replayed
+    (``graph_case``), and the replayed ones against the one-device
+    replays of the graph phase (``one_graph``): every integer field
+    exactly, positions within GRAPH_POS_ATOL.  Logs the graph nodes a
+    step and the rates beside the one-device ones of this call
+    (``rates``); returns the numbers by deck."""
+    from aztotmd_tpu_torch.parallel import LocalRing
+    from aztotmd_tpu_torch.parallel.mesh import (
+        gather_state, make_sharded_multi_step, shard_state, state_shardings)
+    from aztotmd_tpu_torch.runtime.graph import state_leaves
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    decks = {"molten_salt": (SALT_DECK, "allpairs"),
+             "ejump_redox": (EJUMP_DECK, "allpairs_cand"),
+             "nanoclusters": (NANO_DECK, "sparse")}
+    phase(f"atoms mesh: run --mesh {ATOMS_DEV} --mesh-mode atoms (every "
+          "pair pass a launch of the deck's kernel)")
+    res = {}
+    for nm, (deck, kern) in decks.items():
+        runner, launches, rate = drive(
+            cli, counters, f"{nm} --mesh {ATOMS_DEV} --mesh-mode atoms", deck,
+            os.path.join(out, nm + "_atoms"), ATOMS_STEPS[nm],
+            mesh=ATOMS_DEV, mesh_mode="atoms")
+        want = {k: (runner.steps_run if k == kern else 0) for k in counters}
+        check(launches == want, f"the {nm} atoms run's pair passes did not "
+              f"all go through {kern}")
+        res[nm] = {"cli_steps_per_s": rate, "launches": launches[kern]}
+    phase(f"atoms mesh: 1 + {GRAPH_STEPS} atoms-mode steps replayed vs "
+          "eager, and vs the one-device replays (integer fields exactly, "
+          f"positions within {GRAPH_POS_ATOL} A)")
+    for nm, (deck, _) in decks.items():
+        d = load_deck_dir(deck, device=dev)
+        mesh = LocalRing(ATOMS_DEV, dev)
+        spec = state_shardings(mesh, d["state"], d["cfg"].n_at)
+        multi = make_sharded_multi_step(d["cfg"], d["aux"], mesh, spec)
+        e, g, nodes, sg = graph_case(
+            torch, f"{nm} atoms over {ATOMS_DEV}", multi,
+            shard_state(mesh, d["state"], spec), d["ff"], keep=True)
+        a = dict(state_leaves(gather_state(mesh, sg, spec)))
+        b = dict(state_leaves(one_graph[nm]))
+        differ = [k for k in b if not b[k].is_floating_point()
+                  and not torch.equal(a[k], b[k])]
+        dpos = float((a["pos"] - b["pos"]).abs().max())
+        bitwise = all(torch.equal(a[k], b[k]) for k in b)
+        e1, g1, n1 = rates[nm]
+        log(f"  {nm}: atoms-mode replays vs one-device replays, "
+            f"{GRAPH_STEPS + 1} steps: max|dpos| {dpos:.3e} A, integer "
+            f"fields {'equal' if not differ else differ}, every field "
+            f"{'bitwise equal' if bitwise else 'not bitwise equal'}; graph "
+            f"nodes a step {nodes} (one device {n1}); bare steps/s eager -> "
+            f"replayed: atoms {e:.1f} -> {g:.1f}, one device {e1:.1f} -> "
+            f"{g1:.1f} (replayed {g / g1:.3f}x); CLI "
+            f"{res[nm]['cli_steps_per_s']:.1f} steps/s; on {card}")
+        check(not differ and dpos <= GRAPH_POS_ATOL,
+              f"{nm}: atoms-mode replays and one-device replays differ")
+        res[nm].update(eager=e, replayed=g, nodes=nodes, one_eager=e1,
+                       one_replayed=g1, one_nodes=n1, bitwise=bitwise)
+    return res
+
+
+def domain_phase(torch, dev, card):
+    """``pair_forces_domain`` over a LocalRing of 4 x-slabs on the card, on
+    ``build_lj_argon(DOMAIN_ATOMS)`` re-gridded as the JAX package's test
+    does (ncx floored to a multiple of 4), against the port's all-pairs
+    plain pass: forces within FORCE_ATOL*max|F|, energy within
+    ENERGY_REL; both timed (CUDA events).  Returns (domain ms, all-pairs
+    ms, max|dF|)."""
+    from aztotmd_tpu_torch.core.config import make_block_grid
+    from aztotmd_tpu_torch.ops.pairs import all_pairs_forces
+    from aztotmd_tpu_torch.parallel import LocalRing, pair_forces_domain
+    from aztotmd_tpu_torch.systems import build_lj_argon
+    phase(f"domain: pair_forces_domain over 4 x-slabs vs the all-pairs "
+          f"plain pass, {DOMAIN_ATOMS} argon atoms")
+    n = 4
+    cfg, ff, st, _ = build_lj_argon(n_atoms=DOMAIN_ATOMS, device=dev)
+    grid = make_block_grid(cfg.box, cfg.r_max, cfg.n_at)
+    ncx = max((grid.dims[0] // n) * n, n)
+    dcfg = dataclasses.replace(cfg, grid=dataclasses.replace(
+        grid, dims=(ncx,) + grid.dims[1:],
+        edge=(cfg.box[0] / ncx,) + grid.edge[1:]))
+    comm = LocalRing(n, dev)
+    dom = lambda: pair_forces_domain(dcfg, ff, st.pos, st.types, comm)
+    ref_fn = lambda: all_pairs_forces(cfg, ff, st.pos, st.types)
+    frc, ev, _ = dom()
+    ref = ref_fn()
+    torch.cuda.synchronize()
+    err = float((frc - ref.frc).abs().max())
+    scale = float(ref.frc.abs().max())
+    ok = (err <= FORCE_ATOL * max(scale, 1.0) and abs(float(ev) - float(
+        ref.eng_vdw)) <= ENERGY_REL * abs(float(ref.eng_vdw)) + 1e-6)
+    ms_dom, ms_all = timed(torch, [dom, ref_fn], n=5)
+    log(f"  grid {dcfg.grid.dims} cap {dcfg.grid.cap}: max|dF| {err:.3e} "
+        f"(limit {FORCE_ATOL * max(scale, 1.0):.3e}), Evdw {float(ev):.6f} "
+        f"vs {float(ref.eng_vdw):.6f}; domain pass {ms_dom:.4f} ms, "
+        f"all-pairs plain pass {ms_all:.4f} ms (medians of 10, CUDA events)"
+        f" on {card}  {'ok' if ok else 'FAIL'}")
+    check(ok, "the domain pass disagrees with the all-pairs pass")
+    return ms_dom, ms_all, err
+
+
+def entry_api_phases(torch, cli, out, card):
+    """``entry()`` steps once on the card; ``dryrun_multichip(4)`` passes
+    on the card; ``aztotmd_tpu_torch.run`` on surkov_cluster for
+    API_STEPS steps writes the stat.dat that the CLI writes for the same
+    steps, byte for byte."""
+    import aztotmd_tpu_torch
+    from aztotmd_tpu_torch.entry import dryrun_multichip, entry
+    phase("entry and API: entry(), dryrun_multichip(4), "
+          "aztotmd_tpu_torch.run against the CLI")
+    fn, (state, ff) = entry()
+    check(state.pos.is_cuda, "entry() did not put the system on the card")
+    o = fn(state, ff)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(o.pos).all()) and int(o.step) == 1,
+          "entry()'s step is not finite")
+    log(f"  entry ok; energies.tot = {float(o.energies.tot)} "
+        f"({state.pos.shape[0]} atoms, {o.pos.device})")
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    torch.cuda.synchronize()
+    dry = time.perf_counter() - t0
+    log(f"  dryrun_multichip(4) ok in {dry:.1f} s on {card}")
+    a, b = os.path.join(out, "api_run"), os.path.join(out, "api_cli")
+    r = aztotmd_tpu_torch.run(SURKOV_DECK, out_dir=a, n_steps=API_STEPS,
+                              quiet=True)
+    check(r.state.pos.is_cuda, "aztotmd_tpu_torch.run did not run on the card")
+    cli(["run", SURKOV_DECK, "--steps", str(API_STEPS), "-o", b, "--quiet"])
+    with open(os.path.join(a, "stat.dat")) as f, \
+            open(os.path.join(b, "stat.dat")) as g:
+        text, want = f.read(), g.read()
+    rows = len(text.splitlines()) - 2
+    log(f"  aztotmd_tpu_torch.run on surkov_cluster, {API_STEPS} steps: "
+        f"stat.dat {'equal to' if text == want else 'DIFFERS from'} the "
+        f"CLI's, byte for byte ({rows} row)")
+    check(text == want and rows >= 1,
+          "aztotmd_tpu_torch.run and the CLI wrote different stat.dat")
 
 
 def rdf_case(torch, name, runner, card):
@@ -1725,7 +1899,7 @@ def run(dev, out):
     phase(f"CUDA-graph replays vs eager steps: 1 + {GRAPH_STEPS} steps each "
           "from the same state (integer fields exactly, positions within "
           f"{GRAPH_POS_ATOL} A; rates over the {GRAPH_STEPS} timed steps)")
-    rates = {}
+    rates, one_graph = {}, {}
     for nm, deck, kw in (("surkov_cluster", SURKOV_DECK, {}),
                          ("nanoclusters", NANO_DECK, {}),
                          ("reactive_polymer", POLY_DECK, {}),
@@ -1738,8 +1912,11 @@ def run(dev, out):
                          ("argon_gas", GAS_DECK, {}),
                          ("bonded_fluid", BONDED_DECK, {})):
         d = load_deck_dir(deck, device=dev, **kw)
-        rates[nm] = graph_case(torch, nm, make_multi_step(d["cfg"], d["aux"]),
-                               d["state"], d["ff"])
+        res = graph_case(torch, nm, make_multi_step(d["cfg"], d["aux"]),
+                         d["state"], d["ff"], keep=nm in ATOMS_STEPS)
+        rates[nm] = res[:3]
+        if nm in ATOMS_STEPS:
+            one_graph[nm] = res[3]
     for nm, deck in (("surkov_cluster", SURKOV_DECK),
                      ("nanoclusters", NANO_DECK)):
         cfg, ff, aux, comm, st = mesh_system(load_deck_dir, deck,
@@ -1749,6 +1926,14 @@ def run(dev, out):
             cfg, aux, comm), st, ff)
     log(f"bare steps/s on {card}, eager -> graph (nodes a step): " + ", ".join(
         f"{nm} {e:.1f} -> {g:.1f} ({n})" for nm, (e, g, n) in rates.items()))
+
+    # --- the atom-sharded mode, the domain pass, the entry points ---
+    atoms = atoms_mesh_phases(torch, dev, out, cli, counters, card, rates,
+                              one_graph)
+    del one_graph
+    log(f"atoms mesh numbers on {card}: " + json.dumps(atoms))
+    domain = domain_phase(torch, dev, card)
+    entry_api_phases(torch, cli, out, card)
 
     phase("the RDF sample, one device: eager and replayed (CUDA events, "
           "medians of 20), counts against torch.bincount's")
@@ -1966,12 +2151,29 @@ def run(dev, out):
     times["K2 bonded_fluid"] = k2_timing("bonded_fluid")
     kprof = {}
     for key, fn in alones.items():
-        kprof[key], seen = profile_alone(fn)
+        # K2 on bonded_fluid is a launch of a few microseconds, of which a
+        # profile of 20 once recorded none: ALONE_LAUNCHES back to back
+        n = ALONE_LAUNCHES if key == "K2 bonded_fluid" else 20
+        kprof[key], seen = profile_alone(fn, n)
         log(f"profile {key}: kernel alone "
             + (f"{kprof[key]:.4f} ms a launch" if kprof[key] else
                "not measured (no device time recorded)")
-            + f" (torch.profiler, mean of the {seen} of 20 launches it "
+            + f" (torch.profiler, mean of the {seen} of {n} launches it "
             f"recorded) on {card}")
+
+    def graph_alone(name, fn, n=ALONE_LAUNCHES):
+        """ms a launch of ``fn`` over a CUDA graph of n back-to-back
+        launches, CUDA events around each replay (no host call between
+        the launches; each node's own launch gap included)."""
+        from aztotmd_tpu_torch.runtime.graph import Program
+        p = Program(name, lambda: [fn() for _ in range(n)], fn, dev)
+        ms, = timed(torch, [p.replay], n=5)
+        return ms / n
+
+    k2b_graph = graph_alone("K2 bonded_fluid alone", alones["K2 bonded_fluid"])
+    log(f"timing K2 bonded_fluid: kernel alone {k2b_graph:.5f} ms a launch "
+        f"over a graph of {ALONE_LAUNCHES} back-to-back launches (medians of "
+        f"10 replays, CUDA events) on {card}")
 
     block_cfg = dataclasses.replace(k3_args[0], pair_engine="block")
     n_block = 4
@@ -2167,7 +2369,8 @@ def run(dev, out):
     l = {nm: r[1] for nm, r in runs.items()}
     salt = times["K1 molten_salt"]
     k1c_launch = (l["reactive_polymer"]["allpairs_cand"]
-                  + l["ejump_redox"]["allpairs_cand"])
+                  + l["ejump_redox"]["allpairs_cand"]
+                  + atoms["ejump_redox"]["launches"])
     k4c_launch = (l["reactive_polymer_x3"]["sparse_cand"]
                   + l["ejump_redox_x3"]["sparse_cand"])
     ej1 = times["K1-cand ejump_redox"]
@@ -2195,11 +2398,12 @@ def run(dev, out):
                    "wrapper_replay_ms": k2b[3],
                    "bound_ms": bounds["K2 bonded_fluid"][2][0],
                    "bound_filled_ms": filled_bounds["K2 bonded_fluid"][0],
-                   "kernel_profiler_ms": kprof["K2 bonded_fluid"]}}),
+                   "kernel_profiler_ms": kprof["K2 bonded_fluid"],
+                   "kernel_graph_events_ms": k2b_graph}}),
         entry("allpairs", "aztotmd_tpu_torch/csrc/allpairs.cu",
               "aztotmd_tpu/ops/pallas_pair.py:335",
-              l["surkov_cluster"]["allpairs"] + l["molten_salt"]["allpairs"],
-              k1_err, "K1",
+              l["surkov_cluster"]["allpairs"] + l["molten_salt"]["allpairs"]
+              + atoms["molten_salt"]["launches"], k1_err, "K1",
               {"profiler_ms": prof_ms(SURKOV_DECK, "allpairs_kernel<false, "
                                       "false, false>"),
                "molten_salt": {
@@ -2209,7 +2413,8 @@ def run(dev, out):
                    "kernel_profiler_ms": kprof["K1 molten_salt"],
                    "profiler_ms": prof_ms(SALT_DECK, "allpairs_kernel<false, "
                                           "false, false>"),
-                   "ewald_recip_ms": ewald_ms}}),
+                   "ewald_recip_ms": ewald_ms},
+               "domain_pass_ms": domain[0], "all_pairs_plain_ms": domain[1]}),
         entry("cellblock", "aztotmd_tpu_torch/csrc/cellblock.cu",
               "aztotmd_tpu/ops/pallas_pair.py:120",
               l["liquid_argon"]["cellblock"], k3_err, "K3",
@@ -2229,7 +2434,8 @@ def run(dev, out):
                                           "true, false>")}}),
         entry("sparse", "aztotmd_tpu_torch/csrc/sparse.cu",
               "aztotmd_tpu/ops/pallas_sparse.py:129",
-              l["nanoclusters"]["sparse"], k4_err, "K4",
+              l["nanoclusters"]["sparse"] + atoms["nanoclusters"]["launches"],
+              k4_err, "K4",
               {"profiler_ms": prof_ms(NANO_DECK, "sparse_kernel<false, "
                                       "false, false, false>"),
                "bound_worklist_ms": worklist_bounds["K4"][0]}),

@@ -117,6 +117,11 @@ PATHS = {
     "slab reactive LocalRing 2": ("reactive_polymer", {}, {},
                                   {"mesh_devices": 2}),
     "slab jumps LocalRing 3": ("ejump_redox", {}, {}, {"mesh_devices": 3}),
+    "atoms LocalRing 4": (lambda d: systems.write_surkov_cluster_deck(
+        d, n_atoms=300, box=20.0, steps=100, n_equil=20), {}, {},
+        {"mesh_devices": 4, "mesh_mode": "atoms"}),
+    "atoms neighbor LocalRing 2": ("bonded_fluid", {}, {},
+                                   {"mesh_devices": 2, "mesh_mode": "atoms"}),
 }
 
 
@@ -157,7 +162,12 @@ def _check_path(name, r):
         assert cfg.elec_type == 2
     if name == "angles":
         assert cfg.use_angl
-    if name.startswith("slab"):
+    if name.startswith("atoms"):
+        n_dev = PATHS[name][3]["mesh_devices"]
+        assert r.comm is None and r._atoms_mesh.n_dev == n_dev
+        assert r.state.pos.shape == (n_dev, cfg.n_at // n_dev, 3)
+        assert ("rebuild" in r.multi.fns) == ("neighbor" in name)
+    elif name.startswith("slab"):
         assert r.comm is not None
         assert r.comm.n_dev == PATHS[name][3]["mesh_devices"]
         assert (r.state.rg is not None) == ("reactive" in name
@@ -212,7 +222,7 @@ def test_in_place_program_equals_functional(name, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["pallas dense", "neighbor two-level rowcap",
-                                  "slab LocalRing 2"])
+                                  "slab LocalRing 2", "atoms LocalRing 4"])
 def test_graph_replays_equal_eager_on_the_card(name, tmp_path):
     """On the card: 30 steps replayed from CUDA graphs against 30 eager
     steps from the same state, integer fields exactly equal, positions

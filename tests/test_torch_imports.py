@@ -171,6 +171,34 @@ def test_copied_angle_writer_writes_equal_bytes(tmp_path):
     assert a and a == (tmp_path / "j.ang").read_bytes()
 
 
+def test_copied_io_writers_write_equal_bytes(tmp_path):
+    """The io writers (``write_atoms``, ``atoms.write_velocities``,
+    ``write_bondlist``, ``write_anglelist``) of both packages, with the
+    JAX package's signatures, from the same inputs: files equal byte for
+    byte; the package exports them as the JAX package's does."""
+    import aztotmd_tpu.io.atoms as j_atoms
+    import aztotmd_tpu_torch.io.atoms as p_atoms
+    rng = np.random.default_rng(11)
+    n = 40
+    names = [("Na", "Cl", "O")[k] for k in rng.integers(0, 3, n)]
+    types = rng.integers(0, 3, n).astype(np.int32)
+    pos = rng.uniform(-30.0, 30.0, (n, 3))
+    vel = rng.normal(size=(n, 3)) * 1e-2
+    box = (31.5, 28.25, 40.0)
+    bonds = [rng.integers(0, n, 25) for _ in range(3)]
+    angles = [rng.integers(0, n, 30) for _ in range(4)]
+    for io, atoms, tag in ((p_io, p_atoms, "p"), (j_io, j_atoms, "j")):
+        io.write_atoms(str(tmp_path / f"{tag}.xyz"), names, pos, box)
+        atoms.write_velocities(str(tmp_path / f"{tag}.vel"),
+                               ["Na", "Cl", "O", "X"], types, vel)
+        io.write_bondlist(str(tmp_path / f"{tag}.bonds"), *bonds)
+        io.write_anglelist(str(tmp_path / f"{tag}.angles"), *angles)
+    for ext in ("xyz", "vel", "bonds", "angles"):
+        a = (tmp_path / f"p.{ext}").read_bytes()
+        assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext
+    assert p_io.__all__ == j_io.__all__
+
+
 _SYNCS = (".item(", ".tolist(", ".cpu(", ".numpy(", "bincount", "nonzero",
           "torch.unique", "masked_select", "repeat_interleave")
 

@@ -170,12 +170,14 @@ def test_slab_health_regrows_and_redistributes(lj_deck, tmp_path, capsys):
 
 
 def test_mesh_cli_refusals(lj_deck, tmp_path):
-    """The atom-sharded mode raises NotImplementedError naming the ROADMAP
-    item; molten_salt's 3^3 grid is refused as in the JAX package; a
-    reactive deck, once refused, now runs on the mesh (a short run whose
-    bond table the replicated topology carries)."""
+    """The atom-sharded mode refuses 729 atoms over 4 shards with the JAX
+    runner's text (unequal shards); molten_salt's 3^3 grid is refused as
+    in the JAX package; a reactive deck, once refused, now runs on the
+    mesh (a short run whose bond table the replicated topology
+    carries)."""
     out = str(tmp_path / "o")
-    with pytest.raises(NotImplementedError, match="parallel/mesh.py.*ROADMAP"):
+    with pytest.raises(ValueError, match="n_at=729 not divisible by mesh "
+                       r"size 4 \(atom-sharded mode needs equal shards\)"):
         main(["run", lj_deck, "--mesh", "4", "--mesh-mode", "atoms",
               "--cpu", "-o", out])
     with pytest.raises(ValueError, match="27-point stencil"):
