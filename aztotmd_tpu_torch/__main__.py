@@ -13,7 +13,9 @@ gloo with ``--cpu``), where rank 0 writes to ``-o`` and rank r to
 ``--timings`` prints per-stage wall-clock timings and ``--profile
 LOG_DIR`` also writes a torch.profiler trace there.  On the card each
 step is a replay of a captured CUDA graph (``runtime/graph.py``).
-``bench`` times steps of a deck, eager and as graph replays.
+``bench`` times steps of a deck, eager and as graph replays, with the
+measuring function of the headline bench (``python -m
+aztotmd_tpu_torch.bench``).
 """
 
 from __future__ import annotations
@@ -132,23 +134,19 @@ def main(argv=None):
         return runner
 
     import json
-    import time
 
     import torch
 
+    from .bench import measure
     from .runtime.setup import load_deck_dir
-    from .runtime.step import MultiStep, make_step, torch_engine_reason
+    from .runtime.step import torch_engine_reason
     sysd = load_deck_dir(args.deck, dtype=args.dtype, device=device)
-    ff = sysd["ff"]
     cuda = device.type == "cuda"
     name = torch.cuda.get_device_name(device) if cuda else "cpu"
 
-    def sync():
-        if cuda:
-            torch.cuda.synchronize(device)
-
     res = None
-    # one line eager, one line as CUDA-graph replays of the same step
+    # one line eager, one line as CUDA-graph replays of the same steps,
+    # each timed by the headline bench's measure (bench.py)
     for graph in (False, True):
         line = {"graph": graph, "n_at": sysd["cfg"].n_at, "device": name}
         if graph and not cuda:
@@ -156,14 +154,8 @@ def main(argv=None):
                         note="CUDA graphs need the card")
             print(json.dumps(line))
             continue
-        multi = MultiStep({"step": make_step(sysd["cfg"], sysd["aux"])},
-                          graph)
-        state = multi(sysd["state"], ff, args.warmup)
-        sync()
-        t0 = time.perf_counter()
-        multi(state, ff, args.steps)
-        sync()
-        line["steps_per_sec"] = args.steps / (time.perf_counter() - t0)
+        line["steps_per_sec"] = measure(sysd, args.steps, 1, graph,
+                                        warm=args.warmup)["steps_per_sec"]
         if cuda:
             # why the pair pass is torch ops and no kernel, or null
             line["torch_engine"] = torch_engine_reason(

@@ -47,24 +47,26 @@ def _neigh_stats(pos, box, reach: float, n_sample: int = 4096,
     cell = np.floor(p / bx * dims).astype(np.int64) % dims
     cid = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
     order = np.argsort(cid, kind="stable")
-    starts = np.searchsorted(cid[order], np.arange(dims.prod() + 1))
+    scid = cid[order]
     idx = np.arange(n) if n <= n_sample else \
         np.random.default_rng(seed).choice(n, n_sample, replace=False)
     # per-axis offsets; small grids collapse aliased periodic images
     ax = [(-1, 0, 1) if d >= 3 else ((0, 1) if d == 2 else (0,))
           for d in dims]
-    offs = [(a, b, c) for a in ax[0] for b in ax[1] for c in ax[2]]
+    offs = np.array([(a, b, c) for a in ax[0] for b in ax[1]
+                     for c in ax[2]], np.int64)
+    # the sampled atoms' stencil cells and their runs in the sorted ids
+    # (searched per cell: a table of every cell's start is 2e8 entries
+    # for a 1e6-atom dilute box)
+    sc = (cell[idx][:, None, :] + offs[None, :, :]) % dims
+    keys = (sc[..., 0] * dims[1] + sc[..., 1]) * dims[2] + sc[..., 2]
+    lo = np.searchsorted(scid, keys, side="left")
+    hi = np.searchsorted(scid, keys, side="right")
     r2 = reach * reach
     mx = 0
     n_occ = 0
-    for i in idx:
-        c = cell[i]
-        cand = np.concatenate([
-            order[starts[k]:starts[k + 1]]
-            for k in (((c[0] + a) % dims[0] * dims[1]
-                       + (c[1] + b) % dims[1]) * dims[2]
-                      + (c[2] + cc) % dims[2]
-                      for a, b, cc in offs)])
+    for s, i in enumerate(idx):
+        cand = np.concatenate([order[a:b] for a, b in zip(lo[s], hi[s])])
         d = p[cand] - p[i]
         d -= bx * np.round(d / bx)
         cnt = int(np.count_nonzero(np.sum(d * d, axis=1) <= r2)) - 1

@@ -11,9 +11,10 @@ Every selection is ordered as the JAX package orders it: its ``top_k``
 and ``lax.sort`` are a stable ascending sort here (``top_k`` of -x keeps
 the lower column first among equal values, as a stable sort of x does),
 on keys cast to f32 as JAX casts them, so an f64 run also orders by f32
-r2 with ties broken by column.  ``compact_orows`` and the ``orow``
-argument of the refine are not ported: the refine over all rows gives
-the same lists.  No function synchronises with the host.
+r2 with ties broken by column.  On dilute decks (``nb_orowcap`` > 0) the
+row refine sweeps only the rows that had an outer neighbor at the last
+full rebuild (``compact_orows``).  No function synchronises with the
+host.
 """
 
 from __future__ import annotations
@@ -193,6 +194,26 @@ def compact_rows(nbr_idx, r_cap: int, n_at: int):
     return nbrow, n_rows
 
 
+def compact_orows(idx2, o_cap: int, n_at: int):
+    """Ascending ids of the rows with at least one entry in the outer
+    (N, K2) list, padded with the sentinel ``n_at`` to ``o_cap`` entries
+    (o_cap <= N), and the true count of such rows (past o_cap the highest
+    ids are dropped: the ``orow_over`` monitor).  Computed at each full
+    rebuild; a row empty here refines to an empty inner list until the
+    next one."""
+    N = n_at
+    if o_cap > N:
+        # lax.top_k refuses k past the axis too
+        raise ValueError(f"compact_orows: o_cap {o_cap} exceeds the {N} "
+                         "rows")
+    has = torch.any(idx2 != N, dim=1)
+    n_rows = torch.sum(has, dtype=torch.int32)
+    key = torch.where(has, torch.arange(N, dtype=torch.int32,
+                                        device=idx2.device), N)
+    orow = torch.sort(key, stable=True).values[:o_cap].to(torch.int32)
+    return orow, n_rows
+
+
 def _walk(cfg, ff, pos, types, cand, rows=None, radii=None, parents=None,
           want_bind: bool = False, want_jump: bool = False) -> PairResult:
     """The walk: rows=None walks all N atoms (row r = atom r), otherwise
@@ -328,10 +349,15 @@ def refine_neighbors(cfg, pos, nbr2):
     return idx, torch.max(torch.sum(mask, dim=1)).to(torch.int32)
 
 
-def refine_neighbors_rows(cfg, pos, nbr2, r_cap: int):
+def refine_neighbors_rows(cfg, pos, nbr2, r_cap: int, orow=None):
     """Row-first inner refine for the row-compacted walk: count each
     row's outer entries in reach, take the occupied rows (ascending, at
-    most r_cap), and refine only those.
+    most r_cap), and refine only those.  ``orow`` (``compact_orows``,
+    o_cap >= r_cap entries) restricts the count to the rows that had an
+    outer entry at the last full rebuild; its sentinel entries N read
+    the all-sentinel padding row of the outer list and count zero.  The
+    lists are the same: a row with an empty outer list refines to an
+    empty inner list.
 
     Returns (idx (N, K), nbrow (r_cap, 1 + K), n_real_max, n_rows): idx
     and nbrow equal ``refine_neighbors`` + ``compact_rows`` on every
@@ -343,13 +369,23 @@ def refine_neighbors_rows(cfg, pos, nbr2, r_cap: int):
     r_nb = cfg.r_max + cfg.nb_skin
     pos_p = _pad_row(pos, 0.0)
 
-    r2 = _r2(pos, pos_p[nbr2.long()], cfg)
-    n_real = torch.sum((nbr2 != N) & (r2 <= r_nb * r_nb), dim=1)
+    if orow is None:
+        row_ids = torch.arange(N, dtype=torch.int32, device=dev)
+        r2 = _r2(pos, pos_p[nbr2.long()], cfg)
+        cnt = nbr2
+    else:
+        if r_cap > orow.shape[0]:
+            raise ValueError(f"refine_neighbors_rows: r_cap {r_cap} exceeds "
+                             f"the {orow.shape[0]} outer-occupied row slots")
+        row_ids = orow
+        cnt = _pad_row(nbr2, N)[orow.long()]               # (o_cap, K2)
+        r2 = _r2(pos_p[orow.long()], pos_p[cnt.long()], cfg)
+    n_real = torch.sum((cnt != N) & (r2 <= r_nb * r_nb), dim=1)
     has = n_real > 0
     nmax = torch.max(n_real).to(torch.int32)
     n_rows = torch.sum(has, dtype=torch.int32)
 
-    key = torch.where(has, torch.arange(N, dtype=torch.int32, device=dev), N)
+    key = torch.where(has, row_ids, N)
     rows = torch.sort(key).values[:r_cap].to(torch.int32)
     rows_l = rows.long()
     cr = _pad_row(nbr2, N)[rows_l]                         # (r_cap, K2)

@@ -1,9 +1,12 @@
-"""Pair-pass result, the O(N^2) oracle and the bind/jump candidate
-selection (port of ``aztotmd_tpu/ops/pairs.py``: ``PairResult``,
-``min_image``, ``all_pairs_forces``, ``bind_jump_candidates``,
-``bind_jump_candidates_rows``, ``_jump_candidates``, ``_row_argmin``).
-The oracle builds the full (N, N) matrices; the engines are checked
-against it.  The candidate selection is the try_to_bind / try_to_jump
+"""Pair-pass result, the "gather" engine, the O(N^2) oracle and the
+bind/jump candidate selection (port of ``aztotmd_tpu/ops/pairs.py``:
+``PairResult``, ``min_image``, ``pair_forces``, ``all_pairs_forces``,
+``bind_jump_candidates``, ``bind_jump_candidates_rows``,
+``_jump_candidates``, ``_row_argmin``).  The "gather" engine gathers each
+atom's stencil-cell candidates into an (N, S * cap) matrix and evaluates
+it with masks (torch ops on either device, as JAX's is XLA: no Pallas
+kernel lies on it).  The oracle builds the full (N, N) matrices; the
+engines are checked against it.  The candidate selection is the try_to_bind / try_to_jump
 registration of the reference's pair kernel as row minima: a bond
 candidate is the nearest atom in bonding range of a bonding species
 pair that is not already the row's parent (nor has the row as its
@@ -48,6 +51,95 @@ def no_candidates(n: int, dtype, device):
 def min_image(delta, cfg):
     box = const(cfg.box, delta.dtype, delta.device)
     return delta - box * torch.round(delta / box)
+
+
+def pair_forces(cfg, ff, pos, types, radii=None, parents=None,
+                want_bind: bool = False, want_jump: bool = False
+                ) -> PairResult:
+    """The "gather" engine: every atom's candidates from the stencil cells
+    of ``cfg.grid`` as an (N, M) matrix, masked physics on it, forces as
+    row sums (each pair seen from both sides), energies as half sums, the
+    bind and jump candidates as row minima, and the fullest cell's
+    occupancy as ``max_occ``."""
+    N = cfg.n_at
+    dt = pos.dtype
+    dev = pos.device
+    nsp = cfg.n_spec
+
+    coords = cl.cell_coords(cfg, pos)
+    table, max_occ = cl.build_cell_table(cfg, pos)
+    cand = cl.gather_candidates(cfg, table, coords)           # (N, M)
+    cl_ = cand.long()
+    pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=dt, device=dev)])
+    types_p = torch.cat([types, torch.zeros(1, dtype=types.dtype,
+                                            device=dev)])
+    delta = min_image(pos[:, None, :] - pos_p[cl_], cfg)
+    r2 = torch.sum(delta * delta, dim=-1)
+    own = torch.arange(N, dtype=torch.int32, device=dev)[:, None]
+    valid = (cand != N) & (cand != own)
+    mask = valid & (r2 <= cfg.r2_max)
+    r2s = torch.where(mask, r2, torch.ones_like(r2))
+    r = torch.sqrt(r2s)
+    zero = torch.zeros_like(r2s)
+
+    tj = types_p[cl_]
+    ti = types[:, None]
+    if cfg.elec_type != ELEC_NONE:
+        tp = (ti * nsp + tj).long()
+        fc, ec = coul_eval(cfg, r2s, r, ff.chprod.reshape(-1)[tp])
+        fc = torch.where(mask, fc, zero)
+        ec = torch.where(mask, ec, zero)
+    else:
+        fc = ec = zero
+
+    if cfg.vdw_families:
+        if nsp == 1:
+            kind = ff.vdw_kind[0, 0].expand(r2s.shape)
+            vp = ff.vdw_p[0, 0].expand(r2s.shape + (5,))
+            r2cut = ff.vdw_r2cut[0, 0]
+        else:
+            tp = (ti * nsp + tj).long()
+            kind = ff.vdw_kind.reshape(-1)[tp]
+            vp = ff.vdw_p.reshape(-1, 5)[tp]
+            r2cut = ff.vdw_r2cut.reshape(-1)[tp]
+        vmask = mask & (r2 <= r2cut)
+        if cfg.use_radii:
+            rad_p = torch.cat([radii, torch.ones((1,), dtype=dt,
+                                                 device=dev)])
+            rad_i = radii[:, None].expand(r2s.shape)
+            rad_j = rad_p[cl_]
+        else:
+            rad_i = rad_j = None
+        kind = torch.where(vmask, kind, torch.zeros_like(kind))
+        fv, ev = vdw_eval(kind, vp, r2s, r, rad_i, rad_j,
+                          families=cfg.vdw_families)
+        fv = torch.where(vmask, fv, zero)
+        ev = torch.where(vmask, ev, zero)
+    else:
+        fv = ev = zero
+
+    f = torch.clamp(fc + fv, -MX_FRC, MX_FRC)
+    frc = torch.einsum("nm,nmk->nk", f, delta)
+
+    bind_idx, bind_r2 = no_candidates(N, dt, dev)
+    jump_idx, jump_r2 = bind_idx.clone(), bind_r2.clone()
+    if want_bind:
+        tpair = (ti * nsp + tj).long()
+        can = ((ff.bonding_matr.reshape(-1)[tpair] != 0) & valid
+               & (r2 <= ff.bind_r2.reshape(-1)[tpair]))
+        if parents is not None:
+            par_p = torch.cat([parents, torch.full((1,), -1,
+                                                   dtype=parents.dtype,
+                                                   device=dev)])
+            can = can & (parents[:, None] != cand) & (par_p[cl_] != own)
+        bind_idx, bind_r2 = _row_argmin(cand, r2, can, N)
+    if want_jump:
+        jump_idx, jump_r2 = _jump_candidates(cfg, ff, types, tj, cand, r2,
+                                             valid)
+    return PairResult(frc=frc, eng_vdw=0.5 * torch.sum(ev),
+                      eng_coul=0.5 * torch.sum(ec), max_occ=max_occ,
+                      bind_idx=bind_idx, bind_r2=bind_r2,
+                      jump_idx=jump_idx, jump_r2=jump_r2)
 
 
 def bind_jump_candidates(cfg, ff, pos, types, parents=None,

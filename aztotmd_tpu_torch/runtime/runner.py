@@ -12,12 +12,12 @@ end of a run with bonds and revangles.txt with angles.  At each stat
 row the runner reads the engine's capacity monitors (the block-sparse
 worklist length or the fullest cell's occupancy; on the Verlet-list
 engine the skin violations, the inner and outer neighbor counts, the
-occupied rows and the list grid's occupancy) and regrows the capacity
-(``_check_overflow``).  Each call of the multi-step starts with a full
-list rebuild, as each call of the JAX runner's host chunk loop does;
-where the JAX runner's stat ring would take its two-level cadence
-(``refine_blocks``), each stat period starts with one full rebuild and
-each RDF block with an inner refine instead.  On the card the steps, the
+occupied and outer-occupied rows and the list grid's occupancy) and
+regrows the capacity (``_check_overflow``).  Each call of the multi-step
+starts with a full list rebuild, as each call of the JAX runner's host
+chunk loop does; where the JAX runner's stat ring would take its
+two-level cadence (``refine_blocks``), each stat period starts with one
+full rebuild and each RDF block with an inner refine instead.  On the card the steps, the
 list passes and the RDF sample are replays of CUDA graphs
 (``runtime/graph.py``); every regrow rebuilds the programs, which
 recapture.
@@ -482,6 +482,8 @@ class MDRunner:
             upd["nbrow_idx"] = full(cfg.nb_rowcap, 1 + cfg.n_neigh)
         if "n_neigh2" in cap:
             upd["nbr2_idx"] = full(N, cfg.n_neigh2)
+        if "nb_orowcap" in cap:
+            upd["orow_idx"] = full(cfg.nb_orowcap)
         st = self._gather(self.state)
         self.state = self._shard(st.replace(nbr_ref=st.nbr_ref + 1e9, **upd))
         self._view_cache = None
@@ -490,8 +492,8 @@ class MDRunner:
     def _check_neighbor_monitors(self):
         """The Verlet-list monitors, with the JAX runner's formulas and
         warnings: the escalating skin monitor, then the inner neighbor
-        count (K), the occupied rows (nb_rowcap) and the outer count
-        (K2)."""
+        count (K), the occupied rows (nb_rowcap), the outer-occupied rows
+        (nb_orowcap) and the outer count (K2)."""
         st = self.state
         viol = int(st.nbr_viol)
         if viol and viol > self._viol_seen:
@@ -521,6 +523,15 @@ class MDRunner:
                       f"capacity {self.cfg.nb_rowcap}; rebuilding with "
                       f"rowcap={new_cap}", file=sys.stderr)
                 self._reset_lists(nb_rowcap=new_cap)
+        if self.cfg.nb_orowcap:
+            oover = int(self.state.orow_over)
+            if oover > self.cfg.nb_orowcap:
+                new_cap = min(_round_up(oover + max(128, oover // 4), 128),
+                              self.cfg.n_at)
+                print(f"WARNING: outer-occupied row count {oover} exceeded "
+                      f"capacity {self.cfg.nb_orowcap}; rebuilding with "
+                      f"orowcap={new_cap}", file=sys.stderr)
+                self._reset_lists(nb_orowcap=new_cap)
         if self.cfg.nb_outer > 1:
             over2 = int(self.state.nbr2_over)
             if over2 > self.cfg.n_neigh2:

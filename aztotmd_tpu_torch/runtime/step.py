@@ -1,7 +1,8 @@
 """The MD step (port of ``aztotmd_tpu/runtime/step.py``): the "pallas"
 engine (dense all-pairs or stacked cell-block pass), the block-sparse
-"sparse" engine, the cell-block "block" engine and the Verlet-list
-"neighbor" engine, with valence angles.
+"sparse" engine, the cell-block "block" engine, the per-atom candidate
+matrix of the "gather" engine and the Verlet-list "neighbor" engine,
+with valence angles.
 
 Stage order as in the JAX package:
   [Nose-Hoover pass] -> verlet1 (+wrap, counters, F=-qE, touched reset)
@@ -36,13 +37,14 @@ from ..ops.allpairs import pair_forces_pallas, pallas_branch
 from ..ops.cellblock import pair_forces_block
 from ..ops.consts import const
 from ..ops.elec import ewald_recip
+from ..ops.pairs import pair_forces
 from ..ops.sparse import pair_forces_sparse
 from .graph import StateGraphs, use_graph
 
-# the pair pass of each ported cell or dense engine ("neighbor" walks
-# its list inside the step)
+# the pair pass of each cell or dense engine ("neighbor" walks its list
+# inside the step); as in the JAX step, every other name takes "gather"
 PAIR_ENGINES = {"pallas": pair_forces_pallas, "sparse": pair_forces_sparse,
-                "block": pair_forces_block}
+                "block": pair_forces_block, "gather": pair_forces}
 
 # full list rebuilds and inner refines run since the counts were last
 # set to 0 (the step's list schedule, read by checks)
@@ -55,14 +57,6 @@ class StepAux:
     photons: torch.Tensor | None = None    # (N,) photon energies
     rk: torch.Tensor | None = None         # (K, 3) Ewald k-vectors
     kweights: torch.Tensor | None = None   # (K,) exp(-k^2/4a^2)/k^2
-
-
-def _check_supported(cfg):
-    """Raise for an engine the port does not run."""
-    if cfg.pair_engine not in PAIR_ENGINES and cfg.pair_engine != "neighbor":
-        raise NotImplementedError(
-            f"pair engine {cfg.pair_engine!r} is not ported (ROADMAP.md, "
-            "not to port: the \"gather\" engine)")
 
 
 def _rowcomp_updates(cfg, state, idx):
@@ -91,12 +85,20 @@ def rebuild_neighbors_state(cfg, state):
         else:
             idx2, nmax2, occ = ops_nbr.build_outer_neighbors(cfg, pos)
             idx, nmax = ops_nbr.refine_neighbors(cfg, pos, idx2)
+        extra = {}
+        if cfg.nb_orowcap:
+            # the outer-occupied rows, which the refines sweep until the
+            # next full rebuild
+            orow, n_orow = ops_nbr.compact_orows(idx2, cfg.nb_orowcap,
+                                                 cfg.n_at)
+            extra = dict(orow_idx=orow,
+                         orow_over=torch.maximum(state.orow_over, n_orow))
         return state.replace(
             nbr_idx=idx, nbr_ref=pos, nbr2_idx=idx2,
             nbr_over=torch.maximum(state.nbr_over, nmax),
             nbr2_over=torch.maximum(state.nbr2_over, nmax2),
             cell_overflow=torch.maximum(state.cell_overflow, occ),
-            **_rowcomp_updates(cfg, state, idx))
+            **extra, **_rowcomp_updates(cfg, state, idx))
     idx, nmax, occ = ops_nbr.build_neighbors(cfg, pos)
     return state.replace(
         **_rowcomp_updates(cfg, state, idx),
@@ -107,11 +109,13 @@ def rebuild_neighbors_state(cfg, state):
 
 def refine_neighbors_state(cfg, state):
     """Inner refine from the outer list: row-first with the row-compacted
-    walk, else over all rows and then compacted."""
+    walk (over the outer-occupied rows only with ``nb_orowcap``), else
+    over all rows and then compacted."""
     nbr_counts["refine"] += 1
     if cfg.nb_rowcap:
         idx, nbrow, nmax, n_rows = ops_nbr.refine_neighbors_rows(
-            cfg, state.pos, state.nbr2_idx, cfg.nb_rowcap)
+            cfg, state.pos, state.nbr2_idx, cfg.nb_rowcap,
+            orow=state.orow_idx if cfg.nb_orowcap else None)
         return state.replace(
             nbr_idx=idx, nbr_ref=state.pos,
             nbr_over=torch.maximum(state.nbr_over, nmax),
@@ -170,9 +174,10 @@ def torch_engine_reason(cfg, dtype) -> str | None:
     """Why this configuration's pair pass is the cell-block engine (torch
     ops, thousands of small launches a pass on the card) rather than a
     CUDA kernel, or None when a kernel runs it.  ``dtype`` is the state's
-    floating type.  The neighbor engine has no kernel to bypass (no Pallas
-    kernel lies on its path in the JAX package), in f32 or f64."""
-    if cfg.pair_engine == "neighbor":
+    floating type.  The neighbor and gather engines have no kernel to
+    bypass (no Pallas kernel lies on their paths in the JAX package), in
+    f32 or f64."""
+    if cfg.pair_engine in ("neighbor", "gather"):
         return None
     if cfg.pair_engine == "block":
         return 'the deck selects the "block" engine'
@@ -201,11 +206,10 @@ def make_step(cfg, aux: StepAux | None = None, pair_fn=None,
     neighbor engine): rebuild the list inside the step on schedule or
     when stale; the multi-step passes False and rebuilds between steps.
     """
-    _check_supported(cfg)
     aux = aux or StepAux()
     neighbor = cfg.pair_engine == "neighbor"
     if not neighbor:
-        pair_fn = pair_fn or PAIR_ENGINES[cfg.pair_engine]
+        pair_fn = pair_fn or PAIR_ENGINES.get(cfg.pair_engine, pair_forces)
     want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
     want_jump = cfg.ejtype != 0
 

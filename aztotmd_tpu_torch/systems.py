@@ -14,7 +14,13 @@ density.  ``write_lj_deck`` writes the same argon deck as
 LJ liquid that the cell-block engines run; ``liquid_argon_specs`` is the
 same system at test sizes.  ``write_argon_gas_deck`` writes
 ``examples/argon_gas/``, the dilute argon gas of the reference's case
-study 1 that the Verlet-list engine runs.  ``build_lj_argon`` (with
+study 1 that the Verlet-list engine runs.  The decks of the JAX
+system's tools come from examples/argon_gas by default:
+``write_scale_argon_deck`` (``tools/make_bigdeck.py``: 320,000 or
+1,080,000 atoms), ``write_dilute_argon_deck``
+(``tools/make_dilute_deck.py``) and ``write_argon_nve_deck``
+(``tools/make_nve_deck.py``), byte for byte what each tool writes from
+the same source deck.  ``build_lj_argon`` (with
 ``lj_argon_field``) and ``clustered_slab_system`` build the JAX package's
 in-memory systems of those names, state for state.
 """
@@ -23,6 +29,7 @@ from __future__ import annotations
 
 import math
 import os
+import shutil
 
 import numpy as np
 
@@ -586,6 +593,146 @@ red-ox 0
 vdw 1
 Ar\tAr\tlnjs\t4.0\t{AR_EPS}\t{AR_SIG}
 """)
+
+ARGON_GAS = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "examples", "argon_gas")
+
+
+def _read_argon_base(src):
+    """(n0, box0, (n0, 3) positions) of ``src``/atoms.xyz, read as the
+    JAX package's deck tools read their source deck."""
+    with open(os.path.join(src, "atoms.xyz")) as f:
+        n0 = int(f.readline().split()[0])
+        box0 = float(f.readline().split()[1])
+        base = np.loadtxt(f, usecols=(1, 2, 3), max_rows=n0)
+    return n0, box0, base
+
+
+def write_scale_argon_deck(path, tiles: int, steps: int = 2000,
+                           stat: int = 200, src=ARGON_GAS):
+    """Write the scale deck of ``tools/make_bigdeck.py`` from ``src``
+    (default examples/argon_gas, case study 1 at full size): its atoms
+    tiled image-major on a tiles^3 lattice, jittered by up to 0.05 A
+    (``np.random.default_rng(11)``) and wrapped into the box, with the
+    tool's control.txt and field.txt.  tiles=2 gives 320,000 atoms and
+    tiles=3 1,080,000 from examples/argon_gas.  Returns the atom count."""
+    n0, box0, base = _read_argon_base(src)
+    t = tiles
+    rng = np.random.default_rng(11)
+    shifts = np.stack(np.meshgrid(*[np.arange(t) * box0] * 3,
+                                  indexing="ij"), -1).reshape(-1, 3)
+    pos = (base[None, :, :] + shifts[:, None, :]).reshape(-1, 3)
+    pos += rng.uniform(-0.05, 0.05, pos.shape)
+    box = box0 * t
+    pos %= box
+    n = len(pos)
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "atoms.xyz"), "w") as f:
+        f.write(f"{n}\n1 {box:.6f} {box:.6f} {box:.6f}\n")
+        np.savetxt(f, pos, fmt="Ar\t%.6f\t%.6f\t%.6f")
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""timestep 0.001 ps
+nstep {steps}
+nequil  0
+eqfreq 100
+temperature 298.0\tradi\t0.2
+init_vel\tzero\t0.0332
+permittivity  1.0
+cell_list\t85.0
+max_neigh\t185
+elec\tfenn\t8.0\t0.4\t6\t6\t6
+rdf\t14.0   0.02\t50\t{10 * steps}\tnucl
+eJump\t0\t1.7\tmetr
+Ux\t\t0.0
+stat\t\t{stat}
+""")
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write("""spec 1
+Ar\tAr\t39.9\t0.0\t0.0
+red-ox 0
+vdw 1
+Ar\tAr\tlnjs\t4.0    0.01006\t3.3952
+""")
+    return n
+
+
+def write_dilute_argon_deck(path, scale: float = 3.0, steps: int = 10000,
+                            stat: int = 200, src=ARGON_GAS):
+    """Write the dilute deck of ``tools/make_dilute_deck.py`` from ``src``:
+    its positions and box scaled by ``scale`` (density / scale^3; 1.0e-6
+    atoms/A^3 at 3 from examples/argon_gas), its field.txt copied, the
+    tool's control.txt.  Few rows then have an outer Verlet neighbor, so
+    the configuration sets ``nb_orowcap`` and the refine sweeps only the
+    outer-occupied rows.  Returns the atom count."""
+    n0, box0, base = _read_argon_base(src)
+    pos = base * scale
+    box = box0 * scale
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "atoms.xyz"), "w") as f:
+        f.write(f"{n0}\n1 {box:.6f} {box:.6f} {box:.6f}\n")
+        for p in pos:
+            f.write(f"Ar\t{p[0]:.6f}\t{p[1]:.6f}\t{p[2]:.6f}\n")
+    with open(os.path.join(src, "field.txt")) as f:
+        field = f.read()
+    with open(os.path.join(path, "field.txt"), "w") as f:
+        f.write(field)
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(f"""\
+timestep 0.001 ps
+nstep {steps}
+nequil  0
+eqfreq 100
+temperature 298.0\tradi\t0.2
+init_vel\tzero\t0.0332
+
+permittivity  1.0
+
+elec\tfenn\t8.0\t0.4\t6\t6\t6
+
+rdf\t14.0   0.02\t50\t{steps}\tnucl
+
+eJump\t0\t1.7\tmetr
+
+Ux\t\t0.0
+
+stat\t\t{stat}
+""")
+    return n0
+
+
+NVE_CONTROL = """timestep 0.001 ps
+nstep 100000
+nequil  0
+eqfreq 100
+temperature 298.0\tnone
+init_vel\tgaus\t0.0332
+
+permittivity  1.0
+
+cell_list\t85.0
+max_neigh\t185
+
+elec\tfenn\t8.0\t0.4\t6\t6\t6
+
+eJump\t0\t1.7\tmetr
+
+Ux\t\t0.0
+
+rdf\t14.0   0.02\t50\t500000\tnucl
+stat\t\t200
+"""
+
+
+def write_argon_nve_deck(path, src=ARGON_GAS):
+    """Write the NVE drift deck of ``tools/make_nve_deck.py``: ``src``'s
+    atoms.xyz and field.txt copied, thermostat off, Gaussian velocities
+    at 298 K, 100,000 steps of 1 fs."""
+    os.makedirs(path, exist_ok=True)
+    for name in ("atoms.xyz", "field.txt"):
+        shutil.copy(os.path.join(src, name), os.path.join(path, name))
+    with open(os.path.join(path, "control.txt"), "w") as f:
+        f.write(NVE_CONTROL)
+
 
 # pre-scaled parameters per VdW family (parse-time conventions of
 # aztotmd_tpu/io/field.py; LJ: p0=4e, p1=s^2, p2=24e)

@@ -115,6 +115,23 @@ entry points (``entry_api_phases``): ``entry()`` steps once on the card,
 ``dryrun_multichip(4)`` passes, and ``aztotmd_tpu_torch.run`` writes the
 CLI's stat.dat byte for byte.  K2 alone on bonded_fluid over 4 is
 profiled over 200 back-to-back launches and timed over a graph of 200.
+Last, the JAX system's scale, dilute and NVE paths and its last pair
+engine (``scale_phases``; no kernel lies on them): its tools' decks,
+written from examples/argon_gas by ``aztotmd_tpu_torch.systems``, the
+320,000- and 1,080,000-atom tilings 2,000 and 1,000 steps through the
+run CLI after bare replayed steps (setup, capture, rates, rebuilds and
+refines counted, peak memory; finite stat.dat, non-zero rdf.dat from
+the RDF cell path, no atom lost, no skin violation, every list monitor
+within its capacity); the dilute deck with and without ``nb_orowcap``
+(the inner lists equal after each of 6 refines and on atoms moved up to
+6 A; both rates and the refine's ms), and with ``nb_orowcap`` forced
+below the outer-occupied rows (the runner's warning, regrow and
+recapture, the lists equal after it); the NVE deck 1,000 f32 steps
+against 1,000 f64 (total energy within rel 1e-4) and 20,000 f32 steps
+through the CLI (the total energy's drift); "gather" on liquid_argon, 20
+steps against 20 of the block engine (within 1e-4 A) and its replayed
+rate; and ``python -m aztotmd_tpu_torch.bench --windows 2 --chunk 500``
+in a process of its own (exit 0, two four-key lines).
 Any failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
@@ -175,6 +192,16 @@ DOMAIN_ATOMS = 4096      # the domain pass on build_lj_argon's system
 API_STEPS = 200          # aztotmd_tpu_torch.run against the CLI: one stat
                          # row of surkov_cluster (stat every 200 steps)
 ALONE_LAUNCHES = 200     # K2 alone on bonded_fluid over 4: back-to-back
+SCALE_STEPS = {2: 2000, 3: 1000}  # the tiled argon decks (320k, 1.08M atoms)
+SCALE_BARE = {2: 400, 3: 200}     # bare replayed steps timed on them
+OROW_REFINES = 6         # refines compared with and without nb_orowcap
+NVE_STEPS = 20000        # f32 NVE steps through run (drift)
+NVE_EQUIL = 2000         # steps before the drift's reference row
+NVE_GATE_STEPS = 1000    # f32 against f64 total energy
+NVE_GATE_REL = 1e-4
+GATHER_STEPS = 20        # "gather" against the block engine on liquid_argon
+GATHER_POS_ATOL = 1e-4   # A
+BENCH_ARGS = ["--windows", "2", "--chunk", "500"]
 GRAPH_STEPS = 100        # graph replays against eager steps, per deck
 GRAPH_POS_ATOL = 1e-6    # A: the same kernels in the same order
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
@@ -388,8 +415,7 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0,
     runner (``launch_window``); returns (runner, launches per kernel,
     steps/s)."""
     import torch
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    _zero(counters)
     t0 = time.perf_counter()
     if runner_fn is None:
         runner = cli(["run", deck, "--steps", str(steps), "-o", out,
@@ -765,6 +791,398 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
             "replayed step (torch ops; none of the port's CUDA kernels)")
         res["kernels_a_step"] = n_k / PROFILE_STEPS
     return res
+
+
+def scale_phases(torch, dev, out, cli, counters, card):
+    """The JAX system's scale, dilute and NVE paths (the decks of its
+    tools), its last pair engine and the headline bench, each with its
+    gates; returns their numbers."""
+    res = {"scale": scale_phase(torch, dev, out, cli, counters, card)}
+    res["dilute"] = dilute_phase(torch, dev, out, counters, card)
+    res["nve"] = nve_phase(torch, dev, out, cli, card)
+    res["gather"] = gather_phase(torch, dev, counters, card)
+    res["bench"] = bench_phase(torch, card)
+    return res
+
+
+def _free(torch):
+    """Release what the last phase left in the caching allocator."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()      # (and initialises the allocator)
+    torch.cuda.empty_cache()
+
+
+def _zero(counters):
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def _no_launch(counters, what):
+    check(all(getattr(mod, attr) == 0 for mod, attr in counters.values()),
+          f"{what}: a CUDA kernel ran on a path that has none")
+
+
+def scale_phase(torch, dev, out, cli, counters, card):
+    """The tiled argon decks of ``tools/make_bigdeck.py``
+    (``systems.write_scale_argon_deck`` of examples/argon_gas: 320,000 and
+    1,080,000 atoms at case study 1's density), bare replayed steps of
+    the multi-step and a run through the CLI each: no kernel launched,
+    finite stat.dat, non-zero rdf.dat from the RDF cell path, no atom
+    lost, no skin violation, every list monitor within its capacity after
+    any regrow, the JAX stat ring's cadence counted.  Returns the numbers
+    it measured."""
+    from aztotmd_tpu_torch import bench, systems
+    from aztotmd_tpu_torch.runtime import graph as graph_mod
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    res = {}
+    for tiles, steps in SCALE_STEPS.items():
+        deck = os.path.join(out, f"argon_scale_x{tiles}")
+        t0 = time.perf_counter()
+        n = systems.write_scale_argon_deck(deck, tiles, steps=steps)
+        write_s = time.perf_counter() - t0
+        tag = f"argon_gas x{tiles}^3 ({n} atoms)"
+        phase(f"scale: {tag}: {SCALE_BARE[tiles]} bare replayed steps, "
+              f"then {steps} steps through the run CLI")
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        sysd = load_deck_dir(deck, device=dev)
+        setup_s = time.perf_counter() - t0
+        cfg0 = sysd["cfg"]
+        g = cfg0.nb_grid
+        log(f"  {tag}: box {cfg0.box[0]:.1f} A; load_deck_dir {setup_s:.1f}"
+            f" s, deck written in {write_s:.1f} s; R={cfg0.nb_rebuild} "
+            f"Q={cfg0.nb_outer} K={cfg0.n_neigh} K2={cfg0.n_neigh2} "
+            f"rowcap={cfg0.nb_rowcap} orowcap={cfg0.nb_orowcap}; nb_grid "
+            f"{g.dims} cap {g.cap}: candidate matrix {n} x "
+            f"{len(g.stencil) * g.cap}")
+        check(cfg0.pair_engine == "neighbor" and cfg0.n_at == n,
+              f"{tag}: not the Verlet-list engine")
+        _zero(counters)
+        bare = bench.measure(sysd, SCALE_BARE[tiles], 1, graph=True)
+        bare_peak = torch.cuda.max_memory_allocated(dev)
+        bare_rate = bare["steps_per_sec"]
+        _no_launch(counters, tag)
+        log(f"  bare: {bare_rate:.1f} replayed steps/s over "
+            f"{SCALE_BARE[tiles]} steps after {SCALE_BARE[tiles]} to warm "
+            f"up and capture ({bare['warm_s']:.1f} s, capture "
+            f"{bare['capture_s']:.2f} s, {bare['nodes']} graph nodes a "
+            f"step); peak memory {bare_peak / 2**30:.2f} GiB")
+        del sysd, bare
+        _free(torch)
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_mod.nbr_counts.update(rebuild=0, refine=0)
+        graph_mod.capture_counts.update(state=0, sample=0)
+        o = os.path.join(out, f"scale_x{tiles}")
+        t0 = time.perf_counter()
+        runner = cli(["run", deck, "--steps", str(steps), "-o", o,
+                      "--quiet"])
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        rate = runner.steps_run / runner.loop_seconds
+        got = dict(step_mod.nbr_counts)
+        caps = dict(graph_mod.capture_counts)
+        cap_s = sum(p.capture_seconds
+                    for p in runner.multi.graphs.programs.values())
+        check(runner.steps_run == steps, f"{tag}: the run stopped early")
+        _no_launch(counters, tag)
+        if runner.refine_blocks:
+            want = {"rebuild": steps // runner.p_stat,
+                    "refine": steps // runner.p_rdf}
+            check(got == want, f"{tag}: the CLI ran another cadence {got}")
+        rows = read_table(os.path.join(o, "stat.dat"), 2)
+        check(len(rows) == steps // runner.p_stat and all(
+            all(v == v and abs(v) < 1e30 for v in r) for r in rows),
+            f"{tag}: stat.dat rows missing or not finite")
+        with open(os.path.join(o, "rdf.dat")) as f:
+            gr = [float(ln.split()[1]) for ln in f.readlines()[1:]]
+        rc = runner.rcfg
+        m_rdf = len(rc.grid.stencil) * rc.grid.cap
+        check(len(gr) == rc.n_bin and max(gr) > 0.0,
+              f"{tag}: rdf.dat empty or zero")
+        check(n > m_rdf, f"{tag}: the RDF takes the all-pairs branch")
+        neighbor_run_checks(torch, runner, cfg0, tag)
+        log(f"  run: {steps} steps in {runner.loop_seconds:.2f} s loop "
+            f"({wall:.1f} s with setup and outputs): {rate:.1f} steps/s; "
+            f"list rebuilds {got['rebuild']}, refines {got['refine']} "
+            f"(ring cadence: {runner.refine_blocks}); captures "
+            f"{caps['state']} of the step programs ({cap_s:.2f} s), "
+            f"{caps['sample']} of the RDF sample; RDF cell grid "
+            f"{rc.grid.dims} cap {rc.grid.cap} ({m_rdf} candidates an "
+            f"atom: the cell path); stat.dat {len(rows)} finite rows, last "
+            f"engTot {rows[-1][2]:.4f} eV engKin {rows[-1][3]:.4f} eV; "
+            f"rdf.dat highest g {max(gr):.3f}")
+        log(f"scale {tag} on {card}: setup {setup_s:.1f} s, capture "
+            f"{cap_s:.2f} s, CLI {rate:.1f} steps/s, bare replayed "
+            f"{bare_rate:.1f} steps/s, rebuilds {got['rebuild']} and "
+            f"refines {got['refine']} in {steps} steps, peak memory "
+            f"{peak / 2**30:.2f} GiB through the CLI, {bare_peak / 2**30:.2f}"
+            " GiB bare (torch.cuda.max_memory_allocated)")
+        res[f"x{tiles}"] = dict(
+            n_at=n, setup_s=setup_s, write_s=write_s, capture_s=cap_s,
+            cli_steps_per_s=rate, bare_steps_per_s=bare_rate,
+            rebuilds=got["rebuild"], refines=got["refine"],
+            peak_gib=peak / 2**30, bare_peak_gib=bare_peak / 2**30)
+        del runner
+        _free(torch)
+    return res
+
+
+def dilute_phase(torch, dev, out, counters, card):
+    """The dilute deck of ``tools/make_dilute_deck.py``
+    (``systems.write_dilute_argon_deck``: examples/argon_gas scaled 3x,
+    1.0e-6 atoms/A^3), whose configuration sets ``nb_orowcap``: replayed
+    multi-steps with the outer-row-compacted refine and without it
+    (``nb_orowcap`` 0), one after the other, their inner lists equal
+    exactly after each of OROW_REFINES refines; both rates and the
+    refine's ms; then a run whose ``nb_orowcap`` is forced to the row
+    capacity, below the outer-occupied count: the runner warns, regrows,
+    rebuilds and recaptures, and afterwards the refine over the
+    outer-occupied rows still gives the lists of the refine over all
+    rows.  Returns the numbers it measured."""
+    import contextlib
+    import io
+    from aztotmd_tpu_torch import bench, systems
+    from aztotmd_tpu_torch.runtime import graph as graph_mod
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    deck = os.path.join(out, "argon_dilute")
+    systems.write_dilute_argon_deck(deck)
+    d = load_deck_dir(deck, device=dev)
+    cfg, ff = d["cfg"], d["ff"]
+    N, R, Q = cfg.n_at, cfg.nb_rebuild, cfg.nb_outer
+    phase(f"dilute and orow: the dilute deck ({N} atoms, box "
+          f"{cfg.box[0]:.1f} A) with nb_orowcap {cfg.nb_orowcap} and with "
+          f"0: {OROW_REFINES} refines, the inner lists equal after each")
+    check(cfg.pair_engine == "neighbor" and cfg.nb_rowcap
+          and cfg.nb_rowcap <= cfg.nb_orowcap < N,
+          "the dilute deck does not take the outer-row-compacted refine")
+    res, lists = {}, {}
+    counts0 = dict(step_mod.nbr_counts)
+    for oc in (cfg.nb_orowcap, 0):
+        c = dataclasses.replace(cfg, nb_orowcap=oc)
+        _zero(counters)
+        seen = []
+        step_mod.make_multi_step(c, d["aux"]).refine_blocks(
+            d["state"], ff, OROW_REFINES, R, after_block=lambda s: seen.append(
+                (s.nbr_idx.clone(), s.nbrow_idx.clone(), s.nbr_over.clone(),
+                 s.nbrow_over.clone(), s.orow_over.clone())))
+        lists[oc] = seen
+        m = bench.measure(dict(d, cfg=c), Q * R, 1, graph=True)
+        _no_launch(counters, f"dilute deck, nb_orowcap {oc}")
+        st = step_mod.rebuild_neighbors_state(c, d["state"])
+        refine = lambda s, ff_: step_mod.refine_neighbors_state(c, s)
+        static, scratch = graph_mod.clone_state(st), graph_mod.clone_state(st)
+        prog = graph_mod.Program(
+            "refine", lambda: graph_mod.advance_in_place(refine, static, ff),
+            lambda: refine(scratch, ff), dev)
+        eager_ms, replay_ms = timed(torch, [lambda: refine(st, ff),
+                                            prog.replay], n=10)
+        res[f"orowcap_{oc}"] = dict(
+            replayed_steps_per_s=m["steps_per_sec"], refine_ms=eager_ms,
+            refine_replayed_ms=replay_ms,
+            outer_rows=int(st.orow_over) if oc else None)
+        log(f"  nb_orowcap {oc}: {m['steps_per_sec']:.1f} replayed steps/s "
+            f"over Q*R = {Q * R} steps (1 rebuild, {Q - 1} refines); the "
+            f"refine {eager_ms:.4f} ms eager, {replay_ms:.4f} ms replayed "
+            f"(CUDA events); outer-occupied rows "
+            f"{int(st.orow_over) if oc else 'not compacted'} of {N}, "
+            f"outer entries {int((st.nbr2_idx < N).sum())}, inner entries "
+            f"{int((st.nbr_idx < N).sum())}, occupied rows "
+            f"{int((st.nbrow_idx[:, 0] < N).sum())} on {card}")
+        del st, static, scratch, prog
+    step_mod.nbr_counts.update(counts0)
+    for k, (a, b) in enumerate(zip(lists[cfg.nb_orowcap], lists[0])):
+        same = all(torch.equal(x, y) for x, y in zip(a[:4], b[:4]))
+        log(f"  refine {k + 1}: nbr_idx, nbrow_idx, nbr_over, nbrow_over "
+            f"{'equal' if same else 'DIFFER'} ({int((a[0] < N).sum())} "
+            f"inner entries, outer-occupied rows {int(a[4])})")
+        check(same, f"dilute deck: refine {k + 1}'s lists differ with and "
+              "without nb_orowcap")
+    check(len(lists[0]) == OROW_REFINES >= 5, "too few refines compared")
+    # at 1.0e-6 atoms/A^3 few rows have an inner neighbor: refine the
+    # outer lists again with every atom moved up to 6 A (seeded), which
+    # brings outer pairs into the inner reach
+    import numpy as np
+    st = step_mod.rebuild_neighbors_state(cfg, d["state"])
+    rng = np.random.default_rng(4)
+    moved = st.pos + torch.as_tensor(
+        rng.uniform(-6.0, 6.0, tuple(st.pos.shape)), dtype=st.pos.dtype,
+        device=dev)
+    moved = st.replace(pos=torch.remainder(moved, torch.tensor(
+        cfg.box, dtype=st.pos.dtype, device=dev)))
+    a = step_mod.refine_neighbors_state(cfg, moved)
+    b = step_mod.refine_neighbors_state(
+        dataclasses.replace(cfg, nb_orowcap=0), moved)
+    same = all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+        "nbr_idx", "nbrow_idx", "nbr_over", "nbrow_over"))
+    n_in = int((a.nbr_idx < N).sum())
+    log(f"  atoms moved up to 6 A: the refine over the {int(st.orow_over)}"
+        f" outer-occupied rows and over all rows give "
+        f"{'equal' if same else 'DIFFERENT'} lists ({n_in} inner entries, "
+        f"{int((a.nbrow_idx[:, 0] < N).sum())} occupied rows)")
+    check(same and n_in > 0, "dilute deck: the moved atoms' lists differ "
+          "with and without nb_orowcap, or are empty")
+    step_mod.nbr_counts.update(counts0)
+    del st, moved, a, b
+
+    small = cfg.nb_rowcap
+    sysd = load_deck_dir(deck, device=dev)
+    sysd["cfg"] = dataclasses.replace(cfg, nb_orowcap=small)
+    sysd["state"] = sysd["state"].replace(orow_idx=torch.full(
+        (small,), N, dtype=torch.int32, device=dev))
+    graph_mod.capture_counts.update(state=0, sample=0)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        r = MDRunner(sysd, out_dir=os.path.join(out, "dilute_regrow"),
+                     quiet=True)
+        r.run(400)
+        r.finalize()
+    warn = [ln for ln in err.getvalue().splitlines()
+            if ln.startswith("WARNING")]
+    caps = graph_mod.capture_counts["state"]
+    log(f"  forced nb_orowcap {small}: {warn}; nb_orowcap {small} -> "
+        f"{r.cfg.nb_orowcap}; the step programs captured {caps} times")
+    check(any(w.startswith("WARNING: outer-occupied row count") and
+              f"capacity {small}; rebuilding with orowcap="
+              f"{r.cfg.nb_orowcap}" in w for w in warn)
+          and r.cfg.nb_orowcap > small and caps >= 2
+          and int(r.state.orow_over) <= r.cfg.nb_orowcap,
+          "dilute deck: no orow regrow, or no recapture after it")
+    st = graph_mod.clone_state(r.state)
+    a = step_mod.refine_neighbors_state(r.cfg, st)
+    b = step_mod.refine_neighbors_state(
+        dataclasses.replace(r.cfg, nb_orowcap=0), st)
+    same = all(torch.equal(getattr(a, k), getattr(b, k)) for k in (
+        "nbr_idx", "nbrow_idx", "nbr_over", "nbrow_over"))
+    step_mod.nbr_counts.update(counts0)
+    log(f"  after the regrow, step {int(st.step)}: the refine over the "
+        f"{int(st.orow_over)} outer-occupied rows and over all rows give "
+        f"{'equal' if same else 'DIFFERENT'} lists")
+    check(same, "dilute deck: the lists differ after the orow regrow")
+    res["regrown_orowcap"] = r.cfg.nb_orowcap
+    del d, sysd, r, st, a, b
+    _free(torch)
+    return res
+
+
+def nve_phase(torch, dev, out, cli, card):
+    """The NVE deck of ``tools/make_nve_deck.py``
+    (``systems.write_argon_nve_deck``: examples/argon_gas, thermostat
+    off, Gaussian velocities at 298 K): NVE_STEPS f32 steps through the
+    run CLI and the relative drift of the total energy after NVE_EQUIL
+    steps; the gate: NVE_GATE_STEPS f32 and f64 steps of the deck agree
+    in total energy to NVE_GATE_REL.  Returns the numbers it measured."""
+    from aztotmd_tpu_torch import systems
+    from aztotmd_tpu_torch.drift import energy_drift
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    from aztotmd_tpu_torch.runtime.step import make_multi_step
+    deck = os.path.join(out, "argon_nve")
+    systems.write_argon_nve_deck(deck)
+    phase(f"nve: the NVE deck, {NVE_GATE_STEPS} f32 and f64 steps (total "
+          f"energy within rel {NVE_GATE_REL}), then {NVE_STEPS} f32 steps "
+          "through the run CLI")
+    tot = {}
+    for dtype in ("f32", "f64"):
+        dd = load_deck_dir(deck, device=dev, dtype=dtype)
+        s = make_multi_step(dd["cfg"], dd["aux"])(dd["state"], dd["ff"],
+                                                   NVE_GATE_STEPS)
+        tot[dtype] = float(s.energies.tot)
+        del dd, s
+    rel = abs(tot["f32"] - tot["f64"]) / abs(tot["f64"])
+    log(f"  after {NVE_GATE_STEPS} steps: engTot f32 {tot['f32']:.6f} "
+        f"eV, f64 {tot['f64']:.6f} eV, relative difference {rel:.3e} "
+        f"(limit {NVE_GATE_REL})")
+    check(rel <= NVE_GATE_REL, "nve: f32 and f64 total energies differ")
+    _free(torch)
+    o = os.path.join(out, "nve")
+    runner = cli(["run", deck, "--steps", str(NVE_STEPS), "-o", o,
+                  "--quiet"])
+    rate = runner.steps_run / runner.loop_seconds
+    rows = read_table(os.path.join(o, "stat.dat"), 2)
+    check(len(rows) == NVE_STEPS // runner.p_stat and all(
+        all(v == v and abs(v) < 1e30 for v in r) for r in rows),
+        "nve: stat.dat rows missing or not finite")
+    dr = energy_drift(os.path.join(o, "stat.dat"), NVE_EQUIL)
+    log(f"nve on {card}: {NVE_STEPS} f32 steps through run at {rate:.1f} "
+        f"steps/s; engTot {dr['ref']:.6f} eV at step {dr['ref_step']}, "
+        f"{dr['last']:.6f} eV at step {dr['last_step']}: relative drift "
+        f"{dr['rel_drift']:.3e}, largest relative deviation "
+        f"{dr['rel_max_dev']:.3e} (aztotmd_tpu_torch.drift); engKin "
+        f"{rows[0][3]:.4f} -> {rows[-1][3]:.4f} eV")
+    del runner
+    _free(torch)
+    return {"cli_steps_per_s": rate, "rel_drift": dr["rel_drift"],
+            "rel_max_dev": dr["rel_max_dev"], "f32_f64_rel": rel}
+
+
+def gather_phase(torch, dev, counters, card):
+    """The "gather" engine (``ops/pairs.py::pair_forces``, torch ops as
+    JAX's is XLA) on examples/liquid_argon: GATHER_STEPS eager steps
+    against as many of the block engine from the same state (positions
+    within GATHER_POS_ATOL), no kernel launched, and its bare replayed
+    steps/s.  Returns the numbers it measured."""
+    from aztotmd_tpu_torch import bench
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    from aztotmd_tpu_torch.runtime.step import make_multi_step
+    phase(f"gather: {GATHER_STEPS} steps of liquid_argon on 'gather' vs "
+          f"{GATHER_STEPS} on the block engine (within {GATHER_POS_ATOL} "
+          "A), bare replayed steps/s")
+    runs = {}
+    _zero(counters)
+    for eng in ("gather", "block"):
+        dd = load_deck_dir(ARGON_DECK, device=dev, pair_engine=eng)
+        check(dd["cfg"].pair_engine == eng, f"liquid_argon is not on {eng}")
+        runs[eng] = (make_multi_step(dd["cfg"], dd["aux"], graph=False)(
+            dd["state"], dd["ff"], GATHER_STEPS), dd["cfg"])
+    torch.cuda.synchronize()
+    (sg, cg), (sb, _) = runs["gather"], runs["block"]
+    dpos = float((sg.pos - sb.pos).abs().max())
+    e = {k: (float(getattr(sg.energies, k)), float(getattr(sb.energies, k)))
+         for k in ("kin", "vdw", "tot")}
+    log(f"  {cg.n_at} atoms, grid {cg.grid.dims} cap {cg.grid.cap}: "
+        f"candidate matrix {cg.n_at} x {len(cg.grid.stencil) * cg.grid.cap};"
+        f" max|dpos| {dpos:.3e} A (limit {GATHER_POS_ATOL}); " + ", ".join(
+            f"E{k} {a:.6f} vs {b:.6f}" for k, (a, b) in e.items())
+        + f"; fullest cell {int(sg.cell_overflow)} of {cg.grid.cap}")
+    check(dpos <= GATHER_POS_ATOL and all(
+        abs(a - b) <= TRAJ_ENERGY_REL * abs(b) + 1e-6 for a, b in e.values())
+        and int(sg.cell_overflow) == int(sb.cell_overflow),
+        "gather and block trajectories differ")
+    del runs, sg, sb
+    m = bench.measure(load_deck_dir(ARGON_DECK, device=dev,
+                                    pair_engine="gather"), 100, 1,
+                      graph=True, warm=20)
+    _no_launch(counters, "gather")
+    log(f"gather on {card}: liquid_argon {m['steps_per_sec']:.1f} bare "
+        f"replayed steps/s ({m['nodes']} graph nodes a step)")
+    _free(torch)
+    return {"max_dpos": dpos, "replayed_steps_per_s": m["steps_per_sec"]}
+
+
+def bench_phase(torch, card):
+    """``python -m aztotmd_tpu_torch.bench`` with BENCH_ARGS in a process
+    of its own: exit 0 and one four-key JSON line for each of its two
+    decks.  Returns the lines."""
+    cmd = [sys.executable, "-m", "aztotmd_tpu_torch.bench"] + BENCH_ARGS
+    phase("bench: " + " ".join(cmd[1:]))
+    _free(torch)
+    res = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True,
+                         timeout=900)
+    for ln in res.stderr.splitlines():
+        if ln.startswith("#") or "Error" in ln or "Traceback" in ln:
+            log(f"  bench stderr: {ln}")
+    lines = [json.loads(ln) for ln in res.stdout.splitlines() if ln.strip()]
+    for ln in lines:
+        log(f"  bench on {card}: {json.dumps(ln)}")
+    check(res.returncode == 0 and len(lines) == 2 and all(
+        sorted(ln) == ["metric", "unit", "value", "vs_baseline"]
+        and ln["value"] > 0 for ln in lines),
+        f"bench exited {res.returncode} with {len(lines)} lines")
+    return lines
 
 
 def mesh_system(load_deck_dir, deck, n_dev, dev, **load_kw):
@@ -2334,6 +2752,9 @@ def run(dev, out):
 
     nbr_res = neighbor_phases(torch, dev, out, cli, counters, card, profile)
     log("neighbor engine numbers: " + json.dumps(nbr_res))
+    log("scale, dilute, nve, gather and bench numbers on " + card + ": "
+        + json.dumps(scale_phases(torch, dev, out, cli, counters, card)))
+    phase("every phase passed")
     log(f"device idle share on {card}, eager -> graph (torch.profiler; "
         "per profile above): " + ", ".join(
             f"{tag} {_share(IDLE.get((tag, 'eager')))} -> "

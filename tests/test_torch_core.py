@@ -189,18 +189,22 @@ def test_prng_words_bit_exact(seed):
 
 def test_other_engines_raise_naming_roadmap_item(lj_deck):
     """The argon deck takes the Verlet-list engine, whose step the port
-    builds; an engine the port does not run ("gather") raises naming the
-    ROADMAP; a bonded deck builds its step on one device and on a slab
-    mesh."""
+    builds; the "gather" engine builds its step too, which runs; what the
+    port does not run (a CUDA graph of the slab step over ``DistRing``)
+    raises naming the ROADMAP; a bonded deck builds its step on one
+    device and on a slab mesh."""
     from aztotmd_tpu_torch.parallel import slab
     from aztotmd_tpu_torch.parallel.comm import LocalRing
     from aztotmd_tpu_torch.runtime.step import make_step
     d = load_deck_dir(lj_deck, dtype="f32")
     assert d["cfg"].pair_engine == "neighbor"
     assert callable(make_step(d["cfg"], d["aux"]))
-    gather = dataclasses.replace(d["cfg"], pair_engine="gather")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*gather"):
-        make_step(gather, d["aux"])
+    g = load_deck_dir(lj_deck, dtype="f32", pair_engine="gather")
+    assert g["cfg"].pair_engine == "gather"
+    st = make_step(g["cfg"], g["aux"])(g["state"], g["ff"])
+    assert int(st.step) == 1 and bool(torch.isfinite(st.pos).all())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slab.make_slab_multi_step(d["cfg"], d["aux"], object(), graph=True)
     bonded = load_deck_dir(os.path.join(ROOT, "examples", "bonded_fluid"))
     assert callable(make_step(bonded["cfg"], bonded["aux"]))
     assert callable(slab.make_slab_step(

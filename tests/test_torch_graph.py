@@ -1,7 +1,10 @@
 """The captured step (``aztotmd_tpu_torch/runtime/graph.py``) on every
 path, on the CPU: small decks built in-tree, run through the runner's own
 programs (``MDRunner.multi.fns``: the step and, on the neighbor engine,
-the full rebuild and the inner refine; the RDF sample).
+the full rebuild and the inner refine; the RDF sample).  The dilute
+argon deck (``systems.write_dilute_argon_deck``) refines over the
+outer-occupied rows (``nb_orowcap``); "gather" is the per-atom
+candidate-matrix engine.
 
 (a) Capture safety: a call after the first builds no tensor from host
     data and makes no host sync.  A ``TorchDispatchMode`` records every
@@ -89,6 +92,14 @@ def _salt_deck(d, cells=4, a=5.64):
             f.write(text)
 
 
+def _gas_src(d, n_atoms):
+    """An argon gas deck of ``n_atoms`` beside ``d``, the source of a
+    dilute deck."""
+    src = d + "_src"
+    systems.write_argon_gas_deck(src, n_atoms=n_atoms, steps=200)
+    return src
+
+
 # path -> (deck writer or example, load keywords, cfg overrides, runner
 # keywords)
 PATHS = {
@@ -108,6 +119,13 @@ PATHS = {
     "neighbor two-level rowcap": (
         lambda d: systems.write_argon_gas_deck(d, n_atoms=1000, steps=200),
         {}, {"nb_outer": 3, "nb_rebuild": 5, "nb_rowcap": 128}, {}),
+    "neighbor two-level rowcap orow": (
+        lambda d: systems.write_dilute_argon_deck(
+            d, steps=200, src=_gas_src(d, 1000)),
+        {}, {"nb_outer": 3, "nb_rebuild": 5}, {}),
+    "gather": (lambda d: systems.write_liquid_argon_deck(
+        d, n_side=8, density=0.012, rcut=4.0, steps=40),
+        {"pair_engine": "gather"}, {}, {}),
     "ewald": (_salt_deck, {}, {}, {}),
     "angles": ("bonded_fluid", {}, {}, {}),
     "slab LocalRing 2": (lambda d: systems.write_surkov_cluster_deck(
@@ -157,7 +175,8 @@ def _check_path(name, r):
     if name.startswith("neighbor"):
         assert cfg.pair_engine == "neighbor" and ("refine" in r.multi.fns) \
             == (cfg.nb_outer > 1)
-        assert bool(cfg.nb_rowcap) == name.endswith("rowcap")
+        assert bool(cfg.nb_rowcap) == ("rowcap" in name)
+        assert bool(cfg.nb_orowcap) == name.endswith("orow")
     if name == "ewald":
         assert cfg.elec_type == 2
     if name == "angles":
@@ -222,6 +241,7 @@ def test_in_place_program_equals_functional(name, tmp_path):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["pallas dense", "neighbor two-level rowcap",
+                                  "neighbor two-level rowcap orow", "gather",
                                   "slab LocalRing 2", "atoms LocalRing 4"])
 def test_graph_replays_equal_eager_on_the_card(name, tmp_path):
     """On the card: 30 steps replayed from CUDA graphs against 30 eager

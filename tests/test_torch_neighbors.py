@@ -167,8 +167,9 @@ def test_two_gather_build_matches_jax(decks, name, outer, branch):
 def test_refines_and_compaction_match_jax(decks, name, dtype):
     """refine_neighbors, refine_neighbors_rows and compact_rows from the
     outer list, after the atoms moved: exactly JAX's lists, rows and
-    monitors.  The port's row refine has no ``orow``; JAX's with ``orow``
-    (the outer-occupied rows) gives the same lists."""
+    monitors.  With ``orow`` (the outer-occupied rows of
+    ``compact_orows``) the port's row refine equals JAX's with the same
+    ``orow``, and both equal the refine over all rows."""
     j, p, pos = _load(decks, name, dtype)
     cfg = p["cfg"]
     idx2 = j_nbr.build_outer_neighbors(cfg, jnp.asarray(pos))[0]
@@ -187,10 +188,14 @@ def test_refines_and_compaction_match_jax(decks, name, dtype):
         r = j_nbr.refine_neighbors_rows(rcfg, jp, idx2, r_cap)
         orow, _ = j_nbr.compact_orows(idx2, cfg.n_at, cfg.n_at)
         ro = j_nbr.refine_neighbors_rows(rcfg, jp, idx2, r_cap, orow=orow)
-        for a, b, c_, nm in zip(g, r, ro, ("idx", "nbrow", "nmax",
-                                           "n_rows")):
+        porow, _ = nbr.compact_orows(t2, cfg.n_at, cfg.n_at)
+        _eq(porow, orow, "compact_orows")
+        po = nbr.refine_neighbors_rows(rcfg, tp, t2, r_cap, orow=porow)
+        for a, b, c_, d_, nm in zip(g, r, ro, po, ("idx", "nbrow", "nmax",
+                                                   "n_rows")):
             _eq(a, b, nm)
-            _eq(a, c_, nm + " (orow)")
+            _eq(a, c_, nm + " (JAX's orow)")
+            _eq(d_, c_, nm + " (the port's orow against JAX's)")
         cr = nbr.compact_rows(got[0], r_cap, cfg.n_at)
         jr = j_nbr.compact_rows(ref[0], r_cap, cfg.n_at)
         _eq(cr[0], jr[0], "compact")

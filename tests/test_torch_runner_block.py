@@ -1,6 +1,8 @@
 """The runner on the cell-block engines against the JAX package's runner:
-a short run of a small liquid-argon deck on "block" and on "pallas", and
-the cell-capacity regrow (with the f64 monitor of the sparse engine)."""
+a short run of a small liquid-argon deck on "block", on "pallas" and on
+"gather", and the cell-capacity regrow (with the f64 monitor of the
+sparse engine, and on "gather", which regrows as the block engine
+does)."""
 
 import os
 
@@ -61,12 +63,13 @@ def _both_runners(deck, engine, out_t, out_j, dtype="f64", grid_cap=None):
     return runners
 
 
-@pytest.mark.parametrize("engine", ["block", "pallas"])
+@pytest.mark.parametrize("engine", ["block", "pallas", "gather"])
 def test_argon_run_matches_jax_runner(argon_deck_d021, engine, tmp_path,
                                       monkeypatch):
     """400 f64 steps of the small liquid-argon deck through both runners
-    on the cell-block engine and on the pallas engine (whose f64 route it
-    is): stat.dat, rdf.dat (to 10 A, two samples) and msd.dat rtol 1e-8."""
+    on the cell-block engine, on the pallas engine (whose f64 route it
+    is) and on "gather": stat.dat, rdf.dat (to 10 A, two samples) and
+    msd.dat rtol 1e-8."""
     monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
     for r in _both_runners(argon_deck_d021, engine, out_t, out_j):
@@ -83,7 +86,8 @@ def test_argon_run_matches_jax_runner(argon_deck_d021, engine, tmp_path,
 
 @pytest.mark.parametrize("engine,dtype", [("block", "f32"),
                                           ("pallas", "f32"),
-                                          ("sparse", "f64")])
+                                          ("sparse", "f64"),
+                                          ("gather", "f32")])
 def test_cell_cap_regrow_matches_jax(argon_deck_d021, engine, dtype, tmp_path,
                                      capsys, monkeypatch):
     """A run started with a cell capacity of 2, below the fullest cell:
