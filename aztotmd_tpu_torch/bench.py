@@ -29,8 +29,12 @@ note for an RTX 2080 Ti-class GPU, bench.py:20-29).  Standard error: one
 capture seconds, the window times, chunk, atom count, engine, the card's
 name and power limit, the peak memory allocated, and from the same call
 the bare eager and replayed steps/s, the CLI's steps/s through the runner
-and the replayed RDF sample's ms on its own.  A deck that fails prints its
-traceback, the others still run, and the script exits 1.
+(with the full list rebuilds and refines it ran), the RDF plan the runner
+takes (``MDRunner._ring_plan``, the JAX stat ring's), and the replayed
+RDF sample's ms on its own: ``rdf_sample_ms`` the cell-candidate (or
+all-pairs) sample, ``rdf_plan_sample_ms`` the list sample the plan takes
+instead, where it takes one.  A deck that fails prints its traceback,
+the others still run, and the script exits 1.
 """
 
 from __future__ import annotations
@@ -122,19 +126,42 @@ def measure(sysd: dict, chunk: int, windows: int, graph: bool,
 
 def _cli_rate(sysd, device, steps):
     """steps/s of the runner over ``steps`` steps (outputs to a temporary
-    directory; loop time, setup excluded) and the runner."""
+    directory; loop time, setup excluded), the runner and the full list
+    rebuilds and refines it ran."""
+    from .runtime import step as step_mod
     from .runtime.runner import MDRunner
     with tempfile.TemporaryDirectory(prefix="aztotmd_bench_") as out:
         r = MDRunner(sysd, out_dir=out, quiet=True)
+        counts0 = dict(step_mod.nbr_counts)
+        step_mod.nbr_counts.update(rebuild=0, refine=0)
         r.run(steps)
         _sync(device)
-        return r.steps_run / r.loop_seconds, r
+        counts = dict(step_mod.nbr_counts)
+        step_mod.nbr_counts.update(counts0)
+        return r.steps_run / r.loop_seconds, r, counts
 
 
-def _rdf_ms(runner, device):
-    """ms of one RDF sample of the runner's state on its own: replayed
-    from its CUDA graph on the card (CUDA events, median of 20), eager on
-    the CPU (wall clock); None without an RDF."""
+def plan_name(runner) -> str:
+    """The RDF plan of the runner in one word: "from_outer" (the outer
+    Verlet list), "list_covers_outer" (the RDF list, the outer list
+    refined from it), "list" (the RDF list), "cells" (the cell candidates
+    or all pairs, without a stat-period plan or its list), "none" (no
+    RDF)."""
+    if runner.rcfg is None:
+        return "none"
+    if not (runner._ring_plan and runner.use_list):
+        return "cells"
+    if runner._ring_plan["rdf_from_outer"]:
+        return "from_outer"
+    return ("list_covers_outer" if runner._ring_plan["rdf_covers_outer"]
+            else "list")
+
+
+def _rdf_ms(runner, device, fn=None):
+    """ms of one RDF sample ``fn`` (default: the cell-candidate or
+    all-pairs sample) of the runner's state on its own: replayed from its
+    CUDA graph on the card (CUDA events, median of 20), eager on the CPU
+    (wall clock); None without an RDF."""
     import statistics
 
     import torch
@@ -145,7 +172,7 @@ def _rdf_ms(runner, device):
     st = runner.state
     hist = torch.zeros_like(runner.hist)
     nhist = None if runner.nhist is None else torch.zeros_like(runner.nhist)
-    sample = GraphedSample(runner._rdf.fn, "RDF sample")
+    sample = GraphedSample(fn or runner._rdf.fn, "RDF sample")
     sample(st, hist, nhist)
     ms = []
     for _ in range(20):
@@ -196,8 +223,11 @@ def bench_deck(metric, deck, device, chunk=2000, windows=5, eager=False,
         eager_sps = measure(sysd, n, 1, graph=False,
                             warm=min(10, n))["steps_per_sec"]
         graph_sps = sps
-    cli_sps, runner = _cli_rate(sysd, device, CLI_STEPS)
+    cli_sps, runner, counts = _cli_rate(sysd, device, CLI_STEPS)
     rdf_ms = _rdf_ms(runner, device)
+    plan = plan_name(runner)
+    plan_ms = (_rdf_ms(runner, device, runner._rdf_plan.fn)
+               if plan not in ("none", "cells") else None)
     del runner
     peak = torch.cuda.max_memory_allocated(device) if cuda else None
     ns_day = sps * cfg.dt * 86400.0 / 1000.0          # dt in ps
@@ -209,7 +239,9 @@ def bench_deck(metric, deck, device, chunk=2000, windows=5, eager=False,
                card=card or (card_line() if cuda else "cpu"),
                peak_bytes=peak, eager_steps_per_sec=eager_sps,
                graph_steps_per_sec=graph_sps, cli_steps_per_sec=cli_sps,
-               cli_steps=CLI_STEPS, rdf_sample_ms=rdf_ms)
+               cli_steps=CLI_STEPS, cli_rebuilds=counts["rebuild"],
+               cli_refines=counts["refine"], rdf_plan=plan,
+               rdf_sample_ms=rdf_ms, rdf_plan_sample_ms=plan_ms)
     fmt = lambda v: "null" if v is None else f"{v:.4g}"
     print(f"# deck={deck!r} mode={rec['mode']} ns/day={ns_day:.2f} "
           f"setup={setup_s:.1f}s warmup+capture={main['warm_s']:.2f}s "
@@ -219,8 +251,10 @@ def bench_deck(metric, deck, device, chunk=2000, windows=5, eager=False,
           f"nb_orowcap={cfg.nb_orowcap} card={rec['card']!r} "
           f"max_memory_allocated={peak} bare eager steps/s="
           f"{fmt(eager_sps)} bare replayed steps/s={fmt(graph_sps)} "
-          f"CLI steps/s={fmt(cli_sps)} ({CLI_STEPS} steps) replayed RDF "
-          f"sample ms={fmt(rdf_ms)}", file=sys.stderr, flush=True)
+          f"CLI steps/s={fmt(cli_sps)} ({CLI_STEPS} steps, rebuilds="
+          f"{counts['rebuild']} refines={counts['refine']}) rdf_plan={plan} "
+          f"replayed RDF sample ms={fmt(rdf_ms)} (cell candidates) "
+          f"rdf_plan_sample_ms={fmt(plan_ms)}", file=sys.stderr, flush=True)
     return rec
 
 

@@ -7,7 +7,11 @@ scaled by a per-pair weight table.  The pair ids are built in the JAX
 package's order (i < j by index, r^2 summed x, y, z), so the counts are
 the same.  Small or dense systems take the all-pairs branch; larger ones
 gather candidates from the RDF cell grid (``ops/cell_list.py``).  The
-RDF neighbor-list branch comes with the neighbor engine.
+stat-period plan of the runner samples instead from a neighbor list: an
+(N, k_cap) RDF list built with ``ops/neighbors.py`` at the RDF reach plus a
+skin (``rdf_list_cfg``), or the two-level Verlet list's outer list
+(``rdf_sample_list``).  Every sampler gives the same integer counts when
+its list covers the pairs in range.
 """
 
 from __future__ import annotations
@@ -25,6 +29,12 @@ from . import cell_list as cl
 from .consts import const
 from ..core.config import (CellGrid, _max_neigh_count, _round_up,
                            make_cell_grid)
+
+# samples taken by each sampler, and the builds of the runner's RDF list
+# ("list_build": ``rdf_list_cfg``'s list), since the counts were last set
+# to 0; on the card replays add their captures' counts
+# (``runtime/graph.py``)
+rdf_counts = {"allpairs": 0, "cells": 0, "list": 0, "list_build": 0}
 
 
 def n_pairs(n: int) -> int:
@@ -220,9 +230,53 @@ def rdf_sample(cfg, rcfg: RdfConfig, pos, types, spec_number,
     all-pairs branch, larger ones the cell-candidate branch, as in the
     JAX package."""
     if cfg.n_at <= len(rcfg.grid.stencil) * rcfg.grid.cap:
+        rdf_counts["allpairs"] += 1
         counts = rdf_counts_allpairs(cfg, rcfg, pos, types)
     else:
+        rdf_counts["cells"] += 1
         counts = rdf_counts_cells(cfg, rcfg, pos, types)
+    return _apply_weights(cfg, rcfg, counts, spec_number, spec_nuclei,
+                          nucl_number, hist, nhist)
+
+
+def rdf_list_cfg(cfg, rcfg: RdfConfig, max_cells: int = 1 << 20):
+    """A config view that points ``ops.neighbors.build_neighbors`` at the
+    RDF reach: the list reach r_rdf + skin, capacity k_cap."""
+    r_rdf = math.sqrt(rcfg.r2_max)
+    grid = make_cell_grid(cfg.box, r_rdf + rcfg.skin, cfg.n_at,
+                          max_cells=max_cells)
+    return dataclasses.replace(cfg, nb_grid=grid, n_neigh=rcfg.k_cap,
+                               nb_skin=rcfg.skin, r_max=r_rdf)
+
+
+def rdf_counts_list(cfg, rcfg: RdfConfig, pos, types, nbr):
+    """(n_bin, n_pair) integer counts of one sample over a neighbor list
+    ``nbr`` (N, K) (sentinel N), each unordered pair once (the entry
+    above the row's id); r^2 by minimum image, summed x, y, z as the JAX
+    package's RDF does."""
+    N = cfg.n_at
+    dev = pos.device
+    cand = nbr.long()
+    pos_p = torch.cat([pos, torch.zeros((1, 3), dtype=pos.dtype,
+                                        device=dev)])
+    types_p = torch.cat([types.to(torch.int32),
+                         torch.zeros((1,), dtype=torch.int32, device=dev)])
+    box = const(cfg.box, pos.dtype, dev)
+    d = pos[:, None, :] - pos_p[cand]
+    d = d - box * torch.round(d / box)
+    r2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    own = torch.arange(N, device=dev)[:, None]
+    mask = (cand != N) & (cand > own) & (r2 < rcfg.r2_max)
+    return _bin_counts(rcfg, r2, mask, types_p[:N, None], types_p[cand])
+
+
+def rdf_sample_list(cfg, rcfg: RdfConfig, pos, types, spec_number,
+                    spec_nuclei, nucl_number, nbr, hist, nhist=None):
+    """One RDF sample from a prebuilt (N, K) neighbor list: the RDF list
+    of ``rdf_list_cfg`` or the outer Verlet list.  Its counts are
+    ``rdf_sample``'s when the list holds every pair within r_rdf."""
+    rdf_counts["list"] += 1
+    counts = rdf_counts_list(cfg, rcfg, pos, types, nbr)
     return _apply_weights(cfg, rcfg, counts, spec_number, spec_nuclei,
                           nucl_number, hist, nhist)
 

@@ -20,8 +20,9 @@ Around every capture:
 - **aliases**: an output field can be the very tensor of another input
   field (``nbr_ref=pos`` in a rebuild); every output that shares storage
   with the static state is staged through a clone before any copy;
-- **launch counters** (the kernel wrappers' ``launches`` counts and
-  ``runtime.step.nbr_counts``) count Python calls, which happen at capture
+- **launch counters** (the kernel wrappers' ``launches`` counts,
+  ``runtime.step.nbr_counts`` and ``ops.rdf.rdf_counts``) count Python
+  calls, which happen at capture
   only: the warm-up's and the capture's counts are taken back, and every
   replay adds the capture's;
 - **failures raise** ``GraphCaptureError`` naming the program, the stage
@@ -138,13 +139,15 @@ def advance_in_place(fn, static, ff):
 
 def launch_counters():
     """[(holder, key)] of every launch counter: a module attribute of a
-    kernel wrapper or a key of ``runtime.step.nbr_counts``."""
-    from ..ops import allpairs, cellblock, sparse
+    kernel wrapper or a key of ``runtime.step.nbr_counts`` or of
+    ``ops.rdf.rdf_counts``."""
+    from ..ops import allpairs, cellblock, rdf, sparse
     from . import step
     return ([(allpairs, "launches"), (allpairs, "cand_launches"),
              (allpairs, "rect_launches"), (sparse, "launches"),
              (sparse, "cand_launches"), (cellblock, "launches")]
-            + [(step.nbr_counts, k) for k in step.nbr_counts])
+            + [(step.nbr_counts, k) for k in step.nbr_counts]
+            + [(rdf.rdf_counts, k) for k in rdf.rdf_counts])
 
 
 def _read(counters):

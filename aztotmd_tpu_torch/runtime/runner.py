@@ -1,49 +1,61 @@
-"""The run orchestrator (port of the single-device chunk loop of
-``aztotmd_tpu/runtime/runner.py``: ``_run_loop``, ``_advance``,
-``_sample``, ``_sample_rest`` and ``finalize``).
+"""The run orchestrator (port of ``aztotmd_tpu/runtime/runner.py``: the
+host chunk loop ``_run_loop``, the stat ring's plan and loop
+``_run_loop_ring``, ``_sample``, ``_sample_rest`` and ``finalize``).
 
-Steps run in chunks sized to the greatest common divisor of the output
-periods, so every sampling step lands on a chunk boundary.  RDF samples
-are taken inside the chunk every ``fr_rdf`` steps, with the JAX runner's
-sample steps and its reset of the histogram after 500 samples.  The
-output files and their rows are the JAX runner's, with stat_bnd.dat and
-jumps.dat for reactive decks and revbonds.txt and lengths.dat at the
-end of a run with bonds and revangles.txt with angles.  At each stat
-row the runner reads the engine's capacity monitors (the block-sparse
-worklist length or the fullest cell's occupancy; on the Verlet-list
-engine the skin violations, the inner and outer neighbor counts, the
-occupied and outer-occupied rows and the list grid's occupancy) and
-regrows the capacity (``_check_overflow``).  Each call of the multi-step
-starts with a full list rebuild, as each call of the JAX runner's host
-chunk loop does; where the JAX runner's stat ring would take its
-two-level cadence (``refine_blocks``), each stat period starts with one
-full rebuild and each RDF block with an inner refine instead.  On the card the steps, the
-list passes and the RDF sample are replays of CUDA graphs
-(``runtime/graph.py``); every regrow rebuilds the programs, which
-recapture.
+Where the JAX runner takes its on-device stat ring (``ring_ok``: every
+host-visible period a multiple of the stat period, and the RDF period
+dividing it), the port runs the ring's plan (``_ring_plan``, with JAX's
+keys) one stat period at a time and writes a stat row after each: the
+periods come in JAX's dispatch windows of ``n_fix`` periods between host
+events, and each period runs the ring's ``stat_block``
+(``_ring_period``).  On the Verlet list with short RDF blocks
+(``refine_blocks``) a period starts with one full rebuild and each RDF
+block with an inner refine.  Where the RDF has a list (``k_cap`` > 0,
+any engine), each period builds the (N, k_cap) RDF list and the samples
+read it; when its reach covers the outer list's (``rdf_covers_outer``),
+the outer list is refined from it instead of rebuilt; in the opposite
+regime (``rdf_from_outer``) the outer list serves the RDF directly and a
+full rebuild starts each superblock of ``k_super`` periods of a window.
+JAX's opt-in row-compacted sampling (``rdf_rows``, a measured loss there)
+is not ported: the plan's ``rdf_rows`` is always False.  Elsewhere
+steps run in chunks sized to the greatest common divisor of the output
+periods, RDF samples inside the chunk every ``fr_rdf`` steps, each chunk
+starting with a full list rebuild, as JAX's host chunk loop does.  Both loops
+reset the RDF window after 500 samples as JAX's do.  The output files
+and their rows are the JAX runner's, with stat_bnd.dat and jumps.dat for
+reactive decks and revbonds.txt and lengths.dat at the end of a run with
+bonds and revangles.txt with angles.  At each stat row the runner reads
+the capacity monitors (the block-sparse worklist length or the fullest
+cell's occupancy; on the Verlet-list engine the skin violations, the
+inner and outer neighbor counts, the occupied and outer-occupied rows and
+the list grid's occupancy; the RDF list's ``rdf_over``) and regrows the
+capacity (``_check_overflow``).  On the card the steps, the list passes
+and the RDF samples are replays of CUDA graphs (``runtime/graph.py``);
+every regrow rebuilds the programs, which recapture.
 
 Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
 step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
 stencil, the state is distributed by x-slab, the chunk loop calls the
-slab multi-step with the RDF sample on the mesh at its period, and the
-stat rows and output files read the state gathered in global-id order,
-with the bond, angle and jump tables of the replicated reactive topology
-(``SlabState.rg``) or, on a constant-topology deck, of the initial
-MDState.  Checkpoints are single-device MDStates with the live topology,
-which either package resumes on one device or on any mesh.  At each stat
-row the slab monitors regrow the cell capacity, warn about bond or angle
-records whose partner lay beyond one slab, or raise the slot capacity
-1.5x and redistribute after a migration deleted atoms or kept deferring
+slab multi-step with the RDF sample on the mesh at its period (JAX's
+slab ring has no RDF list), and the stat rows and output files read the
+state gathered in global-id order, with the bond, angle and jump tables
+of the replicated reactive topology (``SlabState.rg``) or, on a
+constant-topology deck, of the initial MDState.  Checkpoints are
+single-device MDStates with the live topology, which either package
+resumes on one device or on any mesh.  At each stat row the slab monitors
+regrow the cell capacity, warn about bond or angle records whose partner
+lay beyond one slab, or raise the slot capacity 1.5x and redistribute
+after a migration deleted atoms or kept deferring
 (``_check_slab_health``).
 
 Atom-sharded mode (``mesh_devices=N, mesh_mode="atoms"``, ``run --mesh N
 --mesh-mode atoms``) keeps the per-atom fields in N equal row shards
-(``parallel/mesh.py``) and runs the one-device programs over their
-gather; the writers, the RDF sample and checkpoints read the gathered
-state, so a checkpoint resumes on one device, and a list regrow gathers,
-regrows and shards again.  The JAX package's on-device stat ring (on one
-device and on the mesh; its list cadence is ported, its RDF neighbor
-list is not) is not ported.
+(``parallel/mesh.py``) and runs the one-device programs and plan over
+their gather; the writers, the RDF samples and checkpoints read the
+gathered state, so a checkpoint resumes on one device, and a list regrow
+gathers, regrows and shards again.  The stat ring's batched rows (its
+f32 row packing and flushes, ``statring.py``) are not ported: each
+period's row is read from the state.
 """
 
 from __future__ import annotations
@@ -62,11 +74,12 @@ from ..io.control import TSTAT_RADI
 from ..output import writers as W
 
 from ..core.config import _round_up
+from ..ops import neighbors as ops_nbr
 from ..ops import rdf as ops_rdf
 from ..utils.profiling import StageTimer
 from .checkpoint import save_checkpoint
 from .graph import GraphedSample
-from .step import make_multi_step, torch_engine_reason
+from .step import MultiStep, make_multi_step, torch_engine_reason
 
 _ENG_KEYS = ("tot", "kin", "vdw", "coul1", "coul2", "bond", "angle", "temp")
 
@@ -86,11 +99,13 @@ class MDRunner:
     step (and the neighbor engine's rebuild and refine, and the RDF
     sample) on the card and runs eagerly on the CPU; False runs eagerly.
     ``profile`` times the stages (``run --timings``); ``debug`` checks
-    the state's invariants after every chunk on one device (``run
-    --debug``).  Where the JAX stat ring's predicate holds, the neighbor
-    engine takes its two-level list cadence (one full rebuild per stat
-    period, an inner refine per RDF block); elsewhere every RDF block
-    restarts the schedule, as JAX's host chunk loop does."""
+    the state's invariants after every chunk or host event on one
+    device (``run --debug``).  Where the JAX stat ring's gate holds
+    (``ring_ok``) the run takes the ring's plan (``_ring_plan``);
+    elsewhere every RDF block restarts the list schedule, as JAX's host
+    chunk loop does.  ``AZTOTMD_RING_STEPS`` and a deck's ``nstep stat``
+    set the window (``s_cap``) as in JAX; ``AZTOTMD_NO_RING`` is JAX's
+    alone (the port has no host batching to turn off)."""
 
     def __init__(self, sysd: dict, out_dir: str = ".", quiet: bool = False,
                  checkpoint_every: int = 0, append: bool = False,
@@ -212,6 +227,22 @@ class MDRunner:
         self._host_periods = [p for p in (
             self.p_traj, self.p_revcon, self.p_bindtraj, self.p_hist,
             self.p_vaf, checkpoint_every, self.p_rdf_out) if p]
+        # the JAX stat ring's gate (runner.py:193-199): whole stat periods,
+        # with their RDF blocks, between host events
+        self.ring_ok = self.p_stat > 0 and all(
+            p % self.p_stat == 0 for p in self._host_periods)
+        if self.rcfg is not None and self.p_rdf:
+            self.ring_ok = self.ring_ok and self.p_stat % self.p_rdf == 0
+        self._ring_plan = {}
+        self.s_cap = 1
+        if self.ring_ok:
+            # the stat periods of one JAX ring dispatch, at most: the
+            # superblocks of the plan restart at each dispatch
+            target = int(os.environ.get("AZTOTMD_RING_STEPS", "8000"))
+            self.s_cap = max(1, min(512, target // self.p_stat or 1))
+            dev_cfg = sysd.get("dev")
+            if dev_cfg is not None and dev_cfg.nstep_stat != 10:
+                self.s_cap = max(1, min(512, dev_cfg.nstep_stat))
 
         self._view_cache = None
         if self._atoms_mesh is not None:
@@ -242,48 +273,143 @@ class MDRunner:
         self._t0 = time.time()
 
     def _build_programs(self):
-        """(Re)build the step loop and the RDF sample from the current
-        cfg: at init and after a capacity regrow.  On the card both are
-        captured as CUDA graphs at their first call (``self.graph``, as
-        ``make_multi_step``'s ``graph``), so a rebuild recaptures."""
+        """(Re)build the step loop and the RDF samples from the current
+        cfg: at init and after a capacity regrow.  On the card every
+        program and sample is captured as a CUDA graph at its first call
+        (``self.graph``, as ``make_multi_step``'s ``graph``), so a rebuild
+        recaptures."""
         cfg, rcfg = self.cfg, self.rcfg
-        # the JAX stat ring's two-level cadence (runner.py:193-200,
-        # 336-372): one full rebuild per stat period and an inner refine
-        # at the start of each RDF block
-        self.refine_blocks = bool(
-            self.comm is None and rcfg is not None and self.p_rdf
-            and self.p_stat > 0
-            and all(p % self.p_stat == 0 for p in self._host_periods)
-            and self.p_stat % self.p_rdf == 0
-            and cfg.pair_engine == "neighbor" and cfg.nb_outer > 1
-            and self.p_rdf <= cfg.nb_rebuild
-            and self.p_stat <= cfg.nb_outer * cfg.nb_rebuild)
-        if self.comm is None:
-            if self._atoms_mesh is not None:
-                from ..parallel import mesh as _mesh
-                self.multi = _mesh.make_sharded_multi_step(
-                    cfg, self.aux, self._atoms_mesh, self._atoms_spec,
-                    graph=self.graph)
-            else:
-                self.multi = make_multi_step(cfg, self.aux, graph=self.graph)
+        if self.comm is not None:
+            # the slab mesh keeps its chunk loop and its sampler, as JAX's
+            # slab ring has no RDF list
+            from ..parallel import slab as _slab
+            self.refine_blocks = self.fuse_rdf = self.use_list = False
+            self.multi = _slab.make_slab_multi_step(cfg, self.aux, self.comm,
+                                                    graph=self.graph)
             if rcfg is not None:
-                def sample(st, h, nh):
-                    st = self._gather(st)
-                    return ops_rdf.rdf_sample(
-                        cfg, rcfg, st.pos, st.types, st.spec_number,
-                        self._spec_nuclei, self._nucl_number, h, nh)
-                self._rdf = GraphedSample(sample, "RDF sample",
-                                          self.multi.graph)
+                self._rdf = GraphedSample(
+                    _slab.make_slab_rdf_sample(cfg, rcfg, self.comm,
+                                               self._spec_nuclei,
+                                               self._nucl_number),
+                    "mesh RDF sample", self.multi.graph)
             return
-        from ..parallel import slab as _slab
-        self.multi = _slab.make_slab_multi_step(cfg, self.aux, self.comm,
-                                                graph=self.graph)
+        if self._atoms_mesh is not None:
+            from ..parallel import mesh as _mesh
+            self.multi = _mesh.make_sharded_multi_step(
+                cfg, self.aux, self._atoms_mesh, self._atoms_spec,
+                graph=self.graph)
+        else:
+            self.multi = make_multi_step(cfg, self.aux, graph=self.graph)
         if rcfg is not None:
             self._rdf = GraphedSample(
-                _slab.make_slab_rdf_sample(cfg, rcfg, self.comm,
-                                           self._spec_nuclei,
-                                           self._nucl_number),
-                "mesh RDF sample", self.multi.graph)
+                self._sampler(ops_rdf.rdf_sample), "RDF sample",
+                self.multi.graph)
+        self._plan_programs(cfg, rcfg)
+
+    def _sampler(self, fn, *lists):
+        """An RDF sample ``(state, hist, nhist) -> (hist, nhist)`` of
+        ``fn(cfg, rcfg, pos, types, spec_number, spec_nuclei,
+        nucl_number, *lists, hist, nhist)`` over the (gathered) state;
+        each of ``lists`` is a state field name or a tensor."""
+        cfg, rcfg = self.cfg, self.rcfg
+
+        def sample(st, h, nh):
+            st = self._gather(st)
+            args = [getattr(st, a) if isinstance(a, str) else a
+                    for a in lists]
+            return fn(cfg, rcfg, st.pos, st.types, st.spec_number,
+                      self._spec_nuclei, self._nucl_number, *args, h, nh)
+        return sample
+
+    def _program(self, fn):
+        """A state program ``fn(state, ff) -> state`` of the one-device
+        state, over the row shards of an atom-sharded run."""
+        if self._atoms_mesh is None:
+            return fn
+        from ..parallel import mesh as _mesh
+        return _mesh.sharded(fn, self._atoms_mesh, self._atoms_spec)
+
+    def _plan_programs(self, cfg, rcfg):
+        """The JAX stat ring's plan (``aztotmd_tpu/runtime/runner.py:
+        328-452``), kept in ``self._ring_plan`` with its keys, and the
+        programs and samples it runs.  ``fuse_rdf``: RDF blocks inside the
+        period; ``use_list``: the RDF sampled from an (N, k_cap) list
+        built each period (``rdf_list_cfg``); ``refine_blocks``: on the
+        two-level Verlet list, one full rebuild a period and an inner
+        refine a block; ``rdf_covers_outer``: the RDF list's reach covers
+        the outer list's, which is refined from it instead of rebuilt;
+        ``rdf_from_outer``: the outer list serves the RDF for ``k_super``
+        periods after one full rebuild, the RDF sampled from it.  JAX's
+        ``rdf_rows`` (an opt-in row compaction of the outer list that JAX
+        measured as a loss) is not ported: False, its caps 0."""
+        p_stat, p_rdf = self.p_stat, self.p_rdf
+        self.fuse_rdf = fuse_rdf = rcfg is not None and bool(p_rdf)
+        self.use_list = use_list = bool(fuse_rdf and rcfg.k_cap > 0)
+        self.refine_blocks = refine_blocks = bool(
+            self.ring_ok and fuse_rdf and cfg.pair_engine == "neighbor"
+            and cfg.nb_outer > 1 and p_rdf <= cfg.nb_rebuild
+            and p_stat <= cfg.nb_outer * cfg.nb_rebuild)
+        if not self.ring_ok:
+            return
+        r_rdf = math.sqrt(rcfg.r2_max) if rcfg is not None else 0.0
+        covers = bool(refine_blocks and use_list
+                      and r_rdf + rcfg.skin >= cfg.r_max + cfg.nb_skin2)
+        from_outer, k_super = False, 1
+        rho = cfg.nb_skin / max(cfg.nb_rebuild, 1)
+        if refine_blocks and use_list and not covers:
+            # pairs within r_rdf at any sample of k periods were within
+            # r_rdf + rho*k*p_stat <= r_max + nb_skin2 at the rebuild
+            slack = cfg.r_max + cfg.nb_skin2 - r_rdf
+            k_rdf = int(slack / (rho * p_stat)) if slack > 0 else 0
+            k_force = (cfg.nb_outer * cfg.nb_rebuild) // p_stat
+            k_super = min(k_rdf, k_force)
+            from_outer = k_super >= 1
+        self._ring_plan = {
+            "refine_blocks": refine_blocks, "rdf_covers_outer": covers,
+            "rdf_from_outer": from_outer, "k_super": k_super,
+            "rdf_rows": False, "rdf_rowcap": 0, "rdf_rowk": 0}
+        N = cfg.n_at
+        if from_outer:
+            sample = self._sampler(ops_rdf.rdf_sample_list, "nbr2_idx")
+        elif use_list:
+            # the RDF list: a static buffer that the list program writes
+            # and the samples read
+            lcfg = ops_rdf.rdf_list_cfg(cfg, rcfg)
+            use_sorted = ops_nbr.sorted_build_ok(lcfg)
+            nbr_buf = torch.full((N, rcfg.k_cap), N, dtype=torch.int32,
+                                 device=self.device)
+            ocfg = dataclasses.replace(cfg, n_neigh=cfg.n_neigh2,
+                                       nb_skin=cfg.nb_skin2)
+
+            def rdf_list(s, ff):
+                ops_rdf.rdf_counts["list_build"] += 1
+                if use_sorted:
+                    nbr, skey, nmax, _ = ops_nbr.build_neighbors_keys(
+                        lcfg, s.pos)
+                else:
+                    nbr, nmax, _ = ops_nbr.build_neighbors(lcfg, s.pos)
+                nbr_buf.copy_(nbr)
+                s = s.replace(rdf_over=torch.maximum(s.rdf_over, nmax))
+                if not covers:
+                    return s
+                # the outer list refined from the RDF list (the first
+                # inner refine of the period derives the inner one)
+                if use_sorted:
+                    idx2, nmax2 = ops_nbr.prefix_refine(
+                        nbr, skey, cfg.r_max + cfg.nb_skin2, cfg.n_neigh2,
+                        N)
+                else:
+                    idx2, nmax2 = ops_nbr.refine_neighbors(ocfg, s.pos, nbr)
+                return s.replace(nbr2_idx=idx2, nbr2_over=torch.maximum(
+                    s.nbr2_over, nmax2))
+            base = self.multi
+            self.multi = MultiStep(
+                dict(base.fns, rdf_list=self._program(rdf_list)),
+                base.graph, base.R, base.Q)
+            sample = self._sampler(ops_rdf.rdf_sample_list, nbr_buf)
+        if use_list:
+            self._rdf_plan = GraphedSample(sample, "RDF list sample",
+                                           self.multi.graph)
 
     def _note_route(self):
         """One line on stderr when a run on the card will take the torch
@@ -335,26 +461,103 @@ class MDRunner:
             torch.cuda.synchronize(self.device)
 
     def _run_loop(self, total, done):
+        if self._ring_plan:
+            return self._run_loop_ring(total, done)
         while done < total:
             n = min(self.chunk, total - done)
-            if self.profile:
-                # per-stage wall clock: wait for the card at each stage's
-                # end (only when profiling)
-                with self.timer.stage("steps", lambda: self.state.pos):
-                    self._advance(n, done)
-                done += n
-                with self.timer.stage("sampling"):
-                    self._sample(done)
-            else:
-                self._advance(n, done)
-                done += n
-                self._sample(done)
+            self._staged("steps", self._advance, n)
+            done += n
+            self._staged("sampling", self._sample, done)
             if self.rcfg is not None and self.rdf_in_chunk \
                     and self.rdf_count > 500:
                 self._zero_hist()
             if self.debug and self.comm is None:
                 from .debug import assert_state_ok
                 assert_state_ok(self.cfg, self._view())
+
+    def _run_loop_ring(self, total, done):
+        """The JAX stat ring's loop (``aztotmd_tpu/runtime/runner.py:
+        647-730``), one stat row a period: dispatch windows of ``n_fix``
+        stat periods between host events, each period run on the plan
+        (``_ring_period``; with ``rdf_from_outer`` a full rebuild starts
+        each superblock of ``min(k_super, n_fix)`` periods of a window);
+        a tail shorter than a period as the chunk loop runs it; the RDF
+        window's overfill reset after a window (unless it ends on an
+        rdfN.dat step) and after host events."""
+        p = self.p_stat
+        # JAX's one window size: it divides every host-event gap (the
+        # gcd of the host periods, the total and the resume point)
+        w = _gcd_all(list(self._host_periods) + [total, done])
+        w_samp = (w // p) if (w and w % p == 0) else 1
+        n_fix = max(d for d in range(1, min(self.s_cap, w_samp) + 1)
+                    if w_samp % d == 0)
+        while done < total:
+            nxt = self._next_host_event(done, total)
+            while nxt - done >= p:
+                # the plan is read again each period: a regrow at a stat
+                # row rebuilds it
+                k = (min(self._ring_plan["k_super"], n_fix)
+                     if self._ring_plan["rdf_from_outer"] else 1)
+                for j in range(n_fix):
+                    self._staged("steps", self._ring_period, j % k == 0)
+                    done += p
+                    self._staged("sampling", self._stat_row, done)
+                if (self.rcfg is not None and self.rdf_count > 500
+                        and not (self.p_rdf_out
+                                 and done % self.p_rdf_out == 0)):
+                    self._zero_hist()
+            if done < nxt:
+                self._staged("steps", self._advance, nxt - done)
+                done = nxt
+            self._staged("sampling", self._sample_rest, done)
+            if self.rcfg is not None and self.rdf_count >= 500:
+                self._zero_hist()
+            if self.debug:
+                from .debug import assert_state_ok
+                assert_state_ok(self.cfg, self._view())
+
+    def _staged(self, stage, fn, *args):
+        """``fn(*args)``, timed as ``stage`` when profiling (waiting for
+        the card at its end)."""
+        if not self.profile:
+            return fn(*args)
+        with self.timer.stage(stage, lambda: self.state.pos):
+            return fn(*args)
+
+    def _next_host_event(self, done, total):
+        nxt = total
+        for p in self._host_periods:
+            nxt = min(nxt, (done // p + 1) * p)
+        return nxt
+
+    def _ring_period(self, full: bool):
+        """One stat period on the plan, as the JAX ring's ``stat_block``
+        (``runner.py:465-553``): ``full`` starts a superblock
+        (``rdf_from_outer``)."""
+        plan = self._ring_plan
+        run, current = self.multi.start(self.state, self.ff)
+        n_blocks = self.p_stat // self.p_rdf if self.fuse_rdf else 0
+        if plan["rdf_from_outer"]:
+            if full:
+                run("rebuild")
+        elif self.use_list:
+            run("rdf_list")
+        if not plan["rdf_from_outer"] and plan["refine_blocks"] \
+                and not plan["rdf_covers_outer"]:
+            run("rebuild")
+        if not self.fuse_rdf:
+            self.multi.schedule(run, self.p_stat)
+        sample = self._rdf_plan if self.use_list else getattr(self, "_rdf",
+                                                              None)
+        for _ in range(n_blocks):
+            if plan["refine_blocks"]:
+                run("refine")
+                run("step", self.p_rdf)
+            else:
+                self.multi.schedule(run, self.p_rdf)
+            self.hist, self.nhist = sample(current(), self.hist, self.nhist)
+        self.rdf_count += n_blocks
+        self.state = current()
 
     def _zero_hist(self):
         """Restart the RDF window, in place (the captured sample keeps its
@@ -364,17 +567,9 @@ class MDRunner:
             self.nhist.zero_()
         self.rdf_count = 0
 
-    def _advance(self, n: int, done: int):
+    def _advance(self, n: int):
         if self.rcfg is not None and self.rdf_in_chunk:
             n_blocks, rem = divmod(n, self.p_rdf)
-            if self.refine_blocks and n % self.p_stat == 0 \
-                    and done % self.p_stat == 0:
-                for _ in range(n // self.p_stat):
-                    self.state = self.multi.refine_blocks(
-                        self.state, self.ff, self.p_stat // self.p_rdf,
-                        self.p_rdf, after_block=self._rdf_sample)
-                self.rdf_count += n_blocks
-                return
             for _ in range(n_blocks):
                 self.state = self.multi(self.state, self.ff, self.p_rdf)
                 self._rdf_sample()
@@ -384,41 +579,45 @@ class MDRunner:
         else:
             self.state = self.multi(self.state, self.ff, n)
 
-    def _rdf_sample(self, st=None):
-        """One RDF sample of ``st`` (default: the run's state) into the
-        histograms."""
-        self.hist, self.nhist = self._rdf(
-            self.state if st is None else st, self.hist, self.nhist)
+    def _rdf_sample(self):
+        """One RDF sample of the run's state into the histograms (the
+        cell-candidate or all-pairs sampler, or the mesh's)."""
+        self.hist, self.nhist = self._rdf(self.state, self.hist, self.nhist)
 
     # ------------------------------------------------------------------
     def _sample(self, step: int):
         if self.p_stat and step % self.p_stat == 0:
-            st = self._view()
-            t = step * self.cfg.dt
-            E = st.energies
-            eng = {k: float(getattr(E, k)) for k in _ENG_KEYS}
-            pos_mom = _host(st.pos_mom)
-            neg_mom = _host(st.neg_mom)
-            pressure = float(st.pressure)
-            cross_pos = _host(st.cross_pos)
-            cross_neg = _host(st.cross_neg)
-            pos = _host(st.pos)
-            n_bond = int(st.n_bond)
-            self.w_stat.write_row(t, step, eng, pos_mom, neg_mom, pressure,
-                                  _host(st.spec_number))
-            if self.w_bnd:
-                self.w_bnd.write_row(t, step, n_bond, _host(st.bt_count),
-                                     _host(st.bt_r_mean),
-                                     _host(st.bt_lt_mean))
-            self.w_msd.write_row(t, step, cross_pos, cross_neg)
-            if self.w_jmp:
-                self.w_jmp.write_row(t, step, int(st.n_jump),
-                                     int(st.jump_pos), int(st.jump_neg))
-            self.w_msdd.write_row(t, step, pos, cross_neg, cross_pos)
-            if not self.quiet:
-                self._console(step, eng, float(pos[0, 0]), pressure, n_bond)
-            self._check_overflow()
+            self._stat_row(step)
         self._sample_rest(step)
+
+    def _stat_row(self, step: int):
+        """The stat row of ``step`` in every stat file, then the capacity
+        monitors."""
+        st = self._view()
+        t = step * self.cfg.dt
+        E = st.energies
+        eng = {k: float(getattr(E, k)) for k in _ENG_KEYS}
+        pos_mom = _host(st.pos_mom)
+        neg_mom = _host(st.neg_mom)
+        pressure = float(st.pressure)
+        cross_pos = _host(st.cross_pos)
+        cross_neg = _host(st.cross_neg)
+        pos = _host(st.pos)
+        n_bond = int(st.n_bond)
+        self.w_stat.write_row(t, step, eng, pos_mom, neg_mom, pressure,
+                              _host(st.spec_number))
+        if self.w_bnd:
+            self.w_bnd.write_row(t, step, n_bond, _host(st.bt_count),
+                                 _host(st.bt_r_mean),
+                                 _host(st.bt_lt_mean))
+        self.w_msd.write_row(t, step, cross_pos, cross_neg)
+        if self.w_jmp:
+            self.w_jmp.write_row(t, step, int(st.n_jump),
+                                 int(st.jump_pos), int(st.jump_neg))
+        self.w_msdd.write_row(t, step, pos, cross_neg, cross_pos)
+        if not self.quiet:
+            self._console(step, eng, float(pos[0, 0]), pressure, n_bond)
+        self._check_overflow()
 
     def _check_overflow(self):
         if self.comm is not None:
@@ -441,6 +640,7 @@ class MDRunner:
         monitors first, and its occupancy is that of ``nb_grid``."""
         if self.cfg.pair_engine == "neighbor":
             self._check_neighbor_monitors()
+        self._check_rdf_monitor()
         cfg = self.cfg
         if cfg.pair_engine == "sparse" and cfg.dtype != "f64":
             need = int(self.state.cell_overflow)
@@ -541,6 +741,21 @@ class MDRunner:
                       f"K2={new_k2}", file=sys.stderr)
                 self._reset_lists(n_neigh2=new_k2)
 
+    def _check_rdf_monitor(self):
+        """The RDF lists' monitor ``rdf_over``, with the JAX runner's
+        formula and warning: the fullest row's count; past ``k_cap`` the
+        list dropped pairs (and, with ``rdf_covers_outer``, so did the
+        outer list refined from it)."""
+        if self.rcfg is not None and self.rcfg.k_cap > 0:
+            rover = int(self.state.rdf_over)
+            if rover > self.rcfg.k_cap:
+                new_k = _round_up(rover + max(8, rover // 4), 8)
+                print(f"WARNING: RDF-list neighbor count {rover} exceeded "
+                      f"capacity {self.rcfg.k_cap}; rebuilding with "
+                      f"k_cap={new_k}", file=sys.stderr)
+                self.rcfg = dataclasses.replace(self.rcfg, k_cap=new_k)
+                self._build_programs()
+
     def _escalate_skin(self, viol):
         """Skin violations kept accruing after the first warning: grow
         nb_skin 1.5x (and K by the reach-volume ratio), capped at the
@@ -598,7 +813,7 @@ class MDRunner:
             self.w_vaf.write_row(step * self.cfg.dt, step, _host(st.vel))
 
         if self.rcfg is not None and self.p_rdf and not self.rdf_in_chunk \
-                and step % self.p_rdf == 0:
+                and not self._ring_plan and step % self.p_rdf == 0:
             self._rdf_sample()
             self.rdf_count += 1
         if self.rcfg is not None and self.p_rdf_out \
@@ -661,8 +876,12 @@ class MDRunner:
             nhist = (nhist.cpu().numpy().copy() if torch.is_tensor(nhist)
                      else nhist)
             ngr = ops_rdf.normalize_rdf(self.rcfg, nhist, count, nuclei=True)
-            W.write_rdf_file(path.replace("rdf", "rdf_n", 1), self.rcfg,
-                             ngr, list(self.fld.nnames))
+            # rdfN.dat -> rdf_nN.dat beside it (in the file's name only: a
+            # directory may hold "rdf" too)
+            head, name = os.path.split(path)
+            W.write_rdf_file(os.path.join(head, name.replace("rdf", "rdf_n",
+                                                             1)),
+                             self.rcfg, ngr, list(self.fld.nnames))
         self._rdf_last = (hist, nhist, count)
 
     def finalize(self):

@@ -362,8 +362,11 @@ class MultiStep:
         self.R, self.Q = R, Q
         self.graphs = StateGraphs(self.fns)
 
-    def _start(self, state, ff):
-        """(run(name, m), current state) on the graph or the eager path."""
+    def start(self, state, ff):
+        """(run(name, m), current state) on the graph or the eager path:
+        ``run`` calls program ``name`` m times on ``state`` and the states
+        after it, ``current()`` returns the latest.  With the graph on it
+        loads ``state`` into the static buffers first."""
         if use_graph(self.graph, state.pos.device):
             self.graphs.load(state, ff)
             return self.graphs.run, lambda: self.graphs.state
@@ -376,7 +379,7 @@ class MultiStep:
         return run, lambda: box[0]
 
     def __call__(self, state, ff, n: int):
-        run, current = self._start(state, ff)
+        run, current = self.start(state, ff)
         self.schedule(run, n)
         return current()
 
@@ -412,22 +415,6 @@ class MultiStep:
             block(R, True)
         if rem:
             block(rem, True)
-
-    def refine_blocks(self, state, ff, n_blocks: int, m: int,
-                      after_block=None):
-        """The two-level cadence of the JAX package's stat ring
-        (``refine_blocks``, ``aztotmd_tpu/runtime/runner.py:336-372,
-        527-545``): one full rebuild, then ``n_blocks`` blocks of an inner
-        refine and ``m`` steps, with ``after_block(state)`` (the RDF
-        sample) after each."""
-        run, current = self._start(state, ff)
-        run("rebuild")
-        for _ in range(n_blocks):
-            run("refine")
-            run("step", m)
-            if after_block is not None:
-                after_block(current())
-        return current()
 
 
 def make_multi_step(cfg, aux: StepAux | None = None, pair_fn=None,

@@ -99,10 +99,13 @@ steps eager and 1 + 100 replayed from the same state: integer fields
 exactly equal, positions within 1e-6 A, with the graph's nodes, its
 capture time and both rates; the step profiles run replayed and eager
 (the device idle share of each); argon_gas through the CLI takes the
-JAX stat ring's two-level cadence (5 rebuilds and 20 refines in 1,000
-steps); bonded_fluid's regrow (K 24 -> 32) recaptures and its graph run
-matches an eager run; run --debug --timings, run --profile and bench
-run on surkov_cluster.  The kernel-vs-plain trajectories run eager.
+JAX stat ring's plan (``rdf_from_outer``, k_super 4: its window of 5
+stat periods cut 4 + 1, so 2 full rebuilds and 20 refines in 1,000
+steps, the RDF sampled from the outer Verlet list), and on its last
+state the list sampler's histograms equal the cell-candidate sampler's
+exactly, both timed replayed; bonded_fluid's regrow (K 24 -> 32)
+recaptures and its graph run matches an eager run; run --debug
+--timings, run --profile and bench run on surkov_cluster.  The kernel-vs-plain trajectories run eager.
 The atom-sharded mode (``parallel/mesh.py``, ``atoms_mesh_phases``):
 molten_salt (1,000 steps, K1 + Ewald), ejump_redox (1,000, K1-cand) and
 nanoclusters (500, K4) through ``run --mesh 4 --mesh-mode atoms``, every
@@ -115,14 +118,19 @@ entry points (``entry_api_phases``): ``entry()`` steps once on the card,
 ``dryrun_multichip(4)`` passes, and ``aztotmd_tpu_torch.run`` writes the
 CLI's stat.dat byte for byte.  K2 alone on bonded_fluid over 4 is
 profiled over 200 back-to-back launches and timed over a graph of 200.
-Last, the JAX system's scale, dilute and NVE paths and its last pair
-engine (``scale_phases``; no kernel lies on them): its tools' decks,
+Last, the JAX stat ring's RDF-list plan on small argon gases, one for
+each of its list regimes (``rdf_plan_phase``: 400 f32 steps replayed
+against eager, JAX's rebuild counts, every sample by the plan's
+sampler), then the JAX system's scale, dilute and NVE paths and its last
+pair engine (``scale_phases``; no kernel lies on them): its tools' decks,
 written from examples/argon_gas by ``aztotmd_tpu_torch.systems``, the
 320,000- and 1,080,000-atom tilings 2,000 and 1,000 steps through the
 run CLI after bare replayed steps (setup, capture, rates, rebuilds and
-refines counted, peak memory; finite stat.dat, non-zero rdf.dat from
-the RDF cell path, no atom lost, no skin violation, every list monitor
-within its capacity); the dilute deck with and without ``nb_orowcap``
+refines counted against the JAX ring's plan, peak memory; finite
+stat.dat, non-zero rdf.dat sampled from the outer Verlet list, no atom
+lost, no skin violation, every list monitor within its capacity; the
+list sampler's histograms against the cell sampler's on the last state,
+both timed); the dilute deck with and without ``nb_orowcap``
 (the inner lists equal after each of 6 refines and on atoms moved up to
 6 A; both rates and the refine's ms), and with ``nb_orowcap`` forced
 below the outer-occupied rows (the runner's warning, regrow and
@@ -162,7 +170,10 @@ ARGON_DECK = os.path.join(HERE, "examples", "liquid_argon")
 SALT_DECK = os.path.join(HERE, "examples", "molten_salt")
 GAS_DECK = os.path.join(HERE, "examples", "argon_gas")
 BONDED_DECK = os.path.join(HERE, "examples", "bonded_fluid")
-GAS_STEPS = 1000         # 5 stat periods: 5 full rebuilds, 20 refines
+GAS_STEPS = 1000         # 5 stat periods, one window of JAX's ring: its
+                         # superblocks of 4 and 1 take 2 full rebuilds
+                         # and 20 refines (GAS_RING)
+GAS_RING = {"rebuild": 2, "refine": 20}
 BONDED_STEPS = 1000
 SLICE_STEPS = 1000       # the four decks of the earlier slices
 NEW_STEPS = 2000         # liquid_argon on K3, molten_salt
@@ -193,6 +204,10 @@ API_STEPS = 200          # aztotmd_tpu_torch.run against the CLI: one stat
                          # row of surkov_cluster (stat every 200 steps)
 ALONE_LAUNCHES = 200     # K2 alone on bonded_fluid over 4: back-to-back
 SCALE_STEPS = {2: 2000, 3: 1000}  # the tiled argon decks (320k, 1.08M atoms)
+# JAX's ring on them: one window of 10 and of 5 stat periods, superblocks
+# of 4 (4 + 4 + 2 and 4 + 1), a refine each RDF block of 50 steps
+SCALE_RING = {2: {"rebuild": 3, "refine": 40},
+              3: {"rebuild": 2, "refine": 20}}
 SCALE_BARE = {2: 400, 3: 200}     # bare replayed steps timed on them
 OROW_REFINES = 6         # refines compared with and without nb_orowcap
 NVE_STEPS = 20000        # f32 NVE steps through run (drift)
@@ -200,6 +215,7 @@ NVE_EQUIL = 2000         # steps before the drift's reference row
 NVE_GATE_STEPS = 1000    # f32 against f64 total energy
 NVE_GATE_REL = 1e-4
 GATHER_STEPS = 20        # "gather" against the block engine on liquid_argon
+PLAN_STEPS = 400         # each RDF-plan regime, replayed and eager
 GATHER_POS_ATOL = 1e-4   # A
 BENCH_ARGS = ["--windows", "2", "--chunk", "500"]
 GRAPH_STEPS = 100        # graph replays against eager steps, per deck
@@ -522,6 +538,152 @@ def trajectories(torch, load_deck_dir, make_multi_step, name, deck, dev,
     return dpos
 
 
+def plan_words(runner):
+    """The runner's RDF plan (``bench.plan_name``) with its list width."""
+    from aztotmd_tpu_torch.bench import plan_name
+    name = plan_name(runner)
+    if name == "from_outer":
+        return (f"{name}, k_super {runner._ring_plan['k_super']}, the outer "
+                f"list's {runner.cfg.n_neigh2} slots an atom")
+    if name.startswith("list"):
+        return f"{name}, k_cap {runner.rcfg.k_cap}"
+    return name
+
+
+def rdf_list_case(torch, name, runner, card):
+    """The run's plan sampler (``runner._rdf_plan``: the outer Verlet list
+    or the RDF list) against the cell-candidate sampler (``runner._rdf``)
+    on the run's last state and lists, which the run's last sample read:
+    the histograms (integer counts times one weight table) exactly equal;
+    both timed as graph replays (CUDA events, medians) and per step at
+    the deck's RDF period.  Returns the numbers."""
+    from aztotmd_tpu_torch.runtime.graph import GraphedSample
+    st = runner.state
+    zero = lambda h: None if h is None else torch.zeros_like(h)
+    fns = {"list": runner._rdf_plan.fn, "cells": runner._rdf.fn}
+    got = {k: fn(st, zero(runner.hist), zero(runner.nhist))
+           for k, fn in fns.items()}
+    same = all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(got["list"], got["cells"]))
+    bufs = {k: (zero(runner.hist), zero(runner.nhist)) for k in fns}
+    graphs = {k: GraphedSample(fn, f"{k} RDF sample")
+              for k, fn in fns.items()}
+    ms = dict(zip(fns, timed(torch, [
+        lambda k=k: graphs[k](st, *bufs[k]) for k in fns], n=5)))
+    rc = runner.rcfg
+    m_cells = len(rc.grid.stencil) * rc.grid.cap
+    width = (runner.cfg.n_neigh2 if runner._ring_plan["rdf_from_outer"]
+             else rc.k_cap)
+    log(f"  {name}: RDF sample on the plan's list ({width} slots an atom) "
+        f"{ms['list']:.4f} ms replayed, on the cell candidates ({m_cells} "
+        f"slots an atom, grid {rc.grid.dims} cap {rc.grid.cap}) "
+        f"{ms['cells']:.4f} ms replayed on {card}; every {runner.p_rdf} "
+        f"steps: {ms['list'] / runner.p_rdf:.4f} against "
+        f"{ms['cells'] / runner.p_rdf:.4f} ms a step; histograms "
+        f"{'equal' if same else 'DIFFER'} (total g weight "
+        f"{float(got['list'][0].sum()):.6g})")
+    check(same and float(got["list"][0].sum()) > 0,
+          f"{name}: the list sampler's counts differ from the cell "
+          "sampler's on the card, or are zero")
+    return {"list_ms": ms["list"], "cells_ms": ms["cells"],
+            "list_slots": width, "cell_slots": m_cells}
+
+
+def gas_variant(d, n_atoms, density, rdf=None, temp=None):
+    """examples/argon_gas's writer at ``n_atoms`` and ``density``, with the
+    RDF reach (A) or the temperature (K) replaced."""
+    from aztotmd_tpu_torch import systems
+    systems.write_argon_gas_deck(d, n_atoms=n_atoms, density=density,
+                                 steps=PLAN_STEPS)
+    path = os.path.join(d, "control.txt")
+    with open(path) as f:
+        text = f.read()
+    if rdf:
+        text = text.replace("rdf\t14.0", f"rdf\t{rdf}")
+    if temp:
+        text = text.replace("temperature 298.0", f"temperature {temp}")
+    with open(path, "w") as f:
+        f.write(text)
+
+
+# the JAX ring's list regimes on small gases (the decks of
+# tests/test_torch_runner_rdf_list.py): (writer arguments, load keywords,
+# the plan's name (bench.plan_name), the full rebuilds and refines of
+# JAX's ring in PLAN_STEPS steps: one window of 2 stat periods of 200
+# steps, 4 RDF blocks each)
+PLAN_REGIMES = {
+    "rdf_from_outer": ((3000, 2.69e-5), {}, "from_outer",
+                       {"rebuild": 1, "refine": 8}),
+    "rdf_covers_outer": ((2000, 1e-3), {}, "list_covers_outer",
+                         {"rebuild": 0, "refine": 8}),
+    "refine_blocks": ((2000, 1e-3, "14.75", 10.0), {}, "list",
+                      {"rebuild": 2, "refine": 8}),
+    "gather": ((1000, 3e-4), {"pair_engine": "gather"}, "list",
+               {"rebuild": 0, "refine": 0}),
+}
+
+
+def rdf_plan_phase(torch, dev, out, card):
+    """Each list regime of the plan on the card: PLAN_STEPS f32 steps
+    replayed from CUDA graphs (the RDF list program and the list samples
+    among them) against as many eager steps from the same deck: the plan
+    named, the rebuilds and refines of JAX's ring, every sample taken by
+    the list sampler, stat.dat and rdf.dat rows alike, final positions
+    within TRAJ_POS_ATOL.  Returns the numbers."""
+    from aztotmd_tpu_torch.bench import plan_name
+    from aztotmd_tpu_torch.ops import rdf as ops_rdf
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    phase(f"the RDF plan's regimes: {PLAN_STEPS} f32 steps replayed vs "
+          "eager on small argon gases")
+    res = {}
+    for name, (args, load_kw, want_plan, want) in PLAN_REGIMES.items():
+        deck = os.path.join(out, "plan_" + name)
+        gas_variant(deck, *args)
+        runs = {}
+        for graph in (None, False):
+            o = os.path.join(out, f"plan_{name}_{graph}")
+            r = MDRunner(load_deck_dir(deck, device=dev, **load_kw),
+                         out_dir=o, quiet=True, graph=graph)
+            step_mod.nbr_counts.update(rebuild=0, refine=0)
+            ops_rdf.rdf_counts.update({k: 0 for k in ops_rdf.rdf_counts})
+            r.run(PLAN_STEPS)
+            r.finalize()
+            runs[graph] = (r, o, dict(step_mod.nbr_counts),
+                           dict(ops_rdf.rdf_counts))
+        (g, og, cg, sg), (e, oe, ce, se) = runs[None], runs[False]
+        n_samples = PLAN_STEPS // g.p_rdf
+        dpos = float((g.state.pos - e.state.pos).abs().max())
+        ta, tb = (read_table(os.path.join(o, "stat.dat"), 2)
+                  for o in (og, oe))
+        ra, rb = (read_table(os.path.join(o, "rdf.dat"), 1)
+                  for o in (og, oe))
+        dstat = max(abs(a - b) / (abs(b) + 1e-6) for x, y in zip(ta, tb)
+                    for a, b in zip(x, y))
+        drdf = max(abs(x[1] - y[1]) for x, y in zip(ra, rb))
+        log(f"  {name}: {g.cfg.n_at} atoms, plan {plan_words(g)}, "
+            f"refine_blocks {g._ring_plan['refine_blocks']}; rebuilds "
+            f"{cg['rebuild']} refines {cg['refine']} replayed, "
+            f"{ce['rebuild']} / {ce['refine']} eager (JAX's ring: {want}); "
+            f"samples {sg} replayed on {card}; max|dpos| {dpos:.3e} A, "
+            f"stat.dat rows within rel {dstat:.2e}, rdf.dat g within "
+            f"{drdf:.3e}")
+        check(plan_name(g) == want_plan
+              and g._ring_plan["refine_blocks"] == (not load_kw)
+              and cg == ce == want and sg == se
+              and sg["list"] == n_samples
+              and sg["cells"] == sg["allpairs"] == 0,
+              f"{name}: the plan, its cadence or its sampler differs")
+        check(dpos <= TRAJ_POS_ATOL and len(ta) == len(tb)
+              and len(ra) == len(rb) and max(x[1] for x in ra) > 0,
+              f"{name}: the replayed plan left the eager run")
+        res[name] = {"max_dpos": dpos, "stat_rel": dstat, "rdf_abs": drdf}
+        del runs, g, e
+        _free(torch)
+    return res
+
+
 def neighbor_run_checks(torch, runner, cfg0, name):
     """The Verlet-list checks of a run: no skin violation, every monitor
     within the capacity it ends with (a capacity that grew was regrown by
@@ -579,15 +741,19 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
               f"{nm}: a CUDA kernel ran on the neighbor path")
         got = dict(step_mod.nbr_counts)
         caps = dict(graph_mod.capture_counts)
-        if runner.refine_blocks:
-            want = {"rebuild": steps // runner.p_stat,
-                    "refine": steps // runner.p_rdf}
+        log(f"  plan: {plan_words(runner)} ({runner._ring_plan})")
+        if nm == "argon_gas":
+            # JAX's plan for it (tests/test_torch_runner_rdf_list.py)
+            check(runner._ring_plan.get("rdf_from_outer")
+                  and runner._ring_plan["k_super"] == 4,
+                  "argon_gas does not take JAX's rdf_from_outer plan")
             log(f"  list rebuilds {got['rebuild']}, refines "
-                f"{got['refine']}: the JAX stat ring's two-level cadence, "
-                f"one full rebuild per stat period of {runner.p_stat} steps "
-                f"and one refine per RDF block of {runner.p_rdf} (expected "
-                f"{want['rebuild']} and {want['refine']})")
-            check(got == want, f"{nm}: the CLI ran another cadence")
+                f"{got['refine']}: the JAX stat ring's cadence, its window "
+                f"of {steps // runner.p_stat} stat periods of "
+                f"{runner.p_stat} steps, one refine per RDF block of "
+                f"{runner.p_rdf} (expected {GAS_RING['rebuild']} and "
+                f"{GAS_RING['refine']})")
+            check(got == GAS_RING, f"{nm}: the CLI ran another cadence")
         else:
             log(f"  list rebuilds {got['rebuild']}, refines "
                 f"{got['refine']} (no ring cadence on this deck: each RDF "
@@ -596,7 +762,10 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
             f"{caps['sample']} of the RDF sample")
         neighbor_run_checks(torch, runner, cfg0, nm)
         res[nm + "_steps_per_s"] = rate
-        res[nm + "_rebuilds"] = step_mod.nbr_counts["rebuild"]
+        res[nm + "_rebuilds"] = got["rebuild"]
+        res[nm + "_refines"] = got["refine"]
+        if nm == "argon_gas":
+            res["argon_gas_rdf"] = rdf_list_case(torch, nm, runner, card)
         if nm == "bonded_fluid":
             rows = read_table(os.path.join(out, nm, "stat.dat"), 2)
             check(all(r[8] != 0.0 for r in rows), "engAngle is zero")
@@ -794,10 +963,13 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
 
 
 def scale_phases(torch, dev, out, cli, counters, card):
-    """The JAX system's scale, dilute and NVE paths (the decks of its
-    tools), its last pair engine and the headline bench, each with its
-    gates; returns their numbers."""
-    res = {"scale": scale_phase(torch, dev, out, cli, counters, card)}
+    """The RDF plan's regimes, the JAX system's scale, dilute and NVE paths
+    (the decks of its tools), its last pair engine and the headline
+    bench, each with its gates; returns their numbers."""
+    _zero(counters)
+    res = {"rdf_plan": rdf_plan_phase(torch, dev, out, card)}
+    _no_launch(counters, "the RDF plan's regimes")
+    res["scale"] = scale_phase(torch, dev, out, cli, counters, card)
     res["dilute"] = dilute_phase(torch, dev, out, counters, card)
     res["nve"] = nve_phase(torch, dev, out, cli, card)
     res["gather"] = gather_phase(torch, dev, counters, card)
@@ -888,10 +1060,10 @@ def scale_phase(torch, dev, out, cli, counters, card):
                     for p in runner.multi.graphs.programs.values())
         check(runner.steps_run == steps, f"{tag}: the run stopped early")
         _no_launch(counters, tag)
-        if runner.refine_blocks:
-            want = {"rebuild": steps // runner.p_stat,
-                    "refine": steps // runner.p_rdf}
-            check(got == want, f"{tag}: the CLI ran another cadence {got}")
+        want = SCALE_RING[tiles]
+        check(runner._ring_plan["rdf_from_outer"] and got == want,
+              f"{tag}: the CLI ran another cadence {got} (JAX's ring: "
+              f"{want}; plan {runner._ring_plan})")
         rows = read_table(os.path.join(o, "stat.dat"), 2)
         check(len(rows) == steps // runner.p_stat and all(
             all(v == v and abs(v) < 1e30 for v in r) for r in rows),
@@ -899,21 +1071,18 @@ def scale_phase(torch, dev, out, cli, counters, card):
         with open(os.path.join(o, "rdf.dat")) as f:
             gr = [float(ln.split()[1]) for ln in f.readlines()[1:]]
         rc = runner.rcfg
-        m_rdf = len(rc.grid.stencil) * rc.grid.cap
         check(len(gr) == rc.n_bin and max(gr) > 0.0,
               f"{tag}: rdf.dat empty or zero")
-        check(n > m_rdf, f"{tag}: the RDF takes the all-pairs branch")
         neighbor_run_checks(torch, runner, cfg0, tag)
         log(f"  run: {steps} steps in {runner.loop_seconds:.2f} s loop "
             f"({wall:.1f} s with setup and outputs): {rate:.1f} steps/s; "
             f"list rebuilds {got['rebuild']}, refines {got['refine']} "
-            f"(ring cadence: {runner.refine_blocks}); captures "
+            f"(JAX's ring: {want}); plan: {plan_words(runner)}; captures "
             f"{caps['state']} of the step programs ({cap_s:.2f} s), "
-            f"{caps['sample']} of the RDF sample; RDF cell grid "
-            f"{rc.grid.dims} cap {rc.grid.cap} ({m_rdf} candidates an "
-            f"atom: the cell path); stat.dat {len(rows)} finite rows, last "
-            f"engTot {rows[-1][2]:.4f} eV engKin {rows[-1][3]:.4f} eV; "
-            f"rdf.dat highest g {max(gr):.3f}")
+            f"{caps['sample']} of the RDF samples; stat.dat {len(rows)} "
+            f"finite rows, last engTot {rows[-1][2]:.4f} eV engKin "
+            f"{rows[-1][3]:.4f} eV; rdf.dat highest g {max(gr):.3f}")
+        rdf = rdf_list_case(torch, tag, runner, card)
         log(f"scale {tag} on {card}: setup {setup_s:.1f} s, capture "
             f"{cap_s:.2f} s, CLI {rate:.1f} steps/s, bare replayed "
             f"{bare_rate:.1f} steps/s, rebuilds {got['rebuild']} and "
@@ -924,7 +1093,8 @@ def scale_phase(torch, dev, out, cli, counters, card):
             n_at=n, setup_s=setup_s, write_s=write_s, capture_s=cap_s,
             cli_steps_per_s=rate, bare_steps_per_s=bare_rate,
             rebuilds=got["rebuild"], refines=got["refine"],
-            peak_gib=peak / 2**30, bare_peak_gib=bare_peak / 2**30)
+            peak_gib=peak / 2**30, bare_peak_gib=bare_peak / 2**30,
+            rdf=rdf)
         del runner
         _free(torch)
     return res
@@ -966,10 +1136,16 @@ def dilute_phase(torch, dev, out, counters, card):
         c = dataclasses.replace(cfg, nb_orowcap=oc)
         _zero(counters)
         seen = []
-        step_mod.make_multi_step(c, d["aux"]).refine_blocks(
-            d["state"], ff, OROW_REFINES, R, after_block=lambda s: seen.append(
-                (s.nbr_idx.clone(), s.nbrow_idx.clone(), s.nbr_over.clone(),
-                 s.nbrow_over.clone(), s.orow_over.clone())))
+        run, current = step_mod.make_multi_step(c, d["aux"]).start(
+            d["state"], ff)
+        run("rebuild")
+        for _ in range(OROW_REFINES):
+            run("refine")
+            run("step", R)
+            s = current()
+            seen.append((s.nbr_idx.clone(), s.nbrow_idx.clone(),
+                         s.nbr_over.clone(), s.nbrow_over.clone(),
+                         s.orow_over.clone()))
         lists[oc] = seen
         m = bench.measure(dict(d, cfg=c), Q * R, 1, graph=True)
         _no_launch(counters, f"dilute deck, nb_orowcap {oc}")
@@ -1246,18 +1422,55 @@ def profiled(torch, counters, fn):
     return wall, by_name, host_launches, ran, seen, len(prof.events())
 
 
+def ring_window(runner, steps):
+    """The first ``steps`` steps (whole RDF blocks) of a period of the
+    runner's stat-period plan as its loop runs one (``_ring_period``, the
+    first of a superblock): the period's length set to ``steps`` for the
+    call."""
+    p_stat = runner.p_stat
+    runner.p_stat = steps
+    try:
+        runner._ring_period(True)
+    finally:
+        runner.p_stat = p_stat
+
+
+def window_plan(runner, rate):
+    """[(steps, fn(steps), the loop's name)] of ``launch_window``: a
+    window and its retry.  With a stat-period plan (``runner._ring_plan``)
+    the window is the main path's loop (``ring_window``): a whole period
+    where that takes at most a quarter second at the run's rate, else one
+    RDF block.  Where the plan lists or rebuilds, the retry is one block.
+    Where its period runs only the step and the cell sample, which are
+    the chunk loop's programs, the retry, and the window where even a
+    block takes longer, take the chunk loop (``_advance``), as a run
+    without a plan does: one stat period where that takes at most a
+    quarter second, else 10 steps, or 2 where 10 take over 5 s; the retry
+    a fifth of the window."""
+    p, quarter = runner.p_stat, rate / 4
+    advance = (runner._advance, "_advance")
+    ring = (lambda n: ring_window(runner, n), "_ring_period")
+    if runner._ring_plan:
+        block = runner.p_rdf if runner.fuse_rdf else p
+        w = p if p <= quarter else block
+        if runner.use_list or "rebuild" in runner.multi.fns:
+            return [(w, *ring), (block, *ring)]
+        if w <= quarter:
+            return [(w, *ring), (max(2, w // 5), *advance)]
+    w = p if 0 < p <= quarter else 10 if rate >= 2 else 2
+    return [(w, *advance), (max(2, w // 5), *advance)]
+
+
 def launch_window(torch, runner, counters, name, rate):
     """The launches a run counts on the graph path are worked out: a
     replay adds the launches its capture saw.  Hold them against the
     launches torch.profiler records on the card over a window of the same
-    runner's loop (``_advance``: the same programs and the same RDF
-    sample): one stat period where that takes at most a quarter second at
-    the run's rate, else 10 steps, or 2 where 10 take over 5 s; one fifth
-    of it again where the
-    profiler kept fewer events than ran.  Fails where neither window
-    recorded exactly the launches the counters saw.  The state, the
-    histograms and every count are put back afterwards.  Returns (window
-    steps, launches counted, launches recorded) by kernel."""
+    runner's main loop (``window_plan``), and again over the retry's
+    window where the profiler kept fewer events than ran.  Fails where
+    neither window recorded exactly the launches the counters saw.  The
+    state, the histograms and every count are put back afterwards.
+    Returns (window steps, launches counted, launches recorded) by
+    kernel."""
     from aztotmd_tpu_torch.runtime import graph as graph_mod
     state = graph_mod.clone_state(runner.state)
     hists = [h.clone() for h in (runner.hist, runner.nhist)
@@ -1266,17 +1479,14 @@ def launch_window(torch, runner, counters, name, rate):
     kept = [(h, k, h[k] if isinstance(h, dict) else getattr(h, k))
             for h, k in graph_mod.launch_counters()]
     caps = dict(graph_mod.capture_counts)
-    w = (runner.p_stat if 0 < runner.p_stat <= rate / 4
-         else 10 if rate >= 2 else 2)
     try:
-        for steps in (w, max(2, w // 5)):
-            done = int(runner.state.step)
+        for steps, window, loop in window_plan(runner, rate):
             _, _, _, ran, seen, _ = profiled(
-                torch, counters, lambda: runner._advance(steps, done))
+                torch, counters, lambda: window(steps))
             short = {fn: (seen[fn], ran[fn]) for fn in ran
                      if seen[fn] != ran[fn]}
             log(f"  {name}: launches over a {steps}-step window of the same "
-                "runner, counted / recorded by torch.profiler: "
+                f"runner ({loop}), counted / recorded by torch.profiler: "
                 + ", ".join(f"{fn.strip(':<(')} {ran[fn]} / {seen[fn]}"
                             for fn in ran))
             if not short:

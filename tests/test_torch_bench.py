@@ -61,6 +61,28 @@ def test_bench_deck_prints_four_keys(gas, capsys):
         assert key in head[0], key
 
 
+def test_bench_names_the_rdf_plan(tmp_path, capsys):
+    """The ``#`` line names the runner's RDF plan and times its sampler
+    beside the cell-candidate one: a 1,000-atom gas at 3e-4 atoms/A^3
+    samples from the outer Verlet list (JAX's ``rdf_from_outer``),
+    examples/bonded_fluid from all pairs (no RDF list)."""
+    dilute = str(tmp_path / "gas1k")
+    systems.write_argon_gas_deck(dilute, n_atoms=1000, density=3e-4,
+                                 steps=100)
+    recs = bench.main(["--deck", dilute] + ARGS, device="cpu")
+    recs += bench.main(["--deck", os.path.join(ROOT, "examples",
+                                               "bonded_fluid")] + ARGS,
+                       device="cpu")
+    err = capsys.readouterr().err
+    assert [r["rdf_plan"] for r in recs] == ["from_outer", "cells"]
+    assert recs[0]["rdf_plan_sample_ms"] > 0 and recs[0]["rdf_sample_ms"] > 0
+    assert recs[1]["rdf_plan_sample_ms"] is None
+    assert all(r["cli_rebuilds"] >= 1 for r in recs)
+    head = [ln for ln in err.splitlines() if ln.startswith("# deck=")]
+    assert "rdf_plan=from_outer" in head[0] and "rdf_plan=cells" in head[1]
+    assert "rdf_plan_sample_ms=null" in head[1]
+
+
 def test_failing_deck_exits_1_after_the_others(gas, tmp_path, capsys,
                                                monkeypatch):
     """A deck that cannot load prints its traceback; the other deck still

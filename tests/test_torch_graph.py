@@ -21,6 +21,12 @@ candidate-matrix engine.
     equal the functional multi-step bit for bit in every field after 20
     steps.
 
+(c) The runner's stat-period plan (``MDRunner._ring_period``): its RDF
+    list program ("rdf_list") and list samples pass (a), and
+    two periods run as in-place programs equal two functional periods bit
+    for bit, the histograms too, on argon gases that take each of JAX's
+    list regimes.
+
 The ``cuda``-marked test replays the graphs against eager steps on the
 card (it skips here).
 """
@@ -268,3 +274,77 @@ def test_graph_replays_equal_eager_on_the_card(name, tmp_path):
         else:
             assert torch.equal(a[k], b[k]), k
 
+
+# plan regime -> (argon gas atoms, density, load keywords)
+PLANS = {
+    "rdf_covers_outer": (2000, 1e-3, {}),
+    "rdf_from_outer": (1000, 3e-4, {}),
+    "rdf list on gather": (1000, 3e-4, {"pair_engine": "gather"}),
+}
+
+
+def _plan_runner(name, tmp_path):
+    n_atoms, density, load_kw = PLANS[name]
+    d = str(tmp_path / "deck")
+    systems.write_argon_gas_deck(d, n_atoms=n_atoms, density=density,
+                                 steps=400)
+    r = MDRunner(load_deck_dir(d, dtype="f32", **load_kw),
+                 out_dir=str(tmp_path / "out"), quiet=True)
+    plan = r._ring_plan
+    if name in plan:
+        assert plan[name]
+    else:
+        assert r.rcfg.k_cap > 0 and not plan["refine_blocks"]
+    return r
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_plan_programs_take_no_host_data_and_no_sync(name, tmp_path):
+    """(a) on the plan's programs and its list sample."""
+    r = _plan_runner(name, tmp_path)
+    st, ff = r.state, r.ff
+    order = [p for p in ("rebuild", "rdf_list", "refine", "step")
+             if p in r.multi.fns]
+    assert "rdf_list" in order or r._ring_plan["rdf_from_outer"]
+    calls = [(p, lambda s, p=p: r.multi.fns[p](s, ff)) for p in order]
+    calls.append(("RDF list sample",
+                  lambda s: (s, r._rdf_plan.fn(s, r.hist, r.nhist))))
+    for prog, fn in calls:
+        out = fn(st)
+        rec = _Recorder()
+        with rec:
+            out = fn(st)
+        assert rec.ops > 0
+        assert not rec.bad, (prog, sorted(set(rec.bad)))
+        if prog != "RDF list sample":
+            st = out
+
+
+@pytest.mark.parametrize("name", list(PLANS))
+def test_plan_periods_in_place_equal_functional(name, tmp_path):
+    """(c) two stat periods of the plan (a superblock's full rebuild
+    first) run as the graphs run them, each program advancing one static
+    state in place, against two functional periods: every field and the
+    histograms bit for bit."""
+    runs = []
+    for in_place in (False, True):
+        r = _plan_runner(name, tmp_path / str(in_place))
+        if in_place:
+            static, ff = clone_state(r.state), r.ff
+
+            def run(prog, m=1, r=r):
+                for _ in range(m):
+                    advance_in_place(r.multi.fns[prog], static, ff)
+            r.multi.start = lambda state, ff_: (run, lambda: static)
+        for full in (True, False):
+            r._ring_period(full)
+        runs.append(r)
+    a, b = runs
+    assert a.rdf_count == b.rdf_count == 8
+    assert torch.equal(a.hist, b.hist) and float(a.hist.sum()) > 0
+    if a.nhist is not None:
+        assert torch.equal(a.nhist, b.nhist)
+    got, ref = dict(state_leaves(b.state)), dict(state_leaves(a.state))
+    assert sorted(got) == sorted(ref)
+    for k in ref:
+        assert torch.equal(got[k], ref[k]), k

@@ -151,8 +151,10 @@ def test_bonded_fluid_40_steps_match_jax():
 
 @pytest.mark.parametrize("which", ["gas", "bonded_fluid"])
 def test_run_cli_matches_jax_cli(gas, which, tmp_path, monkeypatch):
-    """400 steps of the gas (an RDF sample every 50 steps: every runner
-    call a full rebuild) and 200 of bonded_fluid, f64, from both CLIs:
+    """400 steps of the gas (an RDF sample every 50 steps; the port takes
+    the JAX ring's plan, rdf_from_outer, and JAX here its host chunk
+    loop, a full rebuild each RDF block) and 200 of bonded_fluid, f64,
+    from both CLIs:
     stat.dat, rdf.dat, msd.dat within rtol 1e-8; revangles.txt and
     revbonds.txt byte for byte."""
     deck, n = (gas, 400) if which == "gas" else (BONDED, 200)
