@@ -3,9 +3,11 @@ H100.
 
 It mirrors the JAX package's layout (``core/``, ``ops/``, ``runtime/``,
 ``__main__.py``, ``systems.py``) and owns copies of the host layers it
-needs (``io/``, ``units.py``, ``output/writers.py``, pure Python).  It
-imports nothing of jax or of the JAX package.  The hand-written CUDA
-kernels live in ``csrc/`` and are built with nvcc at first use.
+needs (``io/``, ``units.py``, ``output/writers.py``) and of the native
+row formatter (``native.py`` over ``csrc/aztocore.cpp``, built with g++
+at first use).  It imports nothing of jax or of the JAX package.  The
+hand-written CUDA kernels live in ``csrc/`` and are built with nvcc at
+first use.
 
 ``load(deck_dir)`` and ``run(deck_dir, out_dir)`` are the package API, as
 the JAX package's; both run on the card unless ``device="cpu"``.

@@ -92,10 +92,8 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
     if has_domain_step():
         run_domain_step_demo(n_devices, device=dev)
     # 4) the runner in slab mode (run --mesh N): a small argon deck end
-    # to end.  The JAX dryrun also asserts that its on-device stat ring
-    # ran the whole run in one dispatch (ring_ok, n_dispatch == 1); the
-    # stat ring is not ported (CUDA graphs take its place), so those
-    # asserts have no counterpart here.
+    # to end, the whole run one dispatch of the mesh's stat ring, as the
+    # JAX dryrun asserts
     with tempfile.TemporaryDirectory() as td:
         deck = os.path.join(td, "deck")
         os.makedirs(deck)
@@ -106,6 +104,7 @@ def dryrun_multichip(n_devices: int, device=None) -> None:
         r.run()
         r.finalize()
         assert int(r.state.mig_lost) == 0
+        assert r.ring_ok and r.n_dispatch == 1, (r.ring_ok, r.n_dispatch)
     # 4b) the block-sparse pair engine under the atom-sharded step: one
     # sharded step, exactly the single-device step
     rng = np.random.default_rng(5)

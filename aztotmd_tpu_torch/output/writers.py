@@ -1,6 +1,8 @@
 """Text writers matching the reference's output formats (the port's copy
-of the writers it uses from ``aztotmd_tpu/output/writers.py``, in pure
-Python: the JAX package's native row formatter is not part of the port).
+of the writers it uses from ``aztotmd_tpu/output/writers.py``).  traj.dat
+and revcon.xyz go through the port's native row formatter (``native.py``,
+built from ``csrc/aztocore.cpp`` at first use), as the JAX package's do
+through its own; the other files are written in Python.
 
 Every writer documents the reference function it mirrors; formats are
 tab-separated with ``%f``-style 6-decimal floats, matching fprintf
@@ -152,28 +154,30 @@ class JumpWriter(_FileWriter):
                       f"\t{int(jump_pos)}\t{int(jump_neg)}\n")
 
 
-class TrajWriter(_FileWriter):
+class TrajWriter:
     """traj.dat (cuStat.cu:808-875 write_traj/copy_traj/start_traj):
     per sampled step one row: time, step, then per atom
-    x y z type ptype (ptype = type of the parent atom, -1 if none)."""
+    x y z type ptype (ptype = type of the parent atom, -1 if none),
+    formatted by the native row formatter from float32 positions."""
 
     def __init__(self, path, fld, types):
-        super().__init__(path)
+        from ..native import NativeRowFile
+        self.path = path
+        self._native = NativeRowFile(path)
         h = "time\tstep"
         for t in types:
             h += f"\t{fld.species[int(t)].name}x\ty\tz\ttype\tptype"
-        self.fh.write(h)
+        self._native.write_str(h)
 
     def write_row(self, time, step, pos, types, parents):
         ptype = np.where(parents > 0, types[np.maximum(parents, 0)],
                          -1).astype(np.int32)
-        cols = [f"\n{_f(time)}\t{int(step)}"]
-        vals = np.empty((len(types), 5), np.float64)
-        vals[:, :3] = pos
-        vals[:, 3] = types
-        vals[:, 4] = ptype
-        cols.append("\t".join(_f(v) for v in vals.reshape(-1)))
-        self.fh.write("\t".join(cols))
+        self._native.write_traj_row(time, step, pos, types, ptype)
+
+    def close(self):
+        if self._native:
+            self._native.close()
+            self._native = None
 
 
 class HistWriter(_FileWriter):
@@ -310,12 +314,13 @@ def write_rdf_file(path, rcfg, gr, names):
 def write_atoms_xyz(path, names, pos, box):
     """revcon.xyz (out_md.cpp:65-87 out_atoms + box.cpp save_box):
     count line, '1 la lb lc' box line, then name x y z."""
+    from ..native import NativeRowFile
     header = (f"{len(names)}\n"
               f"1 {_f(box[0])} {_f(box[1])} {_f(box[2])}\n")
-    with open(path, "w") as f:
-        f.write(header)
-        for nm, p in zip(names, pos):
-            f.write(f"{nm}\t{_f(p[0])}\t{_f(p[1])}\t{_f(p[2])}\n")
+    f = NativeRowFile(path)
+    f.write_str(header)
+    f.write_xyz_rows(names, pos)
+    f.close()
 
 
 def _per_species_table(path, fld, types, columns, header_fn):

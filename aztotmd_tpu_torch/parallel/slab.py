@@ -939,3 +939,136 @@ def make_slab_rdf_sample(cfg, rcfg, comm, spec_nuclei, nucl_number):
                                       spec_nuclei, nucl_number, hist, nhist)
 
     return sample
+
+
+# ----------------------------------------------------------------------
+# the slab health monitors, in the stat row's first over slots
+SLAB_OVER_KEYS = ("slab_occ", "mig_lost", "mig_defer", "bond_miss")
+
+
+def _make_local_stat_row(cfg, spec_counts0, pos0, comm):
+    """stat_row(st) -> (frow float32, irow int32) of a slab state over
+    ``comm``, in the layout of ``runtime.statring.make_stat_row``, so the
+    runner decodes both alike.  The per-atom reductions (displacement MSD
+    from the replicated pos0 table keyed by gid, x1 of global atom 0,
+    live species counts, the constant-topology bond count as
+    (records + 1) // 2) are per-slab partials and one psum.  The int
+    row's "over" slots carry the slab health monitors [slab_occ,
+    mig_lost, mig_defer, bond_miss, 0, 0, 0] instead of the one-device
+    capacity monitors (the runner decodes per mode)."""
+    from ..runtime.statring import pack_rows
+
+    N = cfg.n_at
+    nsp = cfg.n_spec
+    counts = np.maximum(np.asarray(spec_counts0), 1).astype(np.float32)
+    counts = [float(c) for c in counts]
+    box = [float(b) for b in cfg.box]
+    pos0_h = np.asarray(pos0)
+    reactive = reactive_mode(cfg)
+    nbt = max(cfg.n_bond_types, 1)
+    # the replicated pos0 table on the device, built at the first call
+    # (before a capture), per dtype
+    tables = {}
+
+    def stat_row(st: SlabState):
+        E = st.energies
+        dt, dev = st.pos.dtype, st.pos.device
+        key = (dt, dev)
+        if key not in tables:
+            tables[key] = torch.as_tensor(pos0_h).to(device=dev, dtype=dt)
+        i32 = torch.int32
+        valid = st.gid >= 0
+        gsafe = st.gid.clamp(0, N - 1).to(torch.int64)
+        # per-species mean |r(t)-r(0)|^2, minimum image
+        d = st.pos - tables[key][gsafe]
+        bx = const(box, dt, dev)
+        d = d - bx * torch.round(d / bx)
+        r2 = torch.where(valid, torch.sum(d * d, dim=-1),
+                         torch.zeros((), dtype=dt, device=dev))
+        sp = torch.arange(nsp, dtype=i32, device=dev)
+        live = valid[..., None] & (st.types[..., None] == sp)
+        oh = live.to(dt)
+        msd = comm.psum((r2[..., None] * oh).sum(1)).to(torch.float32) \
+            / const(counts, torch.float32, dev)
+        # x1 = x of global atom 0 (owned by exactly one slot mesh-wide)
+        x1 = comm.psum(torch.where(
+            st.gid == 0, st.pos[..., 0],
+            torch.zeros((), dtype=dt, device=dev)).sum(1))
+        zero = torch.zeros((1,), dtype=i32, device=dev)
+        if reactive:
+            rg = st.rg
+            spec_number, n_bond = rg.spec_number, rg.n_bond
+            bt_count, bt_r, bt_lt = rg.bt_count, rg.bt_r_mean, rg.bt_lt_mean
+            n_jump, j_pos, j_neg = rg.n_jump, rg.jump_pos, rg.jump_neg
+        else:
+            spec_number = comm.psum(live.sum(1, dtype=i32))
+            n_bond = zero
+            if cfg.use_bnd:
+                # each side of a bond holds a record
+                rec = (valid[..., None] & (st.bnd_type != 0)).sum(
+                    (1, 2), dtype=i32)
+                n_bond = (comm.psum(rec) + 1) // 2
+            bt_count = torch.zeros((nbt,), dtype=i32, device=dev)
+            bt_r = bt_lt = torch.zeros((nbt,), dtype=torch.float32,
+                                       device=dev)
+            n_jump = j_pos = j_neg = zero
+        return pack_rows(
+            E, st.pos_mom, st.neg_mom, st.pressure, x1, msd, bt_r, bt_lt,
+            st.step, spec_number, st.cross_pos, st.cross_neg, n_bond, n_jump,
+            j_pos, j_neg, [getattr(st, k) for k in SLAB_OVER_KEYS]
+            + [zero] * 3, bt_count)
+
+    return stat_row
+
+
+def make_slab_ring(cfg, aux, comm, rcfg, spec_nuclei, nucl_number,
+                   p_stat: int, p_rdf: int, spec_counts0, pos0, multi=None,
+                   sample=None, cap: int = 512):
+    """The slab mesh's stat ring: ring(st, h, nh, ff, n_samples) ->
+    (st, h, nh, frows, irows) runs ``n_samples`` stat periods of the slab
+    step, with an RDF sample on the mesh after every ``p_rdf`` steps
+    (``p_rdf`` 0 or ``rcfg`` None: none), and writes one stat row a period
+    (``_make_local_stat_row``) into a device ring of ``cap`` rows
+    (``runtime.statring.RowRing``); frows and irows are its first
+    ``n_samples`` rows, valid until the next call.  Over a ``LocalRing``
+    the step, the row and the ring's reset are replays of captured CUDA
+    graphs on the card (as ``make_slab_multi_step``'s step); over
+    ``DistRing`` they run eagerly.  ``multi`` (a slab ``MultiStep``) and
+    ``sample`` are shared with the caller's programs where given;
+    ``ring.multi`` holds the step, "row" and "ring_reset" programs."""
+    from ..runtime.graph import GraphedSample
+    from ..runtime.statring import RowRing, make_layout
+    from ..runtime.step import MultiStep
+
+    check_slab_cfg(cfg, comm.n_dev)
+    fuse_rdf = rcfg is not None and p_rdf > 0
+    if fuse_rdf and p_stat % p_rdf:
+        raise ValueError("mesh ring needs p_rdf | p_stat")
+    if multi is None:
+        multi = make_slab_multi_step(cfg, aux, comm)
+    _, nf, _, ni = make_layout(cfg.n_spec, max(cfg.n_bond_types, 1))
+    rows = RowRing(nf, ni, cap, comm.device)
+    multi = MultiStep(dict(multi.fns, row=rows.program(
+        _make_local_stat_row(cfg, spec_counts0, pos0, comm)),
+        ring_reset=rows.reset), multi.graph)
+    if fuse_rdf and sample is None:
+        sample = GraphedSample(
+            make_slab_rdf_sample(cfg, rcfg, comm, spec_nuclei, nucl_number),
+            "mesh RDF sample", multi.graph)
+
+    def ring(st, h, nh, ff, n_samples: int):
+        run, current = multi.start(st, ff)
+        run("ring_reset")
+        for _ in range(n_samples):
+            if fuse_rdf:
+                for _ in range(p_stat // p_rdf):
+                    run("step", p_rdf)
+                    h, nh = sample(current(), h, nh)
+            else:
+                run("step", p_stat)
+            run("row")
+        frows, irows = rows.rows(n_samples)
+        return current(), h, nh, frows, irows
+
+    ring.multi, ring.sample, ring.rows = multi, sample, rows
+    return ring

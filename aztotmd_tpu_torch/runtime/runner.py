@@ -1,14 +1,19 @@
 """The run orchestrator (port of ``aztotmd_tpu/runtime/runner.py``: the
 host chunk loop ``_run_loop``, the stat ring's plan and loop
-``_run_loop_ring``, ``_sample``, ``_sample_rest`` and ``finalize``).
+``_run_loop_ring``, its flush ``_flush_rows`` / ``_decode_rows``,
+``_sample``, ``_sample_rest`` and ``finalize``).
 
 Where the JAX runner takes its on-device stat ring (``ring_ok``: every
 host-visible period a multiple of the stat period, and the RDF period
-dividing it), the port runs the ring's plan (``_ring_plan``, with JAX's
-keys) one stat period at a time and writes a stat row after each: the
+dividing it, and ``AZTOTMD_NO_RING`` unset), so does the port: the
 periods come in JAX's dispatch windows of ``n_fix`` periods between host
-events, and each period runs the ring's ``stat_block``
-(``_ring_period``).  On the Verlet list with short RDF blocks
+events (``_ring``), each period runs the ring's ``stat_block``
+(``_ring_period``) and ends with the "row" program, which writes the
+period's float32 and int32 stat row (``statring.py``) into a device ring;
+one copy a window moves the rows to pinned host memory, and window k is
+decoded into the writers and its monitors read (the max over its rows)
+only after window k+1 is enqueued, so a regrow comes one window late, as
+in JAX.  On the Verlet list with short RDF blocks
 (``refine_blocks``) a period starts with one full rebuild and each RDF
 block with an inner refine.  Where the RDF has a list (``k_cap`` > 0,
 any engine), each period builds the (N, k_cap) RDF list and the samples
@@ -20,12 +25,13 @@ JAX's opt-in row-compacted sampling (``rdf_rows``, a measured loss there)
 is not ported: the plan's ``rdf_rows`` is always False.  Elsewhere
 steps run in chunks sized to the greatest common divisor of the output
 periods, RDF samples inside the chunk every ``fr_rdf`` steps, each chunk
-starting with a full list rebuild, as JAX's host chunk loop does.  Both loops
-reset the RDF window after 500 samples as JAX's do.  The output files
-and their rows are the JAX runner's, with stat_bnd.dat and jumps.dat for
+starting with a full list rebuild, as JAX's host chunk loop does, and
+each stat row is read from the state (``_stat_row``).  Both loops reset
+the RDF window after 500 samples as JAX's do.  The output files and
+their rows are the JAX runner's, with stat_bnd.dat and jumps.dat for
 reactive decks and revbonds.txt and lengths.dat at the end of a run with
-bonds and revangles.txt with angles.  At each stat row the runner reads
-the capacity monitors (the block-sparse worklist length or the fullest
+bonds and revangles.txt with angles.  The runner reads the capacity
+monitors (the block-sparse worklist length or the fullest
 cell's occupancy; on the Verlet-list engine the skin violations, the
 inner and outer neighbor counts, the occupied and outer-occupied rows and
 the list grid's occupancy; the RDF list's ``rdf_over``) and regrows the
@@ -35,17 +41,19 @@ every regrow rebuilds the programs, which recapture.
 
 Mesh mode (``mesh_devices=N``, ``run --mesh N``) runs the slab-decomposed
 step of ``parallel/slab.py``: the deck's grid is re-cut to the slab
-stencil, the state is distributed by x-slab, the chunk loop calls the
-slab multi-step with the RDF sample on the mesh at its period (JAX's
-slab ring has no RDF list), and the stat rows and output files read the
-state gathered in global-id order, with the bond, angle and jump tables
-of the replicated reactive topology (``SlabState.rg``) or, on a
-constant-topology deck, of the initial MDState.  Checkpoints are
-single-device MDStates with the live topology, which either package
-resumes on one device or on any mesh.  At each stat row the slab monitors
-regrow the cell capacity, warn about bond or angle records whose partner
-lay beyond one slab, or raise the slot capacity 1.5x and redistribute
-after a migration deleted atoms or kept deferring
+stencil, the state is distributed by x-slab, and the ring loop calls the
+slab ring (``make_slab_ring``: the slab step, the RDF sample on the mesh
+at its period, a row psum-reduced over the slabs whose monitor slots
+carry the slab health monitors; JAX's slab ring has no RDF list), or
+the chunk loop the slab step and the RDF sample on the mesh.  The
+host-event outputs read the state gathered in global-id order, with the
+bond, angle and jump tables of the replicated reactive topology
+(``SlabState.rg``) or, on a constant-topology deck, of the initial
+MDState.  Checkpoints are single-device MDStates with the live topology,
+which either package resumes on one device or on any mesh.  The slab
+monitors regrow the cell capacity, warn about bond or angle records
+whose partner lay beyond one slab, or raise the slot capacity 1.5x and
+redistribute after a migration deleted atoms or kept deferring
 (``_check_slab_health``).
 
 Atom-sharded mode (``mesh_devices=N, mesh_mode="atoms"``, ``run --mesh N
@@ -53,9 +61,8 @@ Atom-sharded mode (``mesh_devices=N, mesh_mode="atoms"``, ``run --mesh N
 (``parallel/mesh.py``) and runs the one-device programs and plan over
 their gather; the writers, the RDF samples and checkpoints read the
 gathered state, so a checkpoint resumes on one device, and a list regrow
-gathers, regrows and shards again.  The stat ring's batched rows (its
-f32 row packing and flushes, ``statring.py``) are not ported: each
-period's row is read from the state.
+gathers, regrows and shards again; the ring's row is computed over the
+gathered rows inside the period's programs.
 """
 
 from __future__ import annotations
@@ -78,11 +85,9 @@ from ..ops import neighbors as ops_nbr
 from ..ops import rdf as ops_rdf
 from ..utils.profiling import StageTimer
 from .checkpoint import save_checkpoint
+from . import statring
 from .graph import GraphedSample
 from .step import MultiStep, make_multi_step, torch_engine_reason
-
-_ENG_KEYS = ("tot", "kin", "vdw", "coul1", "coul2", "bond", "angle", "temp")
-
 
 def _gcd_all(values):
     g = 0
@@ -104,8 +109,8 @@ class MDRunner:
     (``ring_ok``) the run takes the ring's plan (``_ring_plan``);
     elsewhere every RDF block restarts the list schedule, as JAX's host
     chunk loop does.  ``AZTOTMD_RING_STEPS`` and a deck's ``nstep stat``
-    set the window (``s_cap``) as in JAX; ``AZTOTMD_NO_RING`` is JAX's
-    alone (the port has no host batching to turn off)."""
+    set the window (``s_cap``) as in JAX; ``AZTOTMD_NO_RING`` takes the
+    host loop, as in JAX."""
 
     def __init__(self, sysd: dict, out_dir: str = ".", quiet: bool = False,
                  checkpoint_every: int = 0, append: bool = False,
@@ -210,6 +215,7 @@ class MDRunner:
         self.rcfg = ops_rdf.make_rdf_config(ctl, cfg, pos=pos_h, m_min=m_min)
         self.rdf_count = 0
         self._rdf_last = None        # last written (hist, nhist, count)
+        self.hist = self.nhist = None
         if self.rcfg is not None:
             self.hist, self.nhist = ops_rdf.zero_hist(self.rcfg,
                                                       device=self.device)
@@ -228,21 +234,33 @@ class MDRunner:
             self.p_traj, self.p_revcon, self.p_bindtraj, self.p_hist,
             self.p_vaf, checkpoint_every, self.p_rdf_out) if p]
         # the JAX stat ring's gate (runner.py:193-199): whole stat periods,
-        # with their RDF blocks, between host events
+        # with their RDF blocks, between host events; AZTOTMD_NO_RING
+        # takes the host loop, as in JAX
         self.ring_ok = self.p_stat > 0 and all(
-            p % self.p_stat == 0 for p in self._host_periods)
+            p % self.p_stat == 0 for p in self._host_periods) \
+            and not os.environ.get("AZTOTMD_NO_RING")
         if self.rcfg is not None and self.p_rdf:
             self.ring_ok = self.ring_ok and self.p_stat % self.p_rdf == 0
         self._ring_plan = {}
         self.s_cap = 1
         if self.ring_ok:
-            # the stat periods of one JAX ring dispatch, at most: the
-            # superblocks of the plan restart at each dispatch
+            # the stat periods of one ring window, at most: the
+            # superblocks of the plan restart at each window
             target = int(os.environ.get("AZTOTMD_RING_STEPS", "8000"))
             self.s_cap = max(1, min(512, target // self.p_stat or 1))
             dev_cfg = sysd.get("dev")
             if dev_cfg is not None and dev_cfg.nstep_stat != 10:
                 self.s_cap = max(1, min(512, dev_cfg.nstep_stat))
+            self._spec_counts0 = np.bincount(types_h, minlength=cfg.n_spec)
+            (self._fsl, self._nf, self._isl, self._ni) = \
+                statring.make_layout(cfg.n_spec, max(cfg.n_bond_types, 1))
+            self._host_rows = statring.HostRows(self._nf, self._ni,
+                                                self.s_cap, self.device)
+            if self.comm is not None:
+                # the mesh ring's MSD reads a gid-keyed table of pos0
+                self._pos0_h = self.state.pos0.cpu().numpy()
+        self.n_dispatch = 0      # step-advancing host dispatches
+        self.n_flush = 0         # ring windows decoded (_flush_rows)
 
         self._view_cache = None
         if self._atoms_mesh is not None:
@@ -280,8 +298,8 @@ class MDRunner:
         recaptures."""
         cfg, rcfg = self.cfg, self.rcfg
         if self.comm is not None:
-            # the slab mesh keeps its chunk loop and its sampler, as JAX's
-            # slab ring has no RDF list
+            # the slab mesh: its stat ring where the gate holds, the chunk
+            # loop elsewhere (JAX's slab ring has no RDF list)
             from ..parallel import slab as _slab
             self.refine_blocks = self.fuse_rdf = self.use_list = False
             self.multi = _slab.make_slab_multi_step(cfg, self.aux, self.comm,
@@ -292,6 +310,16 @@ class MDRunner:
                                                self._spec_nuclei,
                                                self._nucl_number),
                     "mesh RDF sample", self.multi.graph)
+            if self.ring_ok:
+                self._ring_fn = _slab.make_slab_ring(
+                    cfg, self.aux, self.comm, rcfg,
+                    self._spec_nuclei if rcfg is not None else None,
+                    self._nucl_number if rcfg is not None else None,
+                    self.p_stat, self.p_rdf if rcfg is not None else 0,
+                    self._spec_counts0, self._pos0_h, multi=self.multi,
+                    sample=getattr(self, "_rdf", None), cap=self.s_cap)
+                # one set of programs: the ring's holds the step
+                self.multi = self._ring_fn.multi
             return
         if self._atoms_mesh is not None:
             from ..parallel import mesh as _mesh
@@ -305,6 +333,18 @@ class MDRunner:
                 self._sampler(ops_rdf.rdf_sample), "RDF sample",
                 self.multi.graph)
         self._plan_programs(cfg, rcfg)
+        if self.ring_ok:
+            # the stat row of each period into the device ring: over the
+            # gathered rows of an atom-sharded run
+            self._rows = statring.RowRing(self._nf, self._ni, self.s_cap,
+                                          self.device)
+            stat_row = statring.make_stat_row(cfg, self._spec_counts0)
+            base = self.multi
+            self.multi = MultiStep(
+                dict(base.fns, row=self._rows.program(
+                    lambda s: stat_row(self._gather(s))),
+                    ring_reset=self._rows.reset),
+                base.graph, base.R, base.Q)
 
     def _sampler(self, fn, *lists):
         """An RDF sample ``(state, hist, nhist) -> (hist, nhist)`` of
@@ -461,7 +501,7 @@ class MDRunner:
             torch.cuda.synchronize(self.device)
 
     def _run_loop(self, total, done):
-        if self._ring_plan:
+        if self.ring_ok:
             return self._run_loop_ring(total, done)
         while done < total:
             n = min(self.chunk, total - done)
@@ -477,44 +517,54 @@ class MDRunner:
 
     def _run_loop_ring(self, total, done):
         """The JAX stat ring's loop (``aztotmd_tpu/runtime/runner.py:
-        647-730``), one stat row a period: dispatch windows of ``n_fix``
-        stat periods between host events, each period run on the plan
-        (``_ring_period``; with ``rdf_from_outer`` a full rebuild starts
-        each superblock of ``min(k_super, n_fix)`` periods of a window);
-        a tail shorter than a period as the chunk loop runs it; the RDF
-        window's overfill reset after a window (unless it ends on an
-        rdfN.dat step) and after host events."""
+        647-730``): windows of ``n_fix`` stat periods between host events,
+        each enqueued as the plan's programs with one stat row a period
+        into the device ring (``_ring``) and one copy of its rows to the
+        host (``HostRows.fetch``); window k's rows are decoded
+        (``_flush_rows``) only after window k+1 is enqueued, so the
+        monitors, and any regrow, come one window late, as in JAX.  A
+        tail shorter than a period runs as the chunk loop runs it; the
+        RDF window's overfill reset comes after a window (unless it ends
+        on an rdfN.dat step) and after host events.  Every host event and
+        the loop's end flush first."""
         p = self.p_stat
-        # JAX's one window size: it divides every host-event gap (the
-        # gcd of the host periods, the total and the resume point)
-        w = _gcd_all(list(self._host_periods) + [total, done])
-        w_samp = (w // p) if (w and w % p == 0) else 1
-        n_fix = max(d for d in range(1, min(self.s_cap, w_samp) + 1)
-                    if w_samp % d == 0)
-        while done < total:
-            nxt = self._next_host_event(done, total)
-            while nxt - done >= p:
-                # the plan is read again each period: a regrow at a stat
-                # row rebuilds it
-                k = (min(self._ring_plan["k_super"], n_fix)
-                     if self._ring_plan["rdf_from_outer"] else 1)
-                for j in range(n_fix):
-                    self._staged("steps", self._ring_period, j % k == 0)
-                    done += p
-                    self._staged("sampling", self._stat_row, done)
-                if (self.rcfg is not None and self.rdf_count > 500
-                        and not (self.p_rdf_out
-                                 and done % self.p_rdf_out == 0)):
+        pending = None
+        try:
+            # JAX's one window size: it divides every host-event gap (the
+            # gcd of the host periods, the total and the resume point)
+            w = _gcd_all(list(self._host_periods) + [total, done])
+            w_samp = (w // p) if (w and w % p == 0) else 1
+            n_fix = max(d for d in range(1, min(self.s_cap, w_samp) + 1)
+                        if w_samp % d == 0)
+            self.n_fix = n_fix
+            while done < total:
+                nxt = self._next_host_event(done, total)
+                while nxt - done >= p:
+                    self.n_dispatch += 1
+                    rows = self._staged("steps", self._ring, n_fix)
+                    done += n_fix * p
+                    if pending is not None:
+                        self._flush_rows(pending)
+                    pending = rows
+                    if (self.rcfg is not None and self.rdf_count > 500
+                            and not (self.p_rdf_out
+                                     and done % self.p_rdf_out == 0)):
+                        self._zero_hist()
+                if pending is not None:
+                    self._flush_rows(pending)
+                    pending = None
+                if done < nxt:
+                    self._staged("steps", self._advance, nxt - done)
+                    done = nxt
+                self._staged("sampling", self._sample_rest, done)
+                if self.rcfg is not None and self.rdf_count >= 500:
                     self._zero_hist()
-            if done < nxt:
-                self._staged("steps", self._advance, nxt - done)
-                done = nxt
-            self._staged("sampling", self._sample_rest, done)
-            if self.rcfg is not None and self.rdf_count >= 500:
-                self._zero_hist()
-            if self.debug:
-                from .debug import assert_state_ok
-                assert_state_ok(self.cfg, self._view())
+                if self.debug:
+                    from .debug import assert_state_ok
+                    assert_state_ok(self.cfg, self._view())
+        finally:
+            if pending is not None:
+                self._flush_rows(pending)
 
     def _staged(self, stage, fn, *args):
         """``fn(*args)``, timed as ``stage`` when profiling (waiting for
@@ -530,10 +580,31 @@ class MDRunner:
             nxt = min(nxt, (done // p + 1) * p)
         return nxt
 
+    def _ring(self, n: int):
+        """One window of the ring (JAX's ``ring``): ``n`` stat periods on
+        the plan, each followed by its stat row into the device ring (with
+        ``rdf_from_outer`` a full rebuild starts each superblock of
+        ``min(k_super, n)`` periods), then one copy of the n rows to the
+        host.  Returns the pending host rows (``HostRows.fetch``)."""
+        if self.comm is not None:
+            (self.state, self.hist, self.nhist, fr, ir) = self._ring_fn(
+                self.state, self.hist, self.nhist, self.ff, n)
+            if self.rcfg is not None and self.p_rdf:
+                self.rdf_count += n * (self.p_stat // self.p_rdf)
+            return self._host_rows.fetch(fr, ir)
+        run, current = self.multi.start(self.state, self.ff)
+        run("ring_reset")
+        self.state = current()
+        plan = self._ring_plan
+        k = min(plan["k_super"], n) if plan["rdf_from_outer"] else 1
+        for j in range(n):
+            self._ring_period(j % k == 0)
+        return self._host_rows.fetch(*self._rows.rows(n))
+
     def _ring_period(self, full: bool):
         """One stat period on the plan, as the JAX ring's ``stat_block``
-        (``runner.py:465-553``): ``full`` starts a superblock
-        (``rdf_from_outer``)."""
+        (``runner.py:465-553``), and its stat row: ``full`` starts a
+        superblock (``rdf_from_outer``)."""
         plan = self._ring_plan
         run, current = self.multi.start(self.state, self.ff)
         n_blocks = self.p_stat // self.p_rdf if self.fuse_rdf else 0
@@ -557,7 +628,47 @@ class MDRunner:
                 self.multi.schedule(run, self.p_rdf)
             self.hist, self.nhist = sample(current(), self.hist, self.nhist)
         self.rdf_count += n_blocks
+        run("row")
         self.state = current()
+
+    def _flush_rows(self, pending):
+        """Decode one window's sample rows into the stat writers, then
+        read its monitors (the max over its rows)."""
+        self._staged("sampling", self._flush_rows_impl, pending)
+
+    def _flush_rows_impl(self, pending):
+        fr, ir = self._host_rows.wait(pending)
+        self.n_flush += 1
+        over = np.max(ir[:, self._isl["over"]], axis=0)
+        self._decode_rows(fr, ir)
+        self._check_monitors([int(v) for v in over])
+
+    def _decode_rows(self, fr, ir):
+        fsl, isl = self._fsl, self._isl
+        nsp = self.cfg.n_spec
+        for k in range(fr.shape[0]):
+            f, i = fr[k], ir[k]
+            step = int(i[isl["step"]][0])
+            t = step * self.cfg.dt
+            eng = dict(zip(statring.ENG_KEYS, f[fsl["eng"]].tolist()))
+            press = float(f[fsl["press"]][0])
+            n_bond = int(i[isl["nbond"]][0])
+            self.w_stat.write_row(t, step, eng, f[fsl["pos_mom"]],
+                                  f[fsl["neg_mom"]], press, i[isl["spec"]])
+            cpos = i[isl["cpos"]].reshape(nsp, 3)
+            cneg = i[isl["cneg"]].reshape(nsp, 3)
+            if self.w_bnd:
+                self.w_bnd.write_row(t, step, n_bond, i[isl["btc"]],
+                                     f[fsl["bt_r"]], f[fsl["bt_lt"]])
+            self.w_msd.write_row(t, step, cpos, cneg)
+            if self.w_jmp:
+                self.w_jmp.write_row(t, step, int(i[isl["njump"]][0]),
+                                     int(i[isl["jpos"]][0]),
+                                     int(i[isl["jneg"]][0]))
+            self.w_msdd.write_row_msd(t, step, f[fsl["msd"]], cneg, cpos)
+            if not self.quiet:
+                self._console(step, eng, float(f[fsl["x1"]][0]), press,
+                              n_bond)
 
     def _zero_hist(self):
         """Restart the RDF window, in place (the captured sample keeps its
@@ -568,6 +679,7 @@ class MDRunner:
         self.rdf_count = 0
 
     def _advance(self, n: int):
+        self.n_dispatch += 1
         if self.rcfg is not None and self.rdf_in_chunk:
             n_blocks, rem = divmod(n, self.p_rdf)
             for _ in range(n_blocks):
@@ -591,12 +703,13 @@ class MDRunner:
         self._sample_rest(step)
 
     def _stat_row(self, step: int):
-        """The stat row of ``step`` in every stat file, then the capacity
-        monitors."""
+        """The host loop's stat row of ``step`` (JAX's ``_sample``, where
+        the ring's gate fails or ``AZTOTMD_NO_RING`` is set): read from
+        the state in its dtype, then the capacity monitors."""
         st = self._view()
         t = step * self.cfg.dt
         E = st.energies
-        eng = {k: float(getattr(E, k)) for k in _ENG_KEYS}
+        eng = {k: float(getattr(E, k)) for k in statring.ENG_KEYS}
         pos_mom = _host(st.pos_mom)
         neg_mom = _host(st.neg_mom)
         pressure = float(st.pressure)
@@ -617,36 +730,52 @@ class MDRunner:
         self.w_msdd.write_row(t, step, pos, cross_neg, cross_pos)
         if not self.quiet:
             self._console(step, eng, float(pos[0, 0]), pressure, n_bond)
-        self._check_overflow()
+        self._check_monitors(self._monitors())
 
-    def _check_overflow(self):
+    def _monitors(self):
+        """The state's capacity monitors, in the order of the stat row's
+        over slots (``statring.OVER_KEYS``; on the slab mesh
+        ``slab.SLAB_OVER_KEYS``): the host loop's read."""
         if self.comm is not None:
-            return self._check_slab_health()
-        self._check_overflow_engine()
+            from ..parallel.slab import SLAB_OVER_KEYS as keys
+        else:
+            keys = statring.OVER_KEYS
+        return [int(getattr(self.state, k)) for k in keys]
 
-    def _check_overflow_engine(self):
-        """The capacity monitors, read at stat rows, with the JAX
-        runner's formulas and warnings; a regrow rebuilds the step.
+    def _check_monitors(self, over):
+        """Check the monitors of the over slots: a window's max over its
+        rows (the ring) or the state's (``_monitors``, the host loop).
+        The slab rows carry the slab health monitors there
+        (``parallel/slab.py::_make_local_stat_row``)."""
+        if self.comm is not None:
+            return self._check_slab_health(*over[:4])
+        self._check_overflow(*over)
 
-        Block-sparse engine in f32: ``cell_overflow`` carries the
-        tile-pair worklist length the steps needed; past
-        ``sparse_pair_cap`` those steps lost tile pairs.  Every other
-        case (the block engine, the pallas engine, and the sparse engine
-        in f64, which runs the cell-block engine): ``cell_overflow`` is
-        the fullest cell's occupancy (0 from the dense pass); past
-        ``grid.cap`` those steps dropped atoms.  A new ``cap`` changes
-        the modeled block cost, so the pallas dispatcher may take
-        another branch afterwards.  The Verlet-list engine reads its list
-        monitors first, and its occupancy is that of ``nb_grid``."""
+    def _check_overflow(self, occ, nbr_over, nbr_viol, nbrow_over,
+                        nbr2_over, rdf_over, orow_over):
+        """The capacity monitors, in the order of ``statring.OVER_KEYS``,
+        with the JAX runner's formulas and warnings; a regrow rebuilds
+        the programs.
+
+        Block-sparse engine in f32: ``cell_overflow`` (``occ``) carries
+        the tile-pair worklist length the steps needed; past
+        ``sparse_pair_cap`` those steps lost tile pairs.  Every other case
+        (the block engine, the pallas engine, and the sparse engine in
+        f64, which runs the cell-block engine): it is the fullest cell's
+        occupancy (0 from the dense pass); past ``grid.cap`` those steps
+        dropped atoms.  A new ``cap`` changes the modeled block cost, so
+        the pallas dispatcher may take another branch afterwards.  The
+        Verlet-list engine reads its list monitors first, and its
+        occupancy is that of ``nb_grid``."""
         if self.cfg.pair_engine == "neighbor":
-            self._check_neighbor_monitors()
-        self._check_rdf_monitor()
+            self._check_neighbor_monitors(nbr_viol, nbr_over, nbrow_over,
+                                          nbr2_over, orow_over)
+        self._check_rdf_monitor(rdf_over)
         cfg = self.cfg
         if cfg.pair_engine == "sparse" and cfg.dtype != "f64":
-            need = int(self.state.cell_overflow)
-            if need > cfg.sparse_pair_cap:
-                new_cap = _round_up(need + max(64, need // 4), 64)
-                print(f"WARNING: sparse tile-pair count {need} exceeded "
+            if occ > cfg.sparse_pair_cap:
+                new_cap = _round_up(occ + max(64, occ // 4), 64)
+                print(f"WARNING: sparse tile-pair count {occ} exceeded "
                       f"capacity {cfg.sparse_pair_cap}; rebuilding with "
                       f"pair_cap={new_cap}", file=sys.stderr)
                 self.cfg = dataclasses.replace(cfg, sparse_pair_cap=new_cap)
@@ -655,7 +784,6 @@ class MDRunner:
         # the Verlet-list engine bins on its own grid, nb_grid
         key = "nb_grid" if cfg.pair_engine == "neighbor" else "grid"
         g = getattr(cfg, key)
-        occ = int(self.state.cell_overflow)
         if occ > g.cap:
             new_cap = _round_up(occ + max(2, occ // 4), 4)
             print(f"WARNING: cell occupancy {occ} exceeded capacity "
@@ -689,13 +817,12 @@ class MDRunner:
         self._view_cache = None
         self._build_programs()
 
-    def _check_neighbor_monitors(self):
+    def _check_neighbor_monitors(self, viol, over, rover, over2, oover):
         """The Verlet-list monitors, with the JAX runner's formulas and
-        warnings: the escalating skin monitor, then the inner neighbor
-        count (K), the occupied rows (nb_rowcap), the outer-occupied rows
-        (nb_orowcap) and the outer count (K2)."""
-        st = self.state
-        viol = int(st.nbr_viol)
+        warnings: the escalating skin monitor (``viol``), then the inner
+        neighbor count (K, ``over``), the occupied rows (nb_rowcap,
+        ``rover``), the outer-occupied rows (nb_orowcap, ``oover``) and
+        the outer count (K2, ``over2``)."""
         if viol and viol > self._viol_seen:
             # warn on the first window of violations, react if they keep
             # accruing at later checks
@@ -707,7 +834,6 @@ class MDRunner:
                       file=sys.stderr)
             else:
                 self._escalate_skin(viol)
-        over = int(self.state.nbr_over)
         if over > self.cfg.n_neigh:
             new_k = _round_up(over + max(4, over // 4), 4)
             print(f"WARNING: neighbor count {over} exceeded capacity "
@@ -715,7 +841,6 @@ class MDRunner:
                   file=sys.stderr)
             self._reset_lists(n_neigh=new_k)
         if self.cfg.nb_rowcap:
-            rover = int(self.state.nbrow_over)
             if rover > self.cfg.nb_rowcap:
                 new_cap = min(_round_up(rover + max(128, rover // 4), 128),
                               self.cfg.n_at)
@@ -724,7 +849,6 @@ class MDRunner:
                       f"rowcap={new_cap}", file=sys.stderr)
                 self._reset_lists(nb_rowcap=new_cap)
         if self.cfg.nb_orowcap:
-            oover = int(self.state.orow_over)
             if oover > self.cfg.nb_orowcap:
                 new_cap = min(_round_up(oover + max(128, oover // 4), 128),
                               self.cfg.n_at)
@@ -733,7 +857,6 @@ class MDRunner:
                       f"orowcap={new_cap}", file=sys.stderr)
                 self._reset_lists(nb_orowcap=new_cap)
         if self.cfg.nb_outer > 1:
-            over2 = int(self.state.nbr2_over)
             if over2 > self.cfg.n_neigh2:
                 new_k2 = _round_up(over2 + max(4, over2 // 4), 8)
                 print(f"WARNING: outer neighbor count {over2} exceeded "
@@ -741,13 +864,12 @@ class MDRunner:
                       f"K2={new_k2}", file=sys.stderr)
                 self._reset_lists(n_neigh2=new_k2)
 
-    def _check_rdf_monitor(self):
+    def _check_rdf_monitor(self, rover):
         """The RDF lists' monitor ``rdf_over``, with the JAX runner's
-        formula and warning: the fullest row's count; past ``k_cap`` the
-        list dropped pairs (and, with ``rdf_covers_outer``, so did the
-        outer list refined from it)."""
+        formula and warning: the fullest
+        row's count; past ``k_cap`` the list dropped pairs (and, with
+        ``rdf_covers_outer``, so did the outer list refined from it)."""
         if self.rcfg is not None and self.rcfg.k_cap > 0:
-            rover = int(self.state.rdf_over)
             if rover > self.rcfg.k_cap:
                 new_k = _round_up(rover + max(8, rover // 4), 8)
                 print(f"WARNING: RDF-list neighbor count {rover} exceeded "
@@ -1051,7 +1173,7 @@ class MDRunner:
             mom_buf_neg=st.mom_buf_neg, i_mom=st.i_mom,
             cross_pos=st.cross_pos, cross_neg=st.cross_neg)
 
-    def _check_slab_health(self):
+    def _check_slab_health(self, occ, lost, defer, miss):
         """The slab monitors, read at stat rows (the mesh's
         ``_check_overflow``, with the JAX runner's rules and warnings):
         grow grid.cap when a cell overflowed (atoms of rank >= cap got no
@@ -1059,9 +1181,6 @@ class MDRunner:
         (``bond_miss``); raise the slot capacity 1.5x and redistribute
         when a migration deleted atoms, or when deferrals kept accruing
         over three checks."""
-        st = self.state
-        occ, lost, defer = (int(st.slab_occ), int(st.mig_lost),
-                            int(st.mig_defer))
         cfg = self.cfg
         rebuild = False
         if occ > cfg.grid.cap:
@@ -1072,7 +1191,6 @@ class MDRunner:
             self.cfg = dataclasses.replace(
                 cfg, grid=dataclasses.replace(cfg.grid, cap=new_cap))
             rebuild = True
-        miss = int(st.bond_miss)
         if miss > self._bond_miss_seen:
             print(f"WARNING: {miss} bond/angle records had partners "
                   "outside the +-1-slab reach (stretched topology; "

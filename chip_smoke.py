@@ -103,8 +103,9 @@ JAX stat ring's plan (``rdf_from_outer``, k_super 4: its window of 5
 stat periods cut 4 + 1, so 2 full rebuilds and 20 refines in 1,000
 steps, the RDF sampled from the outer Verlet list), and on its last
 state the list sampler's histograms equal the cell-candidate sampler's
-exactly, both timed replayed; bonded_fluid's regrow (K 24 -> 32)
-recaptures and its graph run matches an eager run; run --debug
+exactly, both timed replayed; bonded_fluid's regrow of K (at the end
+of its run's one stat-ring window, as JAX's) is replayed captured at the
+next window, and its graph run matches an eager run; run --debug
 --timings, run --profile and bench run on surkov_cluster.  The kernel-vs-plain trajectories run eager.
 The atom-sharded mode (``parallel/mesh.py``, ``atoms_mesh_phases``):
 molten_salt (1,000 steps, K1 + Ewald), ejump_redox (1,000, K1-cand) and
@@ -140,6 +141,12 @@ through the CLI (the total energy's drift); "gather" on liquid_argon, 20
 steps against 20 of the block engine (within 1e-4 A) and its replayed
 rate; and ``python -m aztotmd_tpu_torch.bench --windows 2 --chunk 500``
 in a process of its own (exit 0, two four-key lines).
+The stat ring (``ring_phase``, PR 14): every run above counts one copy
+of rows to the host and one flush a window (``ring_counts``), the ring's
+rows of surkov_cluster and argon_gas equal the host loop's float32-cast
+values of the same states (1 ulp; MSD rel 1e-5), argon_gas's device
+idle share between periods is profiled on the ring and on the host loop,
+and the ring runs' CLI steps/s are logged beside PR 13's.
 Any failure exits non-zero.
 The last line of standard output is {"ok": true, "device": {...}}; the
 line before it lists the kernels with their launches, errors, times and
@@ -218,6 +225,17 @@ GATHER_STEPS = 20        # "gather" against the block engine on liquid_argon
 PLAN_STEPS = 400         # each RDF-plan regime, replayed and eager
 GATHER_POS_ATOL = 1e-4   # A
 BENCH_ARGS = ["--windows", "2", "--chunk", "500"]
+# the stat ring (PR 14): the runs whose windows and flushes are counted
+# (name in the log -> CLI steps/s of PR 13's final run, NVIDIA H100 80GB
+# HBM3, 700.00 W), the rows held against the host loop's, and the window
+# profiled for the card's idle share between periods
+RING_PR13 = {"surkov_cluster": 877.1, "argon_gas": 948.1,
+             "argon_gas x3^3 (1080000 atoms)": 303.6,
+             "surkov_cluster --mesh 2": 427.5,
+             "nanoclusters --mesh 4 --mesh-mode atoms": 812.1}
+RING_ROW_STEPS = {"surkov_cluster": 400, "argon_gas": 1000}
+RING_MSD_REL = 1e-5
+RING_PROFILE_STEPS = 400      # argon_gas: two windows of one period
 GRAPH_STEPS = 100        # graph replays against eager steps, per deck
 GRAPH_POS_ATOL = 1e-6    # A: the same kernels in the same order
 FORCE_ATOL = 3e-5        # x max|F|: f32 sums in another order
@@ -503,6 +521,7 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0,
               f"{name} jumps.dat shows no jumps")
         log(f"  jumps.dat: n_jump {int(jmp[-1][2])} (pos {int(jmp[-1][3])},"
             f" neg {int(jmp[-1][4])})")
+    ring_counts(runner, name, steps, rate)
     launch_window(torch, runner, counters, name, rate)
     return runner, launches, rate
 
@@ -777,12 +796,10 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
                   "revangles.txt does not list the deck's angles")
             log(f"  engAngle {rows[0][8]:.4f} .. {rows[-1][8]:.4f} eV; "
                 f"revangles.txt lists {n_in} angles, as angles.txt")
-            # the regrow rebuilds the programs: the graphs recapture
-            check(runner.cfg.n_neigh != cfg0.n_neigh and caps["state"] >= 2,
-                  "bonded_fluid: no regrow, or no recapture after it")
-            log(f"  regrow K {cfg0.n_neigh} -> {runner.cfg.n_neigh}: the "
-                f"step programs were captured {caps['state']} times (the "
-                "first call, and again after the regrow)")
+            # the stat ring reads the monitors one window late, as JAX's:
+            # the run's one window regrows K at its end
+            check(runner.cfg.n_neigh != cfg0.n_neigh,
+                  "bonded_fluid: no regrow")
             eo = os.path.join(out, nm + "_eager")
             er = MDRunner(load_deck_dir(deck, device=dev), out_dir=eo,
                           quiet=True, graph=False)
@@ -805,6 +822,18 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
             check(er.cfg.n_neigh == runner.cfg.n_neigh and not differ
                   and dpos <= GRAPH_POS_ATOL and len(erows) == len(rows),
                   "bonded_fluid: the graph run left the eager run")
+            # the regrow rebuilt the programs: the next window replays
+            # them captured over the regrown lists (its rows are not
+            # decoded: the run's writers are closed)
+            runner._ring(1)
+            g = runner.multi.graphs
+            check(bool(g.programs) and g.state.nbr_idx.shape[1]
+                  == runner.cfg.n_neigh, "bonded_fluid: the next window "
+                  "did not replay programs captured after the regrow")
+            log(f"  regrow K {cfg0.n_neigh} -> {runner.cfg.n_neigh} at the "
+                f"end of the run's window; the next window replays "
+                f"{len(g.programs)} programs captured over (N, "
+                f"{g.state.nbr_idx.shape[1]}) lists")
     log(f"neighbor engine steps/s on {card}: argon_gas "
         f"{res['argon_gas_steps_per_s']:.1f}, bonded_fluid "
         f"{res['bonded_fluid_steps_per_s']:.1f}")
@@ -1060,6 +1089,7 @@ def scale_phase(torch, dev, out, cli, counters, card):
                     for p in runner.multi.graphs.programs.values())
         check(runner.steps_run == steps, f"{tag}: the run stopped early")
         _no_launch(counters, tag)
+        ring_counts(runner, tag, steps, rate)
         want = SCALE_RING[tiles]
         check(runner._ring_plan["rdf_from_outer"] and got == want,
               f"{tag}: the CLI ran another cadence {got} (JAX's ring: "
@@ -1215,7 +1245,10 @@ def dilute_phase(torch, dev, out, counters, card):
     with contextlib.redirect_stderr(err):
         r = MDRunner(sysd, out_dir=os.path.join(out, "dilute_regrow"),
                      quiet=True)
+        # the regrow comes at the end of the first window (the stat
+        # ring's lag); the second run recaptures
         r.run(400)
+        r.run(600)
         r.finalize()
     warn = [ln for ln in err.getvalue().splitlines()
             if ln.startswith("WARNING")]
@@ -1388,6 +1421,8 @@ RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
 # steps run without the profiler; None where not measured
 IDLE = {}
 BUSY = {}
+# the stat ring's runs: name -> (CLI steps/s, windows, periods a window)
+RING_RUNS = {}
 
 
 def profiled(torch, counters, fn):
@@ -1507,6 +1542,241 @@ def launch_window(torch, runner, counters, name, rate):
                 setattr(h, k, v)
         graph_mod.capture_counts.update(caps)
     return steps, ran, seen
+
+
+def ring_counts(runner, name, steps, rate):
+    """The stat ring of a finished run: one copy of rows to the host a
+    window (``HostRows.fetches``) and one decode a window
+    (``runner.n_flush``), the windows covering every stat period of the
+    run.  Recorded in RING_RUNS for the ring phase's summary."""
+    if not runner.ring_ok:
+        log(f"  {name}: the host loop (the stat ring's gate fails)")
+        return
+    fetches, flushes = runner._host_rows.fetches, runner.n_flush
+    periods = steps // runner.p_stat
+    log(f"  {name}: stat ring, {fetches} windows of {runner.n_fix} stat "
+        f"periods (s_cap {runner.s_cap}), {fetches} row copies to the "
+        f"host, {flushes} flushes, {runner.n_dispatch} dispatches")
+    check(fetches == flushes and fetches * runner.n_fix == periods,
+          f"{name}: ring windows {fetches} x {runner.n_fix}, flushes "
+          f"{flushes}, stat periods {periods}")
+    RING_RUNS[name] = (rate, fetches, runner.n_fix)
+
+
+def host_row(runner):
+    """The host loop's stat values of the runner's state
+    (``MDRunner._stat_row``: the energies, momenta, pressure and x1 read
+    from the state, the per-species MSD in float64 on the host as
+    ``MsdDisplWriter.write_row`` computes it), cast to float32, in the
+    ring's float-row layout; and its int row."""
+    import numpy as np
+    from aztotmd_tpu_torch.runtime import statring
+    st = runner._view()
+    w = runner.w_msdd
+    pos = st.pos.double().cpu().numpy()
+    d = pos - w.pos0
+    d -= w.box * np.round(d / w.box)
+    acc = np.zeros(w.n_spec)
+    np.add.at(acc, w.types, np.sum(d * d, axis=1))
+    msd = np.divide(acc, w.counts, out=np.zeros_like(acc),
+                    where=w.counts > 0)
+    f = [float(getattr(st.energies, k)) for k in statring.ENG_KEYS]
+    f += st.pos_mom.tolist() + st.neg_mom.tolist()
+    f += [float(st.pressure), float(pos[0, 0])] + msd.tolist()
+    f += st.bt_r_mean.tolist() + st.bt_lt_mean.tolist()
+    i = [int(st.step)] + st.spec_number.tolist()
+    i += st.cross_pos.reshape(-1).tolist() + st.cross_neg.reshape(-1).tolist()
+    i += [int(st.n_bond), int(st.n_jump), int(st.jump_pos),
+          int(st.jump_neg)]
+    i += [int(getattr(st, k)) for k in statring.OVER_KEYS]
+    i += st.bt_count.tolist()
+    return np.asarray(f, np.float32), np.asarray(i, np.int32)
+
+
+def _same_rows(name, what, msd, ring, host):
+    """Ring rows against host rows: int rows exactly, every float column
+    within one float32 ulp, the MSD within RING_MSD_REL.  Returns (float
+    values 1 ulp apart, largest MSD relative difference)."""
+    import numpy as np
+    check(len(ring) == len(host) > 0, f"{name}: {len(ring)} ring rows, "
+          f"{len(host)} rows of {what}")
+    n_diff, rel = 0, 0.0
+    for (fr, ir), (fh, ih) in zip(ring, host):
+        check(np.array_equal(ir, ih), f"{name}: int rows differ from "
+              f"{what}: {ir} against {ih}")
+        u = np.abs(fr.view(np.int32).astype(np.int64)
+                   - fh.view(np.int32).astype(np.int64))
+        u[msd] = 0
+        check(int(u.max()) <= 1 and np.array_equal(np.sign(fr),
+                                                   np.sign(fh)),
+              f"{name}: float rows differ from {what} by {int(u.max())} "
+              "ulps")
+        n_diff += int((u > 0).sum())
+        m = np.abs(fr[msd].astype(np.float64) / fh[msd] - 1.0)
+        rel = max(rel, float(np.max(m, initial=0.0)))
+    check(rel <= RING_MSD_REL, f"{name}: ring MSD rel {rel:.3e} against "
+          f"{what}")
+    return n_diff, rel
+
+
+def ring_rows_case(torch, dev, out, name, deck, no_ring=False):
+    """One run of ``deck`` through the ring with the host loop's row taken
+    from the state after each period (the check waits for the card
+    there): the ring's float32 rows, decoded a window late, against the
+    host loop's float32-cast values of the same states (``_same_rows``).
+    With ``no_ring`` also a run of the host loop itself
+    (``AZTOTMD_NO_RING``, the chunk loop's programs in the ring's order
+    on a deck without a list) against the ring's rows.  Returns {what:
+    (rows, float values 1 ulp apart, largest MSD relative difference)}."""
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    steps = RING_ROW_STEPS[name]
+
+    def runner_of(tag):
+        return MDRunner(load_deck_dir(deck, device=dev), quiet=True,
+                        out_dir=os.path.join(out, f"ring_rows_{name}_{tag}"))
+    runner = runner_of("ring")
+    check(runner.ring_ok, f"{name}: the stat ring's gate fails")
+    host, ring = [], []
+    period, decode = runner._ring_period, runner._decode_rows
+
+    def period_then_host(full):
+        period(full)
+        torch.cuda.synchronize()
+        host.append(host_row(runner))
+
+    def keep(fr, ir):
+        ring.extend(zip(fr.copy(), ir.copy()))
+        decode(fr, ir)
+    runner._ring_period, runner._decode_rows = period_then_host, keep
+    runner.run(steps)
+    msd = runner._fsl["msd"]
+    res = {"same states": (len(ring),) + _same_rows(
+        name, "the same states", msd, ring, host)}
+    log(f"  {name}: {len(ring)} ring rows against the host loop's values "
+        f"of the same states: int rows equal, {res['same states'][1]} "
+        f"float values 1 ulp apart, MSD rel {res['same states'][2]:.3e} "
+        f"(limit {RING_MSD_REL}); {runner.n_flush} flushes of "
+        f"{runner._host_rows.fetches} windows")
+    if no_ring:
+        os.environ["AZTOTMD_NO_RING"] = "1"
+        try:
+            loop = runner_of("host")
+        finally:
+            os.environ.pop("AZTOTMD_NO_RING", None)
+        check(not loop.ring_ok, f"{name}: AZTOTMD_NO_RING left the ring on")
+        rows, stat_row = [], loop._stat_row
+
+        def record(step):
+            rows.append(host_row(loop))
+            stat_row(step)
+        loop._stat_row = record
+        loop.run(steps)
+        res["host loop"] = (len(rows),) + _same_rows(
+            name, "the host loop's run", msd, ring, rows)
+        log(f"  {name}: the ring's rows against a run of the host loop "
+            f"(AZTOTMD_NO_RING): int rows equal, {res['host loop'][1]} "
+            f"float values 1 ulp apart, MSD rel {res['host loop'][2]:.3e}")
+    return res
+
+
+def device_gaps(torch, fn):
+    """``fn()`` under torch.profiler: (wall s, device busy s as the union
+    of its kernel and copy intervals, device span s from the first
+    event's start to the last's end, the largest gap between events in
+    s)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return wall, None, None, None
+    busy, gap = 0, 0
+    lo, hi = spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            gap = max(gap, a - hi)
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    span = spans[-1][1] - spans[0][0]
+    return wall, busy * 1e-6, span * 1e-6, gap * 1e-6
+
+
+def ring_idle(torch, dev, out, card):
+    """The card's idle share between stat periods: argon_gas
+    RING_PROFILE_STEPS steps through the runner's main loop under
+    torch.profiler, on the stat ring (windows of one period, ``s_cap``
+    1: window k's row decoded while window k+1 runs) and on the host loop
+    (``AZTOTMD_NO_RING``: one blocking stat row a period), after the same
+    steps to warm up and capture.  Returns {mode: (idle share over the
+    device span, largest gap ms, wall ms)}."""
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    res = {}
+    for mode in ("ring", "host loop"):
+        if mode == "host loop":
+            os.environ["AZTOTMD_NO_RING"] = "1"
+        try:
+            runner = MDRunner(load_deck_dir(GAS_DECK, device=dev),
+                              out_dir=os.path.join(out, "ring_idle_"
+                                                   + mode.split()[0]),
+                              quiet=True)
+        finally:
+            os.environ.pop("AZTOTMD_NO_RING", None)
+        runner.s_cap = 1
+        runner.run(RING_PROFILE_STEPS)
+        wall, busy, span, gap = device_gaps(
+            torch, lambda: runner.run(2 * RING_PROFILE_STEPS))
+        if busy is None:
+            log(f"  argon_gas {mode}: no device activity recorded; idle "
+                "share not measured")
+            res[mode] = None
+            continue
+        idle = 1.0 - busy / span
+        windows = f", {runner._host_rows.fetches} windows so far" \
+            if runner.ring_ok else ""
+        log(f"  argon_gas {mode}, {RING_PROFILE_STEPS} steps profiled: "
+            f"wall {wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+            f"of its {span * 1e3:.1f} ms span: idle share {idle:.4f}, "
+            f"largest gap {gap * 1e3:.3f} ms{windows} (torch.profiler, "
+            f"{card})")
+        res[mode] = (idle, gap * 1e3, wall * 1e3)
+        del runner
+    return res
+
+
+def ring_phase(torch, dev, out, card):
+    """The stat ring (``runtime/statring.py``): its rows against the host
+    loop's on the same states (surkov_cluster, K1, and argon_gas, the
+    Verlet list's plan), the card's idle share between periods on the
+    ring and on the host loop, and the CLI runs' rates, windows and
+    flushes (counted in ``ring_counts``) beside PR 13's rates."""
+    phase("the stat ring: rows against the host loop's, the idle share "
+          "between periods, the runs' windows")
+    rows = {nm: ring_rows_case(torch, dev, out, nm, deck, no_ring=no_ring)
+            for nm, deck, no_ring in (("surkov_cluster", SURKOV_DECK, True),
+                                      ("argon_gas", GAS_DECK, False))}
+    idle = ring_idle(torch, dev, out, card)
+    missing = [nm for nm in RING_PR13 if nm not in RING_RUNS]
+    check(not missing, f"no ring run counted for {missing}")
+    log(f"stat ring CLI steps/s on {card} (this run; PR 13's final run in "
+        "brackets): " + ", ".join(
+            f"{nm} {RING_RUNS[nm][0]:.1f} [{RING_PR13[nm]}] in "
+            f"{RING_RUNS[nm][1]} windows of {RING_RUNS[nm][2]} periods"
+            for nm in RING_PR13))
+    return {"rows": rows, "idle": idle,
+            "runs": {nm: RING_RUNS[nm] for nm in RING_PR13}}
 
 
 def profile_steps(torch, load_deck_dir, make_multi_step, counters, deck,
@@ -2964,6 +3234,8 @@ def run(dev, out):
     log("neighbor engine numbers: " + json.dumps(nbr_res))
     log("scale, dilute, nve, gather and bench numbers on " + card + ": "
         + json.dumps(scale_phases(torch, dev, out, cli, counters, card)))
+    log("stat ring numbers on " + card + ": "
+        + json.dumps(ring_phase(torch, dev, out, card)))
     phase("every phase passed")
     log(f"device idle share on {card}, eager -> graph (torch.profiler; "
         "per profile above): " + ", ".join(

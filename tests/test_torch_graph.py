@@ -7,7 +7,9 @@ outer-occupied rows (``nb_orowcap``); "gather" is the per-atom
 candidate-matrix engine.
 
 (a) Capture safety: a call after the first builds no tensor from host
-    data and makes no host sync.  A ``TorchDispatchMode`` records every
+    data and makes no host sync (the stat ring's "row" program, which
+    writes a period's row into the device ring at a device slot, and its
+    "ring_reset" included).  A ``TorchDispatchMode`` records every
     op of the second call; none may be ``aten.lift_fresh`` (a
     ``torch.tensor`` or ``as_tensor`` of host data),
     ``aten._local_scalar_dense`` (``.item()``, ``float()``, ``int()``,
@@ -208,8 +210,9 @@ def test_second_call_takes_no_host_data_and_no_sync(name, tmp_path):
     r = _runner(name, tmp_path)
     _check_path(name, r)
     st, ff = r.state, r.ff
-    order = [p for p in ("rebuild", "refine", "step") if p in r.multi.fns]
-    assert r.rcfg is not None
+    order = [p for p in ("rebuild", "refine", "step", "row", "ring_reset")
+             if p in r.multi.fns]
+    assert r.rcfg is not None and "row" in order
     calls = [(p, lambda s, p=p: r.multi.fns[p](s, ff)) for p in order]
     calls.append(("RDF sample", lambda s: (s, r._rdf.fn(s, r.hist,
                                                         r.nhist))))
@@ -303,8 +306,9 @@ def test_plan_programs_take_no_host_data_and_no_sync(name, tmp_path):
     """(a) on the plan's programs and its list sample."""
     r = _plan_runner(name, tmp_path)
     st, ff = r.state, r.ff
-    order = [p for p in ("rebuild", "rdf_list", "refine", "step")
-             if p in r.multi.fns]
+    order = [p for p in ("rebuild", "rdf_list", "refine", "step", "row",
+                         "ring_reset") if p in r.multi.fns]
+    assert "row" in order
     assert "rdf_list" in order or r._ring_plan["rdf_from_outer"]
     calls = [(p, lambda s, p=p: r.multi.fns[p](s, ff)) for p in order]
     calls.append(("RDF list sample",

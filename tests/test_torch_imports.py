@@ -99,12 +99,13 @@ def test_copied_units_equal():
         assert getattr(p_units, n) == getattr(j_units, n), n
 
 
-def test_copied_writers_write_equal_bytes(tmp_path, monkeypatch):
-    """revcon.xyz through both packages' writers from the same positions
-    (the JAX package's native row formatter included, which is pinned to
-    printf), and traj.dat against the JAX package's pure-Python branch,
-    the one the port keeps (its native traj rows round through f32)."""
+def test_copied_writers_write_equal_bytes(tmp_path):
+    """revcon.xyz and traj.dat through both packages' writers from the
+    same positions: each package's native row formatter (its traj rows
+    formatted from float32, its xyz rows pinned to printf), built from
+    each package's own copy of aztocore.cpp."""
     import aztotmd_tpu.native as j_native
+    assert j_native.HAVE_NATIVE
     deck = os.path.join(ROOT, "examples", "surkov_cluster")
     fld = p_io.parse_field_file(os.path.join(deck, "field.txt"))
     rng = np.random.default_rng(3)
@@ -117,7 +118,6 @@ def test_copied_writers_write_equal_bytes(tmp_path, monkeypatch):
     box = (35.0, 35.0, 35.0)
     for w, tag in ((p_writers, "p"), (j_writers, "j")):
         w.write_atoms_xyz(str(tmp_path / f"{tag}.xyz"), names, pos, box)
-    monkeypatch.setattr(j_native, "HAVE_NATIVE", False)
     for w, tag in ((p_writers, "p"), (j_writers, "j")):
         t = w.TrajWriter(str(tmp_path / f"{tag}.traj"), fld, types)
         for step in (10, 20):
@@ -126,6 +126,14 @@ def test_copied_writers_write_equal_bytes(tmp_path, monkeypatch):
     for ext in ("xyz", "traj"):
         a = (tmp_path / f"p.{ext}").read_bytes()
         assert a and a == (tmp_path / f"j.{ext}").read_bytes(), ext
+
+
+def test_native_source_is_the_jax_packages():
+    """The port's aztocore.cpp is the JAX package's csrc/aztocore.cpp."""
+    with open(os.path.join(ROOT, "csrc", "aztocore.cpp"), "rb") as f, \
+            open(os.path.join(ROOT, "aztotmd_tpu_torch", "csrc",
+                              "aztocore.cpp"), "rb") as g:
+        assert f.read() == g.read()
 
 
 def test_copied_bond_and_jump_writers_write_equal_bytes(tmp_path):

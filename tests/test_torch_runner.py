@@ -94,14 +94,15 @@ def _table(path):
 
 
 def test_run_cli_matches_jax_cli(deck, tmp_path, monkeypatch):
-    """stat.dat / rdf.dat / msd.dat of a 400-step f64 run from both CLIs.
-    The JAX runner runs its host chunk loop (AZTOTMD_NO_RING): its
-    on-device stat ring rounds stat rows to f32 and is not ported."""
+    """stat.dat / rdf.dat / msd.dat of a 400-step f64 run from both CLIs,
+    both on their host chunk loop (AZTOTMD_NO_RING: the stat rows read
+    from the f64 state; tests/test_torch_runner_ring.py holds the stat
+    rings' float32 rows against each other)."""
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     runner = main(["run", deck, "--cpu", "--dtype", "f64", "-o", out_t,
                    "--quiet"])
     assert int(runner.state.step) == 400
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j_main(["--cpu", "run", deck, "-o", out_j, "--dtype", "f64", "--quiet"])
     for name in ("stat.dat", "rdf.dat", "msd.dat", "msd_d.dat"):
         a, b = _table(os.path.join(out_t, name)), _table(
@@ -118,13 +119,13 @@ def test_run_cli_matches_jax_cli_at_slice_density(dense_deck, tmp_path,
                                                   monkeypatch):
     """The f64 route (the cell-block engine in both packages) at the slice
     deck's density: stat.dat, rdf.dat and msd.dat of 40 steps from both
-    CLIs."""
+    CLIs, both on their host chunk loop (AZTOTMD_NO_RING)."""
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     runner = main(["run", dense_deck, "--cpu", "--dtype", "f64", "-o", out_t,
                    "--quiet"])
     assert int(runner.state.step) == 40
     assert runner.cfg.grid.cap == 102
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j_main(["--cpu", "run", dense_deck, "-o", out_j, "--dtype", "f64",
             "--quiet"])
     for name in ("stat.dat", "rdf.dat", "msd.dat", "msd_d.dat"):
@@ -143,12 +144,13 @@ def test_reactive_run_cli_matches_jax_cli(reactive_decks, which, tmp_path,
                                           monkeypatch):
     """stat.dat, stat_bnd.dat or jumps.dat, msd.dat and rdf.dat of f64
     runs of the cut reactive decks from both CLIs, rtol 1e-8, and
-    revbonds.txt and lengths.dat equal byte for byte."""
+    revbonds.txt and lengths.dat equal byte for byte; both CLIs on their
+    host chunk loop (AZTOTMD_NO_RING)."""
     deck = reactive_decks[which]
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     runner = main(["run", deck, "--cpu", "--dtype", "f64", "-o", out_t,
                    "--quiet"])
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j_main(["--cpu", "run", deck, "-o", out_j, "--dtype", "f64", "--quiet"])
     extra = ("stat_bnd.dat",) if which == 0 else ("jumps.dat",)
     for name in ("stat.dat", "msd.dat", "rdf.dat") + extra:

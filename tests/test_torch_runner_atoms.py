@@ -75,10 +75,11 @@ def test_atoms_run_matches_jax_and_one_device(tmp_path):
 
 def test_atoms_regrow_gives_one_device_outputs(tmp_path, capsys):
     """examples/bonded_fluid over 4 shards, 800 steps f32: its inner list
-    regrows (K 24 -> 32) at the stat row of step 700, with the one-device
-    run's warning; the run gathers, regrows and shards again, and writes
-    the one-device run's files byte for byte (revangles.txt and
-    revbonds.txt too)."""
+    regrows (K 24 -> 36, the largest count of the run's one ring window
+    of 8 stat periods, as the JAX runner's stat ring regrows it) with the
+    one-device run's warning; the run gathers, regrows and shards again,
+    and writes the one-device run's files byte for byte (revangles.txt
+    and revbonds.txt too)."""
     out4, out1 = str(tmp_path / "atoms"), str(tmp_path / "one")
     r4 = main(["run", BONDED, "--mesh", "4", "--mesh-mode", "atoms",
                "--cpu", "--steps", "800", "-o", out4, "--quiet"])
@@ -88,9 +89,9 @@ def test_atoms_regrow_gives_one_device_outputs(tmp_path, capsys):
                "--quiet"])
     warn1 = [ln for ln in capsys.readouterr().err.splitlines()
              if ln.startswith("WARNING")]
-    assert r4.cfg.n_neigh == r1.cfg.n_neigh == 32
-    assert warn4 == warn1 and any("K=32" in w for w in warn4)
-    assert r4.state.nbr_idx.shape == (4, 48, 32)
+    assert r4.cfg.n_neigh == r1.cfg.n_neigh == 36
+    assert warn4 == warn1 and any("K=36" in w for w in warn4)
+    assert r4.state.nbr_idx.shape == (4, 48, 36)
     _same_files(out4, out1, OUTPUTS + ("revangles.txt", "revbonds.txt"))
 
 

@@ -150,7 +150,7 @@ def test_slab_health_regrows_and_redistributes(lj_deck, tmp_path, capsys):
     C0, cap0 = r.state.pos.shape[1], r.cfg.grid.cap
     i32 = lambda v: torch.tensor(v, dtype=torch.int32)
     r.state = r.state.replace(mig_lost=i32(3), slab_occ=i32(cap0 + 5))
-    r._check_slab_health()
+    r._check_monitors(r._monitors())
     err = capsys.readouterr().err
     assert "slab cell occupancy" in err and "DELETED 3 atoms" in err
     assert r.cfg.grid.cap > cap0 and r.state.pos.shape[1] > C0
@@ -160,7 +160,7 @@ def test_slab_health_regrows_and_redistributes(lj_deck, tmp_path, capsys):
     C1 = r.state.pos.shape[1]
     for hit, defer in enumerate((2, 5, 9)):
         r.state = r.state.replace(mig_defer=i32(defer))
-        r._check_slab_health()
+        r._check_monitors(r._monitors())
         assert (r.state.pos.shape[1] > C1) == (hit == 2)
     assert "still deferring after 3 checks" in capsys.readouterr().err
     assert int(r.state.mig_defer) == 0

@@ -151,18 +151,18 @@ def test_bonded_fluid_40_steps_match_jax():
 
 @pytest.mark.parametrize("which", ["gas", "bonded_fluid"])
 def test_run_cli_matches_jax_cli(gas, which, tmp_path, monkeypatch):
-    """400 steps of the gas (an RDF sample every 50 steps; the port takes
-    the JAX ring's plan, rdf_from_outer, and JAX here its host chunk
-    loop, a full rebuild each RDF block) and 200 of bonded_fluid, f64,
-    from both CLIs:
+    """400 steps of the gas (an RDF sample every 50 steps) and 200 of
+    bonded_fluid, f64, from both CLIs, both on their host chunk loop
+    (AZTOTMD_NO_RING: a full rebuild each RDF block, the stat rows read
+    from the f64 state):
     stat.dat, rdf.dat, msd.dat within rtol 1e-8; revangles.txt and
     revbonds.txt byte for byte."""
     deck, n = (gas, 400) if which == "gas" else (BONDED, 200)
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     runner = main(["run", deck, "--cpu", "--dtype", "f64", "-o", out_t,
                    "--quiet", "--steps", str(n)])
     assert int(runner.state.step) == n
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j_main(["--cpu", "run", deck, "-o", out_j, "--dtype", "f64", "--quiet",
             "--steps", str(n)])
     for name in ("stat.dat", "rdf.dat", "msd.dat", "msd_d.dat"):

@@ -178,8 +178,8 @@ def test_stretched_bond_counts_misses_like_jax(tmp_path, capsys):
                 out_dir=str(tmp_path / "j"), quiet=True, mesh_devices=4)
     capsys.readouterr()
     r.state = r.state.replace(bond_miss=miss)
-    r._check_slab_health()
-    r._check_slab_health()                  # warns once per new count
+    r._check_monitors(r._monitors())
+    r._check_monitors(r._monitors())    # warns once per new count
     err_t = capsys.readouterr().err
     j.state = j.state.replace(bond_miss=jnp.asarray(int(miss), jnp.int32))
     j._check_slab_health()
@@ -196,14 +196,15 @@ def test_mesh4_bonded_fluid_run_matches_jax_runner(tmp_path, monkeypatch):
     """`run --mesh 4 --cpu --dtype f64` on examples/bonded_fluid for 200
     steps (a stat row every 100) against the JAX runner's 4-device mesh
     run: stat.dat (bond and angle energies included) and stat_bnd.dat rtol
-    1e-8, revbonds.txt, revangles.txt and lengths.dat equal."""
+    1e-8, revbonds.txt, revangles.txt and lengths.dat equal; both runners
+    on their host chunk loop (AZTOTMD_NO_RING)."""
     deck = os.path.join(EX, "bonded_fluid")
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     r = main(["run", deck, "--mesh", "4", "--cpu", "--dtype", "f64",
               "--steps", "200", "-o", out_t, "--quiet"])
     assert r.comm.n_dev == 4 and r.state.rg is None
     assert int(r.state.bond_miss) == 0
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j = JRunner(j_load_deck_dir(deck, dtype="f64"), out_dir=out_j,
                 quiet=True, mesh_devices=4)
     j.run(200)
@@ -238,7 +239,7 @@ def test_regrow_redistributes_the_records(tmp_path, capsys):
 
     before, C0 = records(r.state), r.state.pos.shape[1]
     r.state = r.state.replace(mig_lost=torch.tensor(1, dtype=torch.int32))
-    r._check_slab_health()
+    r._check_monitors(r._monitors())
     assert "DELETED 1 atoms" in capsys.readouterr().err
     assert r.state.pos.shape[1] > C0
     assert r.state.bnd_type.shape[2] == 2 and r.state.ang_t.shape[2] == 1

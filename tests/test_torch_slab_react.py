@@ -231,7 +231,8 @@ def test_mesh2_reactive_run_matches_jax_runner(tmp_path, monkeypatch):
     60 steps with a stat row every 30 against the JAX runner's 2-device
     mesh run: stat.dat and stat_bnd.dat rtol 1e-8 (bond counts and
     statistics from the replicated tables), revbonds.txt and lengths.dat
-    equal byte for byte, bonds formed."""
+    equal byte for byte, bonds formed; both runners on their host chunk
+    loop (AZTOTMD_NO_RING)."""
     deck = str(tmp_path / "deck")
     os.makedirs(deck)
     for name in ("atoms.xyz", "field.txt", "control.txt"):
@@ -240,11 +241,11 @@ def test_mesh2_reactive_run_matches_jax_runner(tmp_path, monkeypatch):
         with open(os.path.join(deck, name), "w") as f:
             f.write(text.replace("stat\t100", "stat\t30"))
     out_t, out_j = str(tmp_path / "torch"), str(tmp_path / "jax")
+    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     r = main(["run", deck, "--mesh", "2", "--cpu", "--dtype", "f64",
               "--steps", "60", "-o", out_t, "--quiet"])
     assert r.comm.n_dev == 2 and r.state.rg is not None
     assert int(r.state.rg.n_bond) > 0
-    monkeypatch.setenv("AZTOTMD_NO_RING", "1")
     j = JRunner(j_load_deck_dir(deck, dtype="f64"), out_dir=out_j,
                 quiet=True, mesh_devices=2)
     j.run(60)
