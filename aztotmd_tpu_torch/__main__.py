@@ -10,9 +10,11 @@ atom-sharded step over N row shards; with ``--dist``, under ``torchrun
 gloo with ``--cpu``), where rank 0 writes to ``-o`` and rank r to
 ``<out>/rank<r>``.
 ``--debug`` checks the state's invariants after every chunk,
-``--timings`` prints per-stage wall-clock timings and ``--profile
-LOG_DIR`` also writes a torch.profiler trace there.  On the card each
-step is a replay of a captured CUDA graph (``runtime/graph.py``).
+``--timings`` prints the host seconds of the runner's spans, which never
+wait on the card, and the call's counters, and ``--profile LOG_DIR``
+also writes a torch.profiler trace there and prints the card's idle
+seconds by span.  On the card each step is a replay of a captured CUDA
+graph (``runtime/graph.py``).
 ``bench`` times steps of a deck, eager and as graph replays, with the
 measuring function of the headline bench (``python -m
 aztotmd_tpu_torch.bench``).
@@ -73,11 +75,12 @@ def main(argv=None):
                    help="check state invariants after every chunk "
                         "(the reference's DEBUG_MODE verify kernels)")
     r.add_argument("--profile", default=None, metavar="LOG_DIR",
-                   help="capture a torch.profiler trace into LOG_DIR and "
-                        "print per-stage timings")
+                   help="capture a torch.profiler trace into LOG_DIR, "
+                        "print the card's idle seconds by span and the "
+                        "span timings")
     r.add_argument("--timings", action="store_true",
-                   help="print per-stage wall-clock timings without the "
-                        "profiler trace")
+                   help="print the host seconds of each runner span (no "
+                        "sync; the card's wait as 'wait') and the counters")
     r.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="run over an N-shard mesh (see --mesh-mode)")
     r.add_argument("--mesh-mode", choices=("slab", "atoms"),

@@ -24,7 +24,9 @@ Around every capture:
   ``runtime.step.nbr_counts`` and ``ops.rdf.rdf_counts``) count Python
   calls, which happen at capture
   only: the warm-up's and the capture's counts are taken back, and every
-  replay adds the capture's;
+  replay adds the capture's; ``launch_counts`` counts each program's
+  launches by ``"graph:<name>"``, and while a torch.profiler records each
+  replay call is a range of that name;
 - **failures raise** ``GraphCaptureError`` naming the program, the stage
   and the op's source line; nothing falls back to eager.
 
@@ -35,12 +37,15 @@ any input tensor changes.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
 import traceback
 
 import torch
+
+from ..utils.profiling import profiler_range, profiling
 
 # warm-up calls before a capture
 WARMUP = 2
@@ -49,6 +54,10 @@ WARMUP = 2
 # (``StateGraphs``, one per load that had to capture) and of samples
 # (``GraphedSample``), read by checks
 capture_counts = {"state": 0, "sample": 0}
+
+# graph launches of each program since the process started, by
+# "graph:<program name>": ``Program.replay(n)`` adds n, one add a call
+launch_counts = {}
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -204,7 +213,8 @@ def _node_count(g):
 class Program:
     """One captured CUDA graph of ``body()``, which reads and writes only
     tensors that outlive the capture.  ``replay(n)`` runs it n times on the
-    current stream and adds n times its launch counts.  ``nodes`` is the
+    current stream, adds n times its launch counts and n to
+    ``launch_counts["graph:<name>"]``.  ``nodes`` is the
     graph's node count (None where it cannot be read), ``capture_seconds``
     the warm-up and capture's wall time."""
 
@@ -242,8 +252,11 @@ class Program:
         self.capture_seconds = time.perf_counter() - t0
 
     def replay(self, n: int = 1):
-        for _ in range(n):
-            self.graph.replay()
+        key = "graph:" + self.name
+        with profiler_range(key) if profiling() else contextlib.nullcontext():
+            for _ in range(n):
+                self.graph.replay()
+        launch_counts[key] = launch_counts.get(key, 0) + n
         if any(self.per_replay):
             _write(self._counters,
                    [v + n * d for v, d in zip(_read(self._counters),

@@ -86,6 +86,7 @@ from ..ops import rdf as ops_rdf
 from ..utils.profiling import StageTimer
 from .checkpoint import save_checkpoint
 from . import statring
+from . import graph as graph_mod
 from .graph import GraphedSample
 from .step import MultiStep, make_multi_step, torch_engine_reason
 
@@ -103,14 +104,19 @@ class MDRunner:
     ``graph`` is ``make_multi_step``'s: None captures CUDA graphs of the
     step (and the neighbor engine's rebuild and refine, and the RDF
     sample) on the card and runs eagerly on the CPU; False runs eagerly.
-    ``profile`` times the stages (``run --timings``); ``debug`` checks
-    the state's invariants after every chunk or host event on one
-    device (``run --debug``).  Where the JAX stat ring's gate holds
-    (``ring_ok``) the run takes the ring's plan (``_ring_plan``);
-    elsewhere every RDF block restarts the list schedule, as JAX's host
-    chunk loop does.  ``AZTOTMD_RING_STEPS`` and a deck's ``nstep stat``
-    set the window (``s_cap``) as in JAX; ``AZTOTMD_NO_RING`` takes the
-    host loop, as in JAX."""
+    ``timer`` (``utils/profiling.py::StageTimer``) always records the
+    host's spans, which never wait on the card: ``steps`` (enqueuing the
+    step-advancing programs), ``wait`` (blocked on the card) and
+    ``sampling`` (decoding rows, the monitors, the host events), and one
+    record a ``run()`` call with the counters ``regrow``, ``captures``
+    and each program's graph launches; ``profile`` prints the call's
+    record (``run --timings``).  ``debug`` checks the state's invariants
+    after every chunk or host event on one device (``run --debug``).
+    Where the JAX stat ring's gate holds (``ring_ok``) the run takes the
+    ring's plan (``_ring_plan``); elsewhere every RDF block restarts the
+    list schedule, as JAX's host chunk loop does.  ``AZTOTMD_RING_STEPS``
+    and a deck's ``nstep stat`` set the window (``s_cap``) as in JAX;
+    ``AZTOTMD_NO_RING`` takes the host loop, as in JAX."""
 
     def __init__(self, sysd: dict, out_dir: str = ".", quiet: bool = False,
                  checkpoint_every: int = 0, append: bool = False,
@@ -261,6 +267,7 @@ class MDRunner:
                 self._pos0_h = self.state.pos0.cpu().numpy()
         self.n_dispatch = 0      # step-advancing host dispatches
         self.n_flush = 0         # ring windows decoded (_flush_rows)
+        self.n_regrow = 0        # list regrows (_reset_lists)
 
         self._view_cache = None
         if self._atoms_mesh is not None:
@@ -479,16 +486,19 @@ class MDRunner:
         after the current chunk and finalize() still writes the outputs."""
         total = n_steps if n_steps is not None else self.ctl.n_step
         done = int(self.state.step)
+        self.timer.begin(self._counters())
         t_loop = time.perf_counter()
         try:
             self._run_loop(total, done)
         except KeyboardInterrupt:
             print(f"interrupted at step {int(self.state.step)}; writing "
                   "final outputs", file=sys.stderr)
-        self._sync()
+        self._staged("wait", self._sync)
         wall = time.perf_counter() - t_loop
         self.loop_seconds += wall
-        self.steps_run += int(self.state.step) - done
+        steps = int(self.state.step) - done
+        self.steps_run += steps
+        self.timer.end(steps, wall, self._counters())
         if self.profile:
             n = max(total - done, 1)
             print(f"loop wall: {wall:.1f} s for {n} steps "
@@ -499,6 +509,13 @@ class MDRunner:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _counters(self):
+        """The counters of a call's record, as totals: list regrows,
+        captures, and each program's graph launches."""
+        return {"regrow": self.n_regrow,
+                "captures": sum(graph_mod.capture_counts.values()),
+                **graph_mod.launch_counts}
 
     def _run_loop(self, total, done):
         if self.ring_ok:
@@ -567,11 +584,8 @@ class MDRunner:
                 self._flush_rows(pending)
 
     def _staged(self, stage, fn, *args):
-        """``fn(*args)``, timed as ``stage`` when profiling (waiting for
-        the card at its end)."""
-        if not self.profile:
-            return fn(*args)
-        with self.timer.stage(stage, lambda: self.state.pos):
+        """``fn(*args)`` in the timer's span ``stage``; spans never nest."""
+        with self.timer.stage(stage):
             return fn(*args)
 
     def _next_host_event(self, done, total):
@@ -632,12 +646,15 @@ class MDRunner:
         self.state = current()
 
     def _flush_rows(self, pending):
-        """Decode one window's sample rows into the stat writers, then
-        read its monitors (the max over its rows)."""
-        self._staged("sampling", self._flush_rows_impl, pending)
+        """Wait for one window's sample rows (span ``wait``), then decode
+        them into the stat writers and read its monitors (span
+        ``sampling``)."""
+        fr, ir = self._staged("wait", self._host_rows.wait, pending)
+        self._staged("sampling", self._flush_window, fr, ir)
 
-    def _flush_rows_impl(self, pending):
-        fr, ir = self._host_rows.wait(pending)
+    def _flush_window(self, fr, ir):
+        """Decode one window's rows, then read its monitors (the max over
+        its rows)."""
         self.n_flush += 1
         over = np.max(ir[:, self._isl["over"]], axis=0)
         self._decode_rows(fr, ir)
@@ -798,6 +815,7 @@ class MDRunner:
         """Replace ``cfg``'s list capacities ``cap``, give the state empty
         lists of the new shapes and a reference position that forces a
         rebuild, and rebuild the step."""
+        self.n_regrow += 1
         self.cfg = cfg = dataclasses.replace(self.cfg, **cap)
         N = cfg.n_at
         full = lambda *shape: torch.full(shape, N, dtype=torch.int32,
