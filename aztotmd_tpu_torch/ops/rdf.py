@@ -12,10 +12,18 @@ stat-period plan of the runner samples instead from a neighbor list: an
 skin (``rdf_list_cfg``), or the two-level Verlet list's outer list
 (``rdf_sample_list``).  Every sampler gives the same integer counts when
 its list covers the pairs in range.
+
+The all-pairs counts have a hand-written CUDA kernel, ``csrc/rdf.cu``,
+built and loaded by ``ops/cuda_build.py``: ``rdf_counts_allpairs`` sends a
+CUDA tensor to it and a CPU tensor to ``rdf_counts_allpairs_plain`` (the
+torch ops it repeats, operation for operation, so the counts are the same
+bit for bit), and raises on any other device.  The cell-candidate, list
+and row samplers are torch ops on both devices.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 from dataclasses import dataclass
@@ -26,6 +34,8 @@ import torch
 from .. import units
 
 from . import cell_list as cl
+from . import cuda_build
+from .allpairs import f32
 from .consts import const
 from ..core.config import (CellGrid, _max_neigh_count, _round_up,
                            make_cell_grid)
@@ -35,6 +45,10 @@ from ..core.config import (CellGrid, _max_neigh_count, _round_up,
 # to 0; on the card replays add their captures' counts
 # (``runtime/graph.py``)
 rdf_counts = {"allpairs": 0, "cells": 0, "list": 0, "list_build": 0}
+
+# launches of csrc/rdf.cu made by rdf_counts_allpairs; a plain int that
+# tools checking the main path reset and read
+launches = 0
 
 
 def n_pairs(n: int) -> int:
@@ -134,7 +148,67 @@ def _bin_counts(rcfg: RdfConfig, r2, mask, ti, tj):
 
 
 def rdf_counts_allpairs(cfg, rcfg: RdfConfig, pos, types):
-    """(n_bin, n_pair) integer counts of one all-pairs sample."""
+    """(n_bin, n_pair) integer counts of one all-pairs sample, in the
+    dtype of ``pos``: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if pos.device.type == "cpu":
+        return rdf_counts_allpairs_plain(cfg, rcfg, pos, types)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    return _allpairs_cuda(cfg, rcfg, pos, types)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = cuda_build.load("rdf")
+    if lib.aztotmd_rdf_allpairs_f32.argtypes is None:
+        for name, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, "aztotmd_rdf_allpairs_" + name)
+            fn.argtypes = [_P, _P] + [_I] * 4 + [real] * 5 + [_P, _P]
+            fn.restype = ctypes.c_int
+        lib.aztotmd_rdf_table_copies.argtypes = [_I]
+        lib.aztotmd_rdf_table_copies.restype = ctypes.c_int
+    return lib
+
+
+def _allpairs_cuda(cfg, rcfg: RdfConfig, pos, types):
+    """Launch csrc/rdf.cu into a zeroed int32 table (a memset node of the
+    capturing graph) and return its counts in the dtype of ``pos``."""
+    global launches
+    N = cfg.n_at
+    dev = pos.device
+    if pos.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the RDF kernel takes f32 or f64, got {pos.dtype}")
+    if tuple(pos.shape) != (N, 3) or tuple(types.shape) != (N,):
+        raise ValueError(f"pos {tuple(pos.shape)} and types "
+                         f"{tuple(types.shape)} for {N} atoms")
+    if N * (N - 1) // 2 >= 1 << 31:
+        raise ValueError(f"{N} atoms: over 2^31 pairs overflow the kernel's "
+                         "int32 counts")
+    pos = pos.contiguous()
+    types = types.to(torch.int32).contiguous()
+    counts = torch.zeros(rcfg.n_bin * rcfg.n_pair, dtype=torch.int32,
+                         device=dev)
+    f64 = pos.dtype == torch.float64
+    real = float if f64 else f32
+    lib = _lib()
+    fn = lib.aztotmd_rdf_allpairs_f64 if f64 else lib.aztotmd_rdf_allpairs_f32
+    err = fn(pos.data_ptr(), types.data_ptr(), N, rcfg.n_spec, rcfg.n_bin,
+             rcfg.n_pair, *(real(b) for b in cfg.box), real(rcfg.r2_max),
+             real(rcfg.d_rdf), counts.data_ptr(),
+             torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"RDF kernel launch failed: CUDA error {err}")
+    launches += 1
+    return counts.to(pos.dtype).reshape(rcfg.n_bin, rcfg.n_pair)
+
+
+def rdf_counts_allpairs_plain(cfg, rcfg: RdfConfig, pos, types):
+    """What the kernel computes, in torch ops (f32 or f64): the N x N
+    min-image r2, summed x, y, z, and the histogram of the bin ids of the
+    pairs i < j in range."""
     N = cfg.n_at
     dt = pos.dtype
     dev = pos.device

@@ -154,7 +154,8 @@ def launch_counters():
     from . import step
     return ([(allpairs, "launches"), (allpairs, "cand_launches"),
              (allpairs, "rect_launches"), (sparse, "launches"),
-             (sparse, "cand_launches"), (cellblock, "launches")]
+             (sparse, "cand_launches"), (cellblock, "launches"),
+             (rdf, "launches")]
             + [(step.nbr_counts, k) for k in step.nbr_counts]
             + [(rdf.rdf_counts, k) for k in rdf.rdf_counts])
 

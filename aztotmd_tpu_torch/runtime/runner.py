@@ -108,8 +108,9 @@ class MDRunner:
     host's spans, which never wait on the card: ``steps`` (enqueuing the
     step-advancing programs), ``wait`` (blocked on the card) and
     ``sampling`` (decoding rows, the monitors, the host events), and one
-    record a ``run()`` call with the counters ``regrow``, ``captures``
-    and each program's graph launches; ``profile`` prints the call's
+    record a ``run()`` call with the counters ``regrow``, ``captures``,
+    each program's graph launches and each kernel's launches (replays
+    add their captures' counts); ``profile`` prints the call's
     record (``run --timings``).  ``debug`` checks the state's invariants
     after every chunk or host event on one device (``run --debug``).
     Where the JAX stat ring's gate holds (``ring_ok``) the run takes the
@@ -512,10 +513,14 @@ class MDRunner:
 
     def _counters(self):
         """The counters of a call's record, as totals: list regrows,
-        captures, and each program's graph launches."""
+        captures, each program's graph launches, and each kernel
+        wrapper's launches as "<module>.<counter>" (``rdf.launches``)."""
         return {"regrow": self.n_regrow,
                 "captures": sum(graph_mod.capture_counts.values()),
-                **graph_mod.launch_counts}
+                **graph_mod.launch_counts,
+                **{f"{h.__name__.rsplit('.', 1)[-1]}.{k}": getattr(h, k)
+                   for h, k in graph_mod.launch_counters()
+                   if not isinstance(h, dict)}}
 
     def _run_loop(self, total, done):
         if self.ring_ok:

@@ -22,7 +22,9 @@ system's tools come from examples/argon_gas by default:
 (``tools/make_nve_deck.py``), byte for byte what each tool writes from
 the same source deck.  ``build_lj_argon`` (with
 ``lj_argon_field``) and ``clustered_slab_system`` build the JAX package's
-in-memory systems of those names, state for state.
+in-memory systems of those names, state for state.  ``rdf_edge_deck``
+builds the crafted pairs on which the all-pairs RDF's CUDA kernel and its
+plain version are held to the JAX package's counts.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from __future__ import annotations
 import math
 import os
 import shutil
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -881,6 +884,65 @@ def rect_system(specs, n_i: int, empty: float = 0.2, seed: int = 6,
     kwargs = dict(radii_i=rep(r[:n_i]) if r is not None else None,
                   radii_j=rep(r))
     return cfg, ff, args, kwargs
+
+
+# The RDF edge decks: (box, r_rdf, d_rdf).  "exact": r_rdf and the bin
+# edges exact in binary, r_rdf half the y side; "rounded": d_rdf inexact,
+# r_rdf not a multiple of it (the last bin clamped), x half-side in range.
+RDF_EDGE_SETUPS = {"exact": ((12.0, 14.0, 16.0), 7.0, 0.25),
+                   "rounded": ((11.0, 12.6, 13.8), 6.1, 0.3)}
+
+
+def rdf_edge_deck(setup: str, n_spec: int, dtype=np.float32, seed: int = 0):
+    """(cfg, rdf, pos, types) of a deck of crafted pairs that put the
+    all-pairs RDF's arithmetic on its edges, for the ``RDF_EDGE_SETUPS``
+    entry ``setup``: ``cfg`` holds ``n_at``, ``box`` and ``volume``,
+    ``rdf`` the fields of an ``RdfConfig`` (one nucleus, no nuclei
+    histogram, no grid), ``pos`` (N, 3) is in ``dtype`` and ``types``
+    int32.  Each pair is two atoms at 0 and at delta on one or two axes
+    (the others shared), listed in both orders so that d = p_i - p_j
+    takes both signs; delta is, each a few ulps either side: r_rdf on
+    every axis; every bin edge k * d_rdf; half the box on every axis (the
+    min-image's round(+-0.5)); half the x side beside bin edges on y; and
+    r in the clamped last bin."""
+    box, r_rdf, d_rdf = RDF_EDGE_SETUPS[setup]
+    n_bin = int(min(r_rdf, min(box)) / d_rdf)
+    f = np.dtype(dtype).type
+
+    def hairs(x, m=2):
+        out, up, dn = [f(x)], f(x), f(x)
+        for _ in range(m):
+            up = np.nextafter(up, f(np.inf))
+            dn = np.nextafter(dn, f(-np.inf))
+            out += [up, dn]
+        return out
+
+    deltas = []
+    for a in range(3):
+        deltas += [{a: v} for v in hairs(r_rdf, 3)]
+        deltas += [{a: v} for v in hairs(0.5 * box[a])]
+    for k in range(1, n_bin + 1):
+        deltas += [{k % 3: v} for v in hairs(k * d_rdf)]
+    for k in range(1, n_bin, 3):
+        deltas += [{0: v, 1: f(k * d_rdf)} for v in hairs(0.5 * box[0], 1)]
+    deltas += [{2: v} for v in hairs(0.5 * (n_bin * d_rdf + r_rdf))]
+    rng = np.random.default_rng(seed)
+    pos = []
+    for dl in deltas:
+        base = rng.uniform(0.0, 1.0, 3) * np.asarray(box)
+        for a in dl:
+            base[a] = 0.0
+        far = base.copy()
+        for a, v in dl.items():
+            far[a] = v
+        pos += [base, far, far, base]
+    pos = np.asarray(pos).astype(dtype)
+    types = rng.integers(0, n_spec, len(pos)).astype(np.int32)
+    cfg = SimpleNamespace(n_at=len(pos), box=box,
+                          volume=box[0] * box[1] * box[2])
+    rdf = dict(n_bin=n_bin, d_rdf=d_rdf, r2_max=r_rdf * r_rdf,
+               n_spec=n_spec, n_nucl=1, nuclei=False, grid=None)
+    return cfg, rdf, pos, types
 
 
 if __name__ == "__main__":

@@ -8,8 +8,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels
 fused bind/jump candidates; csrc/sparse.cu: K4 and K4-cand, the Morton
 block-sparse pass; csrc/cellblock.cu: K3, the stacked cell-block pass;
 csrc/allpairs_rect.cu: K2, the rectangular pass of the slab-decomposed
-step) for sm_90a from the checkout, one nvcc each, in parallel, and then,
-for each kernel, checks it against its plain PyTorch version on the card:
+step; csrc/rdf.cu: the all-pairs RDF sample's integer counts) for sm_90a
+from the checkout, one nvcc each, in parallel, and then, for each kernel,
+checks it against its plain PyTorch version on the card:
+  the RDF kernel: counts exactly equal on crafted pairs at r_rdf, on bin
+      edges and at half the box (f32, f64, 1-3 species), on the
+      surkov_cluster deck at three seeds and on molten_salt with the
+      nuclei histogram, then timed beside its bound;
   K2, the rectangular pass: the slab states of examples/surkov_cluster
       over 2 slabs (2 x 3,208 x 6,416 slots) and examples/nanoclusters
       over 4 (4 x 5,024 x 15,072), and synthetic slabs with a fifth of
@@ -269,6 +274,14 @@ OPS_SLOT_SHIFTED = 9
 OPS_PAIR = {"lnjs": 24, "surk": 40, "buck+dir": 36, "bmhs+ewald": 62}
 MUFU_PAIR = {"lnjs": 1, "surk": 2, "buck+dir": 3, "bmhs+ewald": 4}
 OPS_CAND = 10
+# The all-pairs RDF kernel (csrc/rdf.cu), issue slots on the FP32 pipe
+# (none is an FMA, so at half the FLOP peak): every unordered pair the
+# displacement, the |d| > box/2 test per axis, r2 and the cut (12); a
+# pair in range the sqrt's and the division's fix-ups, the conversion,
+# the clamp and the slot (14) and two MUFU results (rsqrt, reciprocal).
+OPS_RDF_PAIR = 12
+OPS_RDF_RANGE = 14
+MUFU_RDF_RANGE = 2
 
 
 _T0 = time.perf_counter()
@@ -449,7 +462,9 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0,
     runner (``launch_window``); returns (runner, launches per kernel,
     steps/s)."""
     import torch
+    from aztotmd_tpu_torch.ops import rdf as ops_rdf
     _zero(counters)
+    ops_rdf.launches = ops_rdf.rdf_counts["allpairs"] = 0
     t0 = time.perf_counter()
     if runner_fn is None:
         runner = cli(["run", deck, "--steps", str(steps), "-o", out,
@@ -464,7 +479,11 @@ def drive(cli, counters, name, deck, out, steps, runner_fn=None, mesh=0,
         f"in {runner.loop_seconds:.2f} s loop ({wall:.2f} s with setup): "
         f"{rate:.1f} steps/s")
     log(f"  kernel launches {launches}, pair-force evaluations "
-        f"{runner.steps_run}")
+        f"{runner.steps_run}; all-pairs RDF samples "
+        f"{ops_rdf.rdf_counts['allpairs']}, RDF kernel launches "
+        f"{ops_rdf.launches}")
+    check(ops_rdf.launches == ops_rdf.rdf_counts["allpairs"],
+          f"{name}: an all-pairs RDF sample did not launch csrc/rdf.cu")
     check(runner.steps_run == steps, f"{name} run stopped early")
     slab_mesh = mesh and mesh_mode == "slab"
     if mesh_mode == "atoms":
@@ -2109,21 +2128,168 @@ def entry_api_phases(torch, cli, out, card):
           "aztotmd_tpu_torch.run and the CLI wrote different stat.dat")
 
 
+def rdf_kernel_phase(torch, dev, out, card):
+    """The all-pairs RDF kernel (csrc/rdf.cu) against its plain version:
+    the integer counts exactly equal on ``systems.rdf_edge_deck`` (both
+    setups, 1-3 species, f32 and f64), on examples/surkov_cluster's deck
+    drawn at seeds 1-3 (f32 and f64) and on examples/molten_salt with the
+    nuclei histogram (its two histograms equal too); ``rdf.launches`` one
+    an eager call and one a replay.  Then, on surkov_cluster (N = 4,000)
+    and molten_salt (1,728), CUDA-event medians of the kernel alone (200
+    back-to-back launches into one table), the wrapper eager, the
+    runner's sample replayed from its graph and the plain version, the
+    kernel's profiler time, and the bound from the pair count.  Returns
+    those by deck."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from aztotmd_tpu_torch import systems
+    from aztotmd_tpu_torch.ops import rdf as ops_rdf
+    from aztotmd_tpu_torch.runtime.graph import GraphedSample
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+
+    def same(name, cfg, rc, pos, types):
+        n0 = ops_rdf.launches
+        k = ops_rdf.rdf_counts_allpairs(cfg, rc, pos, types)
+        p = ops_rdf.rdf_counts_allpairs_plain(cfg, rc, pos, types)
+        ok = (ops_rdf.launches == n0 + 1 and k.dtype == p.dtype == pos.dtype
+              and torch.equal(k, p) and float(k.sum()) > 0)
+        log(f"  {name:36s} N={cfg.n_at:5d} {rc.n_bin} bins x {rc.n_pair}: "
+            f"{int(k.sum())} pairs in range, counts "
+            f"{'equal' if ok else 'DIFFER'}")
+        check(ok, f"the RDF kernel disagrees with its plain version: {name}")
+        return k
+
+    def deck_rdf(d, **kw):
+        cfg, st = d["cfg"], d["state"]
+        rc = ops_rdf.make_rdf_config(d["ctl"], cfg, pos=st.pos.cpu().numpy())
+        check(cfg.n_at <= len(rc.grid.stencil) * rc.grid.cap,
+              "the deck does not take the all-pairs RDF branch")
+        return cfg, dataclasses.replace(rc, **kw), st
+
+    for setup in sorted(systems.RDF_EDGE_SETUPS):
+        for nsp in (1, 2, 3):
+            for dt in (np.float32, np.float64):
+                cfg, kw, pos, types = systems.rdf_edge_deck(setup, nsp, dt)
+                same(f"edges {setup}, nsp={nsp}, {np.dtype(dt).name}", cfg,
+                     ops_rdf.RdfConfig(**kw), torch.as_tensor(pos, device=dev),
+                     torch.as_tensor(types, device=dev))
+    # finer bins: one table a block (3,500 slots), the global table (14,000)
+    cfg, kw, pos, types = systems.rdf_edge_deck("exact", 1, np.float32)
+    for d_rdf in (0.002, 0.0005):
+        rc = ops_rdf.RdfConfig(**dict(kw, d_rdf=d_rdf, n_bin=int(7 / d_rdf)))
+        same(f"edges exact, {rc.n_bin} bins, "
+             f"{ops_rdf._lib().aztotmd_rdf_table_copies(rc.n_bin)} tables",
+             cfg, rc, torch.as_tensor(pos, device=dev),
+             torch.as_tensor(types, device=dev))
+    for seed in (1, 2, 3):
+        deck = os.path.join(out, f"rdf_surkov_{seed}")
+        systems.write_surkov_cluster_deck(deck, seed=seed)
+        cfg, rc, st = deck_rdf(load_deck_dir(deck, device=dev))
+        for pos in (st.pos, st.pos.double()):
+            same(f"surkov_cluster seed {seed}, {pos.dtype}", cfg, rc, pos,
+                 st.types)
+    cfg, rc, st = deck_rdf(load_deck_dir(SALT_DECK, device=dev), nuclei=True)
+    counts = same("molten_salt, nuclei", cfg, rc, st.pos, st.types)
+    snuc = torch.arange(cfg.n_spec, dtype=torch.int32, device=dev)
+    nnum = torch.bincount(snuc[st.types.long()], minlength=cfg.n_nucl
+                          ).to(torch.int32)
+    h0, nh0 = ops_rdf.zero_hist(rc, device=dev)
+    got = ops_rdf.rdf_sample(cfg, rc, st.pos, st.types, st.spec_number, snuc,
+                             nnum, h0, nh0)
+    want = ops_rdf._apply_weights(cfg, rc, counts, st.spec_number, snuc,
+                                  nnum, h0, nh0)
+    check(all(torch.equal(a, b) for a, b in zip(got, want))
+          and float(got[1].sum()) > 0,
+          "molten_salt: the RDF histograms differ from the plain counts'")
+    log("  molten_salt rdf_sample: species and nuclei histograms equal to "
+        "the plain counts' through _apply_weights")
+
+    res = {}
+    for name, deck in (("surkov_cluster", SURKOV_DECK),
+                       ("molten_salt", SALT_DECK)):
+        runner = MDRunner(load_deck_dir(deck, device=dev),
+                          out_dir=os.path.join(out, "rdfk_" + name),
+                          quiet=True)
+        cfg, rc, st = runner.cfg, runner.rcfg, runner.state
+        fn = runner._rdf.fn
+        zero = lambda h: None if h is None else torch.zeros_like(h)
+        h1, nh1 = zero(runner.hist), zero(runner.nhist)
+        sample = GraphedSample(fn, "RDF sample")
+        n0 = ops_rdf.launches
+        for _ in range(3):
+            sample(st, h1, nh1)
+        check(ops_rdf.launches == n0 + 3,
+              f"{name}: {ops_rdf.launches - n0} RDF kernel launches in 3 "
+              "replays")
+        lib = ops_rdf._lib()
+        table = torch.zeros(rc.n_bin * rc.n_pair, dtype=torch.int32,
+                            device=dev)
+        args = (st.pos.data_ptr(), st.types.data_ptr(), cfg.n_at,
+                rc.n_spec, rc.n_bin, rc.n_pair,
+                *(ops_rdf.f32(b) for b in cfg.box), ops_rdf.f32(rc.r2_max),
+                ops_rdf.f32(rc.d_rdf), table.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+
+        def alone(n=200):
+            for _ in range(n):
+                lib.aztotmd_rdf_allpairs_f32(*args)
+        kern, wrap, rep = timed(torch, [
+            alone,
+            lambda: ops_rdf.rdf_counts_allpairs(cfg, rc, st.pos, st.types),
+            lambda: sample(st, h1, nh1)], n=10)
+        kern /= 200
+        plain = timed(torch, [lambda: ops_rdf.rdf_counts_allpairs_plain(
+            cfg, rc, st.pos, st.types)], n=5)[0]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            alone(50)
+            torch.cuda.synchronize()
+        ev = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and "rdf_allpairs_kernel" in e.name]
+        prof_ms = sum(ev) * 1e-3 / len(ev) if ev else None
+        pairs = cfg.n_at * (cfg.n_at - 1) // 2
+        in_range = int(ops_rdf.rdf_counts_allpairs(cfg, rc, st.pos,
+                                                   st.types).sum())
+        fp32 = (pairs * OPS_RDF_PAIR + in_range * OPS_RDF_RANGE) / (
+            PEAK_FP32 / 2)
+        b_ms, b_by, detail = bound_of(
+            fp32, in_range * MUFU_RDF_RANGE / PEAK_MUFU,
+            cfg.n_at * 16 + rc.n_bin * rc.n_pair * 4)
+        log(f"  {name:14s} N={cfg.n_at:5d}, {pairs} pairs, {in_range} in "
+            f"range, {rc.n_bin} x {rc.n_pair} slots, "
+            f"{lib.aztotmd_rdf_table_copies(rc.n_bin * rc.n_pair)} "
+            f"shared-memory tables a block: kernel alone {kern:.5f} ms "
+            f"(events), {prof_ms} ms (profiler), wrapper eager {wrap:.5f}, "
+            f"sample replayed {rep:.5f} (every {runner.p_rdf} steps: "
+            f"{rep / runner.p_rdf:.5f} a step), plain {plain:.4f} ms; bound "
+            f"{b_ms:.5f} ms by {b_by} ({detail}) on {card}")
+        res[name] = {"n": cfg.n_at, "pairs": pairs, "in_range": in_range,
+                     "kernel_ms": kern, "kernel_profiler_ms": prof_ms,
+                     "wrapper_ms": wrap, "sample_replay_ms": rep,
+                     "plain_ms": plain, "bound_ms": b_ms}
+        del runner, sample
+        _free(torch)
+    return res
+
+
 def rdf_case(torch, name, runner, card):
     """One RDF sample of the deck's first state (the runner's sample
     function and histograms): its time eager and as a graph replay (CUDA
     events, medians), beside the eager sample whose counts come from
     ``torch.bincount`` (the library call, which syncs with the host and
-    cannot be captured), whose histogram it must equal bit for bit;
-    returns (eager ms, replay ms, the replay's ms a step at the deck's
-    RDF period)."""
+    cannot be captured) over the torch-ops samplers (the all-pairs
+    branch's plain version in place of its kernel), whose histogram it
+    must equal bit for bit; returns (eager ms, replay ms, the replay's ms
+    a step at the deck's RDF period)."""
     from aztotmd_tpu_torch.ops import rdf as ops_rdf
     from aztotmd_tpu_torch.runtime.graph import GraphedSample
     fn, st = runner._rdf.fn, runner.state
     zero = lambda h: None if h is None else torch.zeros_like(h)
     h0, nh0 = zero(runner.hist), zero(runner.nhist)
     got = fn(st, h0.clone(), None if nh0 is None else nh0.clone())
-    ours = ops_rdf._hist_counts
+    ours = ops_rdf._hist_counts, ops_rdf.rdf_counts_allpairs
 
     def counts_bincount(flat, n_slot, dtype):
         c = torch.bincount(flat.reshape(-1).to(torch.int64),
@@ -2132,10 +2298,11 @@ def rdf_case(torch, name, runner, card):
 
     def with_bincount():
         ops_rdf._hist_counts = counts_bincount
+        ops_rdf.rdf_counts_allpairs = ops_rdf.rdf_counts_allpairs_plain
         try:
             return fn(st, h0.clone(), None if nh0 is None else nh0.clone())
         finally:
-            ops_rdf._hist_counts = ours
+            ops_rdf._hist_counts, ops_rdf.rdf_counts_allpairs = ours
 
     ref = with_bincount()
     same = all(a is None and b is None or torch.equal(a, b)
@@ -2472,13 +2639,19 @@ def run(dev, out):
     log(card)
     toolchain(torch, cuda_build)
     build_all(cuda_build, ["allpairs", "sparse", "cellblock",
-                           "allpairs_rect"])
+                           "allpairs_rect", "rdf"])
     counters = {"allpairs": (allpairs, "launches"),
                 "allpairs_cand": (allpairs, "cand_launches"),
                 "sparse": (sparse, "launches"),
                 "sparse_cand": (sparse, "cand_launches"),
                 "cellblock": (cellblock, "launches"),
                 "allpairs_rect": (allpairs, "rect_launches")}
+
+    # --- the all-pairs RDF kernel against its plain version ---
+    phase("RDF kernel (csrc/rdf.cu, all-pairs counts) vs plain (integer "
+          "counts exactly equal), then timed:")
+    log(f"rdf kernel on {card}: "
+        + json.dumps(rdf_kernel_phase(torch, dev, out, card)))
 
     # --- K1 against its plain version ---
     phase("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "

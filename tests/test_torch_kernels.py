@@ -7,6 +7,7 @@ Tolerance: forces atol 3e-5 * max|F|, energies rel 1e-4 (f32 sums in
 another order on both sides, as tests/test_pallas.py states).
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -15,13 +16,15 @@ import torch
 
 from aztotmd_tpu_torch import systems
 from aztotmd_tpu_torch.__main__ import main as cli
-from aztotmd_tpu_torch.ops import allpairs, cellblock, sparse
+from aztotmd_tpu_torch.ops import allpairs, cellblock, rdf, sparse
+from aztotmd_tpu_torch.runtime import graph
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
 from aztotmd_tpu_torch.runtime.step import make_step
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLICE_DECK = os.path.join(ROOT, "examples", "surkov_cluster")
 NANO_DECK = os.path.join(ROOT, "examples", "nanoclusters")
+SALT_DECK = os.path.join(ROOT, "examples", "molten_salt")
 
 
 @pytest.fixture
@@ -561,3 +564,117 @@ def test_rect_kernel_cull_record_on_mesh_decks(cuda, deck, n_dev):
     assert torch.equal(keep, allpairs.rect_subtile_keep(cfg, a[0], a[2],
                                                         a[3], a[5]))
     assert int(keep.sum()) == (5724 if n_dev == 2 else 25767)
+
+
+# --- the all-pairs RDF kernel (csrc/rdf.cu): integer counts, so exact ---
+
+def _compare_rdf(cfg, rc, pos, types):
+    """The kernel's counts equal the plain version's exactly, in the dtype
+    of ``pos``; one launch."""
+    before = rdf.launches
+    k = rdf.rdf_counts_allpairs(cfg, rc, pos, types)
+    assert rdf.launches == before + 1
+    p = rdf.rdf_counts_allpairs_plain(cfg, rc, pos, types)
+    assert k.dtype == p.dtype == pos.dtype
+    assert torch.equal(k, p)
+    assert float(k.sum()) > 0
+    return k
+
+
+def _deck_rdf(d, **kw):
+    cfg, st = d["cfg"], d["state"]
+    rc = rdf.make_rdf_config(d["ctl"], cfg, pos=st.pos.cpu().numpy())
+    # the all-pairs branch of rdf_sample
+    assert cfg.n_at <= len(rc.grid.stencil) * rc.grid.cap
+    return cfg, dataclasses.replace(rc, **kw), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nsp", [1, 2, 3])
+@pytest.mark.parametrize("setup", sorted(systems.RDF_EDGE_SETUPS))
+def test_rdf_kernel_matches_plain_on_the_edges(cuda, setup, nsp, dtype):
+    """``systems.rdf_edge_deck``: pairs at r_rdf, on bin edges, at half
+    the box and in the clamped last bin (held to the JAX package on the
+    CPU by tests/test_torch_rdf.py)."""
+    cfg, kw, pos, types = systems.rdf_edge_deck(setup, nsp, dtype)
+    _compare_rdf(cfg, rdf.RdfConfig(**kw), torch.as_tensor(pos, device=cuda),
+                 torch.as_tensor(types, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_rdf,tables", [(0.25, 4), (0.002, 1),
+                                          (0.0005, 0)],
+                         ids=["warp-tables", "block-table", "global"])
+def test_rdf_kernel_every_table_layout(cuda, d_rdf, tables):
+    """Finer bins on the edge deck: 28 slots in the warps' tables, 3,500
+    in one table a block, 14,000 added to the global table directly."""
+    cfg, kw, pos, types = systems.rdf_edge_deck("exact", 1, np.float32)
+    kw = dict(kw, d_rdf=d_rdf, n_bin=int(7.0 / d_rdf))
+    rc = rdf.RdfConfig(**kw)
+    assert rdf._lib().aztotmd_rdf_table_copies(
+        rc.n_bin * rc.n_pair) == tables
+    _compare_rdf(cfg, rc, torch.as_tensor(pos, device=cuda),
+                 torch.as_tensor(types, device=cuda))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_rdf_kernel_matches_plain_surkov_cluster(cuda, tmp_path, seed):
+    """examples/surkov_cluster's deck (seed 2) and two more draws: 4,000
+    atoms, 120 bins, in f32 and f64."""
+    deck = str(tmp_path / "deck")
+    systems.write_surkov_cluster_deck(deck, seed=seed)
+    cfg, rc, st = _deck_rdf(load_deck_dir(deck, device=cuda))
+    for pos in (st.pos, st.pos.double()):
+        _compare_rdf(cfg, rc, pos, st.types)
+
+
+@pytest.mark.cuda
+def test_rdf_kernel_matches_plain_molten_salt_with_nuclei(cuda):
+    """examples/molten_salt (two species, three species pairs) with the
+    nuclei histogram on: the counts, and ``rdf_sample``'s two histograms
+    equal to the plain counts' through ``_apply_weights``."""
+    cfg, rc, st = _deck_rdf(load_deck_dir(SALT_DECK, device=cuda),
+                            nuclei=True)
+    assert rc.n_pair == 3 and rc.n_npair == 3
+    counts = _compare_rdf(cfg, rc, st.pos, st.types)
+    snuc = torch.arange(cfg.n_spec, dtype=torch.int32, device=cuda)
+    nnum = torch.bincount(snuc[st.types.long()], minlength=cfg.n_nucl
+                          ).to(torch.int32)
+    h0, nh0 = rdf.zero_hist(rc, device=cuda)
+    h, nh = rdf.rdf_sample(cfg, rc, st.pos, st.types, st.spec_number, snuc,
+                           nnum, h0, nh0)
+    ph, pnh = rdf._apply_weights(cfg, rc, counts, st.spec_number, snuc,
+                                 nnum, h0, nh0)
+    assert torch.equal(h, ph) and torch.equal(nh, pnh)
+    assert float(nh.sum()) > 0
+
+
+@pytest.mark.cuda
+def test_rdf_launches_count_eager_calls_and_replays(cuda):
+    """``rdf.launches`` rises by one an eager sample and by one a replay
+    of a ``GraphedSample`` (its warm-up and capture are taken back), and
+    the replays add the same histograms as eager samples."""
+    cfg, rc, st = _deck_rdf(load_deck_dir(SLICE_DECK, device=cuda))
+    snuc = torch.zeros(cfg.n_spec, dtype=torch.int32, device=cuda)
+    nnum = torch.tensor([cfg.n_at], dtype=torch.int32, device=cuda)
+
+    def fn(s, h, nh):
+        return rdf.rdf_sample(cfg, rc, s.pos, s.types, s.spec_number, snuc,
+                              nnum, h, nh)
+    h0, _ = rdf.zero_hist(rc, device=cuda)
+    before = rdf.launches
+    eager = h0
+    for k in range(1, 4):
+        eager, _ = fn(st, eager, None)
+        assert rdf.launches == before + k
+    sample = graph.GraphedSample(fn, "RDF sample")
+    hg = h0.clone()
+    replays = graph.launch_counts.get("graph:RDF sample", 0)
+    for k in range(1, 4):
+        sample(st, hg, None)
+        assert rdf.launches == before + 3 + k
+    assert graph.launch_counts["graph:RDF sample"] == replays + 3
+    assert torch.equal(hg, eager)

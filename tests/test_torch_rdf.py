@@ -1,5 +1,10 @@
 """All-pairs RDF sampling of the port against the JAX package: integer
-counts per bin exactly equal in f64, the normalized table to rtol 1e-10."""
+counts per bin exactly equal in f64, the normalized table to rtol 1e-10;
+on a deck of crafted pairs at r_rdf, on bin edges and at half the box,
+exactly equal in f32 and f64 (the arithmetic that the CUDA kernel of
+``csrc/rdf.cu`` repeats, held on the card by tests/test_torch_kernels.py)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -10,7 +15,8 @@ from aztotmd_tpu.ops import rdf as j_rdf
 from aztotmd_tpu.runtime.setup import load_deck_dir as j_load_deck_dir
 from aztotmd_tpu_torch.ops import rdf
 from aztotmd_tpu_torch.runtime.setup import load_deck_dir
-from aztotmd_tpu_torch.systems import write_surkov_cluster_deck
+from aztotmd_tpu_torch.systems import (RDF_EDGE_SETUPS, rdf_edge_deck,
+                                       write_surkov_cluster_deck)
 
 # The tier-1 run puts several pytest workers on the machine's cores; one
 # intra-op thread per worker keeps torch from oversubscribing them (these
@@ -131,3 +137,38 @@ def test_rdf_cell_candidate_counts_exact(tmp_path, nsp):
     # (no cell overflows at this size)
     np.testing.assert_array_equal(
         counts.numpy(), rdf.rdf_counts_allpairs(cfg, rc, tpos, ttypes).numpy())
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("nsp", [2, 3])
+@pytest.mark.parametrize("setup", sorted(RDF_EDGE_SETUPS))
+def test_allpairs_counts_on_the_edges_match_jax(setup, nsp, dtype):
+    """``systems.rdf_edge_deck``'s crafted pairs: the plain all-pairs
+    counts equal the JAX package's ``rdf_sample_allpairs`` counts exactly.
+    The deck sits on the edges: a one-ulp move of r2_max up, or of d_rdf
+    either way, changes the counts (pairs at r2 == r2_max, r == k*d_rdf)."""
+    cfg, kw, pos, types = rdf_edge_deck(setup, nsp, dtype)
+    jr, rc = j_rdf.RdfConfig(**kw), rdf.RdfConfig(**kw)
+    spec_number = np.bincount(types, minlength=nsp).astype(np.int32)
+    jh, _ = j_rdf.zero_hist(jr, dtype)
+    jh, _ = j_rdf.rdf_sample_allpairs(
+        cfg, jr, jnp.asarray(pos), jnp.asarray(types),
+        jnp.asarray(spec_number), None, None, jh)
+    tpos, ttypes = torch.as_tensor(pos), torch.as_tensor(types)
+    counts = rdf.rdf_counts_allpairs(cfg, rc, tpos, ttypes)
+    assert counts.dtype == tpos.dtype
+    iu, ju = np.triu_indices(nsp)
+    w = 2.0 * cfg.volume / (spec_number[iu] * spec_number[ju])
+    np.testing.assert_array_equal(
+        counts.numpy(), np.round(np.asarray(jh, np.float64) / w[None, :]))
+    assert counts[-1].sum() > 0 and (counts.sum(1) > 0).all()
+
+    f = np.dtype(dtype).type
+    moves = [dict(r2_max=float(np.nextafter(f(kw["r2_max"]), f(np.inf))))]
+    moves += [dict(d_rdf=float(np.nextafter(f(kw["d_rdf"]), f(to))))
+              for to in (0.0, np.inf)]
+    for m in moves:
+        moved = rdf.rdf_counts_allpairs(cfg, dataclasses.replace(rc, **m),
+                                        tpos, ttypes)
+        assert not torch.equal(moved, counts), m
