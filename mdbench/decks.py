@@ -1,7 +1,7 @@
 """Decks made from the run's seed: frozen copies of the port's generators
 (``aztotmd_tpu_torch/systems.py``: ``cluster_positions``,
-``min_separation_positions`` and the k x k x k tiling of
-``write_scale_argon_deck``), kept here so that a change to the port's
+``min_separation_positions``, ``lattice_positions`` and the k x k x k
+tiling of ``write_scale_argon_deck``), kept here so that a change to the port's
 writers cannot change the benchmark's inputs.  The control and field
 text come verbatim from the configuration file.
 
@@ -78,6 +78,21 @@ def min_separation_positions(n_atoms: int, box: float, min_sep: float, rng):
     return pos
 
 
+def lattice_positions(n_atoms: int, box: float, rng, jitter: float = 0.05):
+    """Jittered simple-cubic lattice filling a periodic box: n_side =
+    ceil(n_atoms^(1/3)) sites a side at spacing box / n_side, the first
+    ``n_atoms`` sites in order, each moved by up to ``jitter`` spacings
+    along each axis and wrapped into the box."""
+    n_side = int(math.ceil(n_atoms ** (1.0 / 3.0) - 1e-9))
+    spacing = box / n_side
+    g = (np.arange(n_side) + 0.5) * spacing
+    sites = np.stack(np.meshgrid(g, g, g, indexing="ij"),
+                     axis=-1).reshape(-1, 3)
+    pos = sites[:n_atoms] + rng.uniform(-jitter, jitter,
+                                        (n_atoms, 3)) * spacing
+    return pos % box
+
+
 def tile(pos, box: float, t: int, rng):
     """``write_scale_argon_deck``'s tiling: images of ``pos`` on a t^3 lattice,
     image-major, jittered by up to 0.05 A and wrapped into the t-times
@@ -100,12 +115,17 @@ def positions(cfg: dict, traffic: dict, seed: int):
         box = float(gp["box"])
         pos = cluster_positions(int(gp["n_atoms"]), box, float(gp["density"]),
                                 _rng(seed, 1), float(gp["jitter"]))
-    elif kind == "min_separation":
+    elif kind in ("min_separation", "lattice"):
         box = (gp["n_atoms"] / gp["density"]) ** (1.0 / 3.0)
         # the deck's box line holds 6 decimals; draw in that box
         box = float(f"{box:.6f}")
-        pos = min_separation_positions(int(gp["n_atoms"]), box,
-                                       float(gp["min_sep"]), _rng(seed, 1))
+        if kind == "lattice":
+            pos = lattice_positions(int(gp["n_atoms"]), box, _rng(seed, 1),
+                                    float(gp["jitter"]))
+        else:
+            pos = min_separation_positions(int(gp["n_atoms"]), box,
+                                           float(gp["min_sep"]),
+                                           _rng(seed, 1))
     else:
         raise ValueError(f"unknown generator {kind!r}")
     t = int(traffic.get("tiles", 1))

@@ -24,6 +24,12 @@ search.  What this skips is checked by itself: the start (the loaded
 state against the reference's own read of the deck and draws from the
 seed) and the window's stat rows (each period's row present and in
 order).
+
+On the card a cell fails at once, after the load and before any runner,
+capture or warm-up, when the port says that its pair pass there is a
+torch engine (``runtime.step.torch_engine_reason``): the window's steps
+are fixed from the cell's nominal rate, and such an engine can run far
+below it, so the run would outlast its time.
 """
 
 from __future__ import annotations
@@ -62,7 +68,9 @@ def _snap(st):
     """The fields the check compares, as float64 copies on the device."""
     return {"x": st.pos.double().clone(), "v": st.vel.double().clone(),
             "f": st.frc.double().clone(), "engs": st.engs.double().clone(),
-            "radii": st.radii.double().clone(), "step": int(st.step),
+            "radii": st.radii.double().clone(),
+            "chit": st.chit.double().clone(),
+            "consint": st.consint.double().clone(), "step": int(st.step),
             "energies": {k: float(getattr(st.energies, k))
                          for k in compare.ENERGY_COLS}}
 
@@ -81,7 +89,10 @@ _STAT_COLS = {"tot": "engTot", "kin": "engKin", "vdw": "engVdW",
 
 
 def row_energies(names, row):
-    return {k: row[names.index(c)] for k, c in _STAT_COLS.items()}
+    """The energies of a stat row, those of ``_STAT_COLS`` that stat.dat
+    has (no engTerm column but under the radiative thermostat)."""
+    return {k: row[names.index(c)] for k, c in _STAT_COLS.items()
+            if c in names}
 
 
 def rows_gap(rows, names, period, last):
@@ -108,6 +119,25 @@ def window_unit(runner, start):
     k = w // p if w % p == 0 else 1
     return p * max(d for d in range(1, min(runner.s_cap, k) + 1)
                    if k % d == 0)
+
+
+def torch_engine_guard(cfg, dtype):
+    """Raise when the port's pair pass for ``cfg`` with state type
+    ``dtype`` on the card is a torch engine rather than a kernel, with
+    the port's reason, or when the port no longer says so."""
+    try:
+        from aztotmd_tpu_torch.runtime.step import torch_engine_reason
+    except ImportError as e:
+        raise RuntimeError(
+            "mdbench: aztotmd_tpu_torch.runtime.step.torch_engine_reason, "
+            "which tells whether the pair pass is a torch engine, is "
+            f"gone: {e}") from e
+    reason = torch_engine_reason(cfg, dtype)
+    if reason:
+        raise RuntimeError(
+            f"mdbench: the pair pass ({cfg.pair_engine!r}) on the card is "
+            f"a torch engine: {reason}; the cell's window is fixed from "
+            "its nominal rate and would outlast the run's time")
 
 
 class Context:
@@ -151,8 +181,11 @@ def run_cell(name, seed, seconds, trace, device, t_start, root=None,
         _sync(dev)
         load_s = time.perf_counter() - t0
         st0 = sysd["state"]
-        start = {"x": st0.pos.double().clone(), "v": st0.vel.double().clone(),
-                 "photons": sysd["aux"].photons.double().clone()}
+        if dev.type == "cuda":
+            torch_engine_guard(sysd["cfg"], st0.pos.dtype)
+        start = {"x": st0.pos.double().clone(), "v": st0.vel.double().clone()}
+        if p["tstat"] == "radi":
+            start["photons"] = sysd["aux"].photons.double().clone()
         runner = MDRunner(sysd, out_dir=out_dir, quiet=True)
 
         # warm-up: the deck's first steps through the same runner, the
@@ -302,10 +335,10 @@ def check(p, box, seed, pos0, start, state_a, state_c, hist_a, row_t,
     n = pos0.shape[0]
     v0, ph = initial(p, n, seed)
     ref_start = {"x": torch.as_tensor(pos0, device=dev),
-                 "v": torch.as_tensor(v0, device=dev),
-                 "photons": torch.as_tensor(ph, device=dev)}
-    radii = p["pot"] == "surk"
-    ref = Reference(p, box, ph, seed, dev)
+                 "v": torch.as_tensor(v0, device=dev)}
+    if ph is not None:
+        ref_start["photons"] = torch.as_tensor(ph, device=dev)
+    ref = Reference(p, box, ph, seed, dev, n=n)
     low = torch.bfloat16 if controls else None
     s_ref = ref.step(state_a, low=low)
     if controls:
@@ -316,7 +349,7 @@ def check(p, box, seed, pos0, start, state_a, state_c, hist_a, row_t,
     numbers = {"start": compare.start_gap(start, ref_start, box),
                "rows": rows_bad,
                **compare.judge(ref, state_c, s_ref, state_c["energies"],
-                               hist_a, state_a["x"], box, radii)}
+                               hist_a, state_a["x"], box)}
     scale = numbers.pop("scale")
     # the window's last decoded row against the state it was read from; a
     # window without it fails
@@ -330,7 +363,7 @@ def check(p, box, seed, pos0, start, state_a, state_c, hist_a, row_t,
         control = {"start": compare.start_gap(c_start, ref_start, box),
                    **compare.judge(ref, s_low, s_ref, eng,
                                    ref.rdf_hist(state_a["x"], low),
-                                   state_a["x"], box, radii),
+                                   state_a["x"], box),
                    "rows": 0}
         control.pop("scale")
     return numbers, control

@@ -5,11 +5,12 @@ input and output byte once) over the replayed ms of the function the
 step calls for the deck's pair forces, timed alone by CUDA events over a
 graph of 20 calls on that state.
 
-The functions timed, by the configuration's pair engine:
-``aztotmd_tpu_torch.ops.allpairs.pair_forces_pallas`` ("pallas": K1 on a
-dense deck) and ``aztotmd_tpu_torch.ops.neighbors.pair_forces_rows`` (the
-Verlet list's row-compacted walk; ``pair_forces_neighbors`` without row
-compaction).  A name the port no longer has makes the metric null."""
+The function timed is the one the step calls: on the Verlet list
+``aztotmd_tpu_torch.ops.neighbors.pair_forces_rows`` (the row-compacted
+walk; ``pair_forces_neighbors`` without row compaction), and for every
+other engine ``runtime.step.PAIR_ENGINES`` of the configuration's engine
+(``pair_forces_pallas`` on "pallas": K1 on a dense deck), with the same
+arguments.  A name the port no longer has makes the metric null."""
 
 import sys
 
@@ -23,22 +24,23 @@ META = {"unit": "%", "better": "higher", "source": "device_trace",
 
 def _pair_call(cfg, ff, st):
     """The pair function of the step and a call of it on ``st``."""
+    radii = st.radii if cfg.use_radii else None
     if cfg.pair_engine == "neighbor":
         from aztotmd_tpu_torch.ops import neighbors as nb
         if cfg.nb_rowcap:
             return lambda: nb.pair_forces_rows(
-                cfg, ff, st.pos, st.types, st.nbrow_idx,
-                radii=st.radii if cfg.use_radii else None,
+                cfg, ff, st.pos, st.types, st.nbrow_idx, radii=radii,
                 parents=st.parents)
         return lambda: nb.pair_forces_neighbors(
-            cfg, ff, st.pos, st.types, st.nbr_idx,
-            radii=st.radii if cfg.use_radii else None, parents=st.parents)
-    if cfg.pair_engine == "pallas":
-        from aztotmd_tpu_torch.ops import allpairs
-        return lambda: allpairs.pair_forces_pallas(
-            cfg, ff, st.pos, st.types,
-            radii=st.radii if cfg.use_radii else None, parents=st.parents)
-    return None
+            cfg, ff, st.pos, st.types, st.nbr_idx, radii=radii,
+            parents=st.parents)
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    fn = step_mod.PAIR_ENGINES.get(cfg.pair_engine, step_mod.pair_forces)
+    want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
+    want_jump = cfg.ejtype != 0
+    return lambda: fn(cfg, ff, st.pos, st.types, radii=radii,
+                      parents=st.parents, want_bind=want_bind,
+                      want_jump=want_jump)
 
 
 def read(ctx):
@@ -46,8 +48,6 @@ def read(ctx):
     try:
         call = _pair_call(r.cfg, r.ff, ctx.state)
     except AttributeError:
-        return None
-    if call is None:
         return None
     ms = graph_call_ms(call, ctx.device)
     p = ctx.params

@@ -2,17 +2,23 @@
 and the plain reference, each against a limit of its own (the cell's
 ``limits``; the readings each was set from are in PERF.md).
 
-- ``start``: the loaded state (positions, velocities, photon table)
-  against the reference's own read of the deck and draws from the seed:
-  the largest gap, positions over the box, the others over their largest
-  reference value;
+- ``start``: the loaded state (positions, velocities and, under the
+  radiative thermostat, the photon table) against the reference's own
+  read of the deck and draws from the seed: the largest gap, positions
+  over the box, the others over their largest reference value;
 - after one step of the run's own captured step program from the state
   the window ended in, against the reference's step from the same state:
   ``pos_A`` the largest position gap in A (minimum image); ``vel``,
-  ``tstat`` (the thermostat's internal energies, and the thermal radii
-  where the potential reads them) and ``force`` (the run's forces against
-  the reference's pair pass at the run's own positions) the largest gap
-  over the reference's largest value; ``energy`` the step's energies
+  ``tstat`` and ``force`` (the run's forces against the reference's pair
+  pass at the run's own positions) the largest gap over the reference's
+  largest value; ``tstat`` is the thermostat's state: under the radiative
+  thermostat the internal energies, and the thermal radii where the
+  potential reads them; under Nose-Hoover the friction ``chit`` and its
+  integral ``consint``, each over its reference magnitude but no less
+  than the thermostat's own scale (chit's equilibrium spread 1 / (tau
+  sqrt(deg_free)), and the target kinetic energy for consint), so that a
+  value passing through zero does not blow the ratio up; ``energy`` the
+  step's energies
   against the reference's (the pair energy at the run's positions), the
   largest gap over |kin| + sum |pair energy| + |internal energy|, and no
   less than the gap between the window's last stat row, as the device
@@ -42,26 +48,45 @@ def _rel_max(a, b):
     return gap / den if den > 0 else gap
 
 
+def _rel_floor(a, b, floor: float) -> float:
+    """The largest gap of ``a`` from ``b`` over max(max |b|, ``floor``)."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), floor)
+
+
 def start_gap(run: dict, ref: dict, box: float) -> float:
     dx = min_image(run["x"].double() - ref["x"].double(), box)
-    return max(float(dx.abs().max()) / box, _rel_max(run["v"], ref["v"]),
-               _rel_max(run["photons"], ref["photons"]))
+    gap = max(float(dx.abs().max()) / box, _rel_max(run["v"], ref["v"]))
+    if "photons" in ref:
+        gap = max(gap, _rel_max(run["photons"], ref["photons"]))
+    return gap
+
+
+def tstat_gap(ref, run: dict, s_ref: dict) -> float:
+    """The thermostat's state after the step against the reference's."""
+    if ref.nose:
+        chit_scale = 1.0 / (ref.p["tau"] * ref.deg_free ** 0.5)
+        return max(_rel_floor(run["chit"], s_ref["chit"], chit_scale),
+                   _rel_floor(run["consint"], s_ref["consint"], ref.te_kin))
+    gap = _rel_max(run["engs"], s_ref["engs"])
+    if ref.surkov:
+        gap = max(gap, _rel_max(run["radii"], s_ref["radii"]))
+    return gap
 
 
 def judge(ref, run: dict, s_ref: dict, eng: dict, hist, x_hist,
-          box: float, radii: bool) -> dict:
+          box: float) -> dict:
     """The numbers of one checked step and one RDF sample: ``run`` ({"x",
-    "v", "f", "engs", "radii"} after the step) with the energies ``eng``
-    it reports, against the float64 reference ``ref`` and its state
-    ``s_ref`` after the same step; ``hist`` the run's RDF sample of the
-    positions ``x_hist``."""
+    "v", "f" and the thermostat's state, "engs" and "radii" or "chit" and
+    "consint", after the step) with the energies ``eng`` it reports,
+    against the float64 reference ``ref`` and its state ``s_ref`` after
+    the same step; ``hist`` the run's RDF sample of the positions
+    ``x_hist``."""
     # the positions the run's pair pass read ("x_f": a control stage's)
     f_ref, vdw, vdw_abs = ref.forces(run.get("x_f", run["x"]),
                                      s_ref["radii_in"])
     dx = min_image(run["x"].double() - s_ref["x"].double(), box)
-    tstat = _rel_max(run["engs"], s_ref["engs"])
-    if radii:
-        tstat = max(tstat, _rel_max(run["radii"], s_ref["radii"]))
+    tstat = tstat_gap(ref, run, s_ref)
     e = s_ref["energies"]
     want = {"kin": float(e["kin"]), "vdw": float(vdw),
             "temp": float(e["temp"]), "coul1": 0.0, "coul2": 0.0}
@@ -80,9 +105,8 @@ def judge(ref, run: dict, s_ref: dict, eng: dict, hist, x_hist,
 
 def row_gap(row: dict, eng: dict, scale: float) -> float:
     """A decoded stat row against the energies of the state it was read
-    from, the largest gap over ``scale``."""
-    return max(abs(float(row[k]) - float(eng[k])) for k in ENERGY_COLS) \
-        / scale
+    from, the largest gap over ``scale``, over the columns the row has."""
+    return max(abs(float(row[k]) - float(eng[k])) for k in row) / scale
 
 
 def verdict(numbers: dict, limits: dict):

@@ -6,16 +6,18 @@ velocities and photon table from the seed).
 What it computes, in any floating dtype (float64 for the reference, a
 lower one for the control):
 
-- the start: the initial velocities and the radiative thermostat's photon
-  table, drawn from the seed in the port's documented order
+- the start: the initial velocities and, under the radiative thermostat,
+  its photon table, drawn from the seed in the port's documented order
   (``init_vel gaus``: Gaussian velocities, drift removed, scaled to the
   target kinetic energy; then photon energies Gamma(5, kT) capped at 1 eV);
-- the step, in the engine's stage order: velocity Verlet with the periodic
-  wrap, the pair forces and energies of every pair within the cutoff
-  (Lennard-Jones, or Surkov with per-atom thermal radii), the
-  equilibration rescale, the radiative thermostat (counter-keyed noise,
-  a pure function of (seed, step, atom id): murmur3 fmix32 words, 16-bit
-  uniforms) and the thermal radii;
+- the step, in the engine's stage order: under Nose-Hoover a scaling pass
+  from the previous step's kinetic energy, velocity Verlet with the
+  periodic wrap, the pair forces and energies of every pair within the
+  cutoff (Lennard-Jones, or Surkov with per-atom thermal radii), the
+  equilibration rescale, then the thermostat: Nose-Hoover's second pass,
+  or the radiative thermostat (counter-keyed noise, a pure function of
+  (seed, step, atom id): murmur3 fmix32 words, 16-bit uniforms) and the
+  thermal radii;
 - the RDF sample: integer counts of every pair within ``r_rdf`` in bins of
   ``d_rdf``, weighted by 2V/N^2.
 
@@ -71,6 +73,8 @@ def deck_params(control: str, field: str) -> dict:
         elif k == "temperature":
             p["temp"] = float(w[1])
             p["tstat"] = w[2]
+            if w[2] == "nose":
+                p["tau"] = float(w[3])
         elif k == "init_vel":
             p["init_vel"] = w[1]
         elif k == "rdf":
@@ -94,9 +98,11 @@ def deck_params(control: str, field: str) -> dict:
         elif w[0] == "radii":
             r = fl[i + 1]
             p["rad"] = (float(r[1]), float(r[2]), float(r[3]))
-    if p["pot"] not in ("lnjs", "surk") or p["tstat"] != "radi":
-        raise ValueError("the reference takes LJ or Surkov decks under the "
-                         "radiative thermostat")
+    if not (p["pot"] == "surk" and p["tstat"] == "radi"
+            or p["pot"] == "lnjs" and p["tstat"] in ("radi", "nose")):
+        raise ValueError("the reference takes LJ decks under the radiative "
+                         "or the Nose-Hoover thermostat and Surkov decks "
+                         "under the radiative one")
     if p["charge"] != 0.0:
         raise ValueError("the reference takes neutral decks (the declared "
                          "electrostatics are inert)")
@@ -107,8 +113,8 @@ def deck_params(control: str, field: str) -> dict:
 # the start
 
 def initial(p: dict, n: int, seed: int):
-    """(velocities (n, 3), photon energies (n,)) in float64 NumPy, drawn
-    from ``seed`` in the engine's order."""
+    """(velocities (n, 3), photon energies (n,) or None under Nose-Hoover)
+    in float64 NumPy, drawn from ``seed`` in the engine's order."""
     rng = np.random.default_rng(seed)
     if p["init_vel"] == "gaus":
         m = p["mass"]
@@ -124,6 +130,8 @@ def initial(p: dict, n: int, seed: int):
     else:
         raise ValueError(f"init_vel {p['init_vel']!r} is not in the "
                          "reference")
+    if p["tstat"] != "radi":
+        return v, None
     ph = np.minimum(rng.gamma(5.0, KB * p["temp"], size=n), 1.0)
     return v, ph
 
@@ -243,17 +251,22 @@ class Reference:
     """The deck's dynamics in float64 from a given state.
 
     ``p``: ``deck_params``; ``box``; ``photons``: the start's photon
-    table; ``seed``: the run's seed (its low 32 bits key the noise).
-    Every stage takes the dtype it computes in (``dt``): float64 for the
-    reference, a lower one for the control (``step(s, low=...)``)."""
+    table (None under Nose-Hoover, where ``n`` gives the atoms); ``seed``:
+    the run's seed (its low 32 bits key the noise).  Every stage takes the
+    dtype it computes in (``dt``): float64 for the reference, a lower one
+    for the control (``step(s, low=...)``)."""
 
-    def __init__(self, p, box, photons, seed, device=None):
+    def __init__(self, p, box, photons, seed, device=None, n=None):
         self.p, self.box = p, float(box)
         self.dev = torch.device(device) if device is not None else \
             torch.device("cpu")
-        self.photons = torch.as_tensor(photons, dtype=torch.float64,
-                                       device=self.dev)
-        self.n = self.photons.shape[0]
+        self.nose = p["tstat"] == "nose"
+        self.photons = None
+        if photons is not None:
+            self.photons = torch.as_tensor(photons, dtype=torch.float64,
+                                           device=self.dev)
+            n = self.photons.shape[0]
+        self.n = int(n)
         self.seed_word = int(seed) & MASK32
         self.gid = torch.arange(self.n, device=self.dev)
         self.surkov = p["pot"] == "surk"
@@ -261,8 +274,11 @@ class Reference:
         self.pairs = PairList(self.box, reach, 2.0)
         self.n_bin = int(min(p["r_rdf"], self.box) / p["d_rdf"])
         self.rdf_w = 2.0 * self.box ** 3 / (float(self.n) * float(self.n))
-        deg_free = 3 * self.n - 1
-        self.te_kin = 0.5 * p["temp"] * KB * deg_free
+        self.deg_free = 3 * self.n - 1
+        self.te_kin = 0.5 * p["temp"] * KB * self.deg_free
+        if self.nose:
+            self.rqmass = 0.5 / self.te_kin / p["tau"] / p["tau"]
+            self.qmass_tau2 = 2.0 * self.te_kin
 
     def forces(self, x, rad, dt=torch.float64):
         """(forces (n, 3), pair energy, sum of |pair energies|) of every
@@ -336,9 +352,28 @@ class Reference:
         kin = 0.5 * p["mass"] * (v * v).sum()
         if p["n_equil"] and p["freq_equil"] and step <= p["n_equil"] \
                 and step % p["freq_equil"] == 0 and float(kin) > 0:
-            v = v * torch.sqrt(0.25 * self.te_kin / kin)
+            # to the target under Nose-Hoover, a quarter of it under the
+            # radiative thermostat
+            c = 1.0 if self.nose else 0.25
+            v = v * torch.sqrt(c * self.te_kin / kin)
             kin = torch.full_like(kin, self.te_kin)
         return v, kin
+
+    def _nose(self, v, kin, chit, consint, dt):
+        """One Nose-Hoover scaling pass from the kinetic energy ``kin``:
+        (v, kin, chit, consint)."""
+        v = v.to(self.dev, dt)
+        kin, chit, consint = (torch.as_tensor(a, dtype=torch.float64,
+                                              device=self.dev).to(dt)
+                              for a in (kin, chit, consint))
+        h = self.p["dt"]
+        chit = chit + h * (kin - self.te_kin) * self.rqmass
+        tscale = 1.0 - h * chit
+        v = v * tscale
+        kin = kin * tscale * tscale
+        consint = consint + h * chit * self.qmass_tau2
+        chit = chit + h * (kin - self.te_kin) * self.rqmass
+        return v, kin, chit, consint
 
     def _radiative(self, v, e, step, dt):
         """Photon absorb and re-emit: (v, engs, radii)."""
@@ -380,32 +415,53 @@ class Reference:
 
     def step(self, s: dict, low=None):
         """One step from state ``s`` ({"x", "v", "f", "engs", "radii",
-        "step"}) in float64: the next state with its "energies" and
-        "radii_in" (the radii its pair pass read).  With ``low``, also
-        (second return value) each stage computed in ``low`` from the
-        float64 inputs of that stage, as a state of the same keys."""
+        "step"}; under Nose-Hoover also "chit", "consint" and "energies"
+        with the previous step's "kin") in float64: the next state with its
+        "energies" and "radii_in" (the radii its pair pass read).  With
+        ``low``, also (second return value) each stage computed in ``low``
+        from the float64 inputs of that stage, as a state of the same
+        keys."""
         f64 = torch.float64
         st = s["step"]
-        v1, x = self._verlet1(s["x"], s["v"], s["f"], f64)
+        v0 = s["v"]
+        if self.nose:
+            v0, _, chit, consint = self._nose(
+                s["v"], s["energies"]["kin"], s["chit"], s["consint"], f64)
+        v1, x = self._verlet1(s["x"], v0, s["f"], f64)
         F, epot, eabs = self.forces(x, s["radii"])
         v2, kin = self._verlet2(v1, F, st, f64)
-        v, e, radii = self._radiative(v2, s["engs"], st, f64)
-        out = {"x": x, "v": v, "f": F, "engs": e, "radii": radii,
-               "radii_in": s["radii"], "step": st + 1,
-               "energies": _energies(kin, epot, eabs, e)}
+        out = {"x": x, "f": F, "radii_in": s["radii"], "step": st + 1}
+        if self.nose:
+            v, kin_t, chit_t, cons_t = self._nose(v2, kin, chit, consint,
+                                                  f64)
+            out.update(v=v, engs=s["engs"], radii=s["radii"], chit=chit_t,
+                       consint=cons_t, energies=_energies(
+                           kin_t, epot, eabs, torch.zeros_like(kin_t)))
+        else:
+            v, e, radii = self._radiative(v2, s["engs"], st, f64)
+            out.update(v=v, engs=e, radii=radii,
+                       energies=_energies(kin, epot, eabs, e.sum()))
         if low is None:
             return out
-        _, x_l = self._verlet1(s["x"], s["v"], s["f"], low)
+        _, x_l = self._verlet1(s["x"], v0, s["f"], low)
         F_l, epot_l, eabs_l = self.forces(x, s["radii"], low)
-        v2_l, kin_l = self._verlet2(v1, F, st, low)
-        v_l, e_l, radii_l = self._radiative(v2, s["engs"], st, low)
-        return out, {"x": x_l, "x_f": x, "v": v_l, "f": F_l, "engs": e_l,
-                     "radii": radii_l,
-                     "energies": _energies(kin_l, epot_l, eabs_l, e_l)}
+        ctl = {"x": x_l, "x_f": x, "f": F_l}
+        if self.nose:
+            v_l, kin_l, chit_l, cons_l = self._nose(v2, kin, chit, consint,
+                                                    low)
+            ctl.update(v=v_l, chit=chit_l, consint=cons_l,
+                       energies=_energies(kin_l, epot_l, eabs_l,
+                                          torch.zeros_like(kin_l)))
+        else:
+            _, kin_l = self._verlet2(v1, F, st, low)
+            v_l, e_l, radii_l = self._radiative(v2, s["engs"], st, low)
+            ctl.update(v=v_l, engs=e_l, radii=radii_l,
+                       energies=_energies(kin_l, epot_l, eabs_l, e_l.sum()))
+        return out, ctl
 
 
-def _energies(kin, epot, eabs, engs):
-    return {"kin": kin, "vdw": epot, "vdw_abs": eabs, "temp": engs.sum(),
+def _energies(kin, epot, eabs, temp):
+    return {"kin": kin, "vdw": epot, "vdw_abs": eabs, "temp": temp,
             "tot": epot + kin, "coul1": torch.zeros_like(kin),
             "coul2": torch.zeros_like(kin)}
 

@@ -10,7 +10,12 @@ taken over the rest; an answer altered where it is produced (the step's
 kinetic energy, a stat row's, an RDF sample's counts).  The exchange
 between chips does not exist on one chip.  On the Verlet list the checked
 step walks the inner list that the window's last refine left, so a refine
-that keeps too few pairs is not correct either."""
+that keeps too few pairs is not correct either.  The test-only Nose-Hoover
+liquid (``mdbench_tiny.LIQUID``) is held the same way.
+
+On the card the harness fails a cell before its runner when the port's
+pair pass there is a torch engine; on the CPU, where the tests run torch
+engines on purpose, it never asks."""
 
 import dataclasses
 import json
@@ -19,9 +24,13 @@ import time
 
 import pytest
 
-from mdbench import harness, registry
+from mdbench import decks, harness, registry
 
-from .mdbench_tiny import tiny_root
+from .mdbench_tiny import LIQUID, tiny_root
+
+
+def _root(tmp_path, cell):
+    return tiny_root(str(tmp_path / "root"), liquid=cell == LIQUID)
 
 
 def _run(root, cell, seed=7, controls=False):
@@ -30,9 +39,10 @@ def _run(root, cell, seed=7, controls=False):
                             controls=controls)
 
 
-@pytest.mark.parametrize("cell", ["cs2_surkov_4k", "cs1_argon_40k"])
+@pytest.mark.parametrize("cell", ["cs2_surkov_4k", "cs1_argon_40k",
+                                  LIQUID])
 def test_run_passes_and_control_fails(tmp_path, cell):
-    root = tiny_root(str(tmp_path / "root"))
+    root = _root(tmp_path, cell)
     res = _run(root, cell, seed=2 ** 31 + 5, controls=True)
     assert res["correct"], res["checks"]
     limits = registry.workload(cell, root)["limits"]
@@ -108,11 +118,12 @@ def _rdf(mp):
     mp.setattr(ops_rdf, "_apply_weights", apply_weights)
 
 
-@pytest.mark.parametrize("cell", ["cs2_surkov_4k", "cs1_argon_40k"])
+@pytest.mark.parametrize("cell", ["cs2_surkov_4k", "cs1_argon_40k",
+                                  LIQUID])
 @pytest.mark.parametrize("fault", [_unchanged, _half, _energy, _row, _rdf],
                          ids=["unchanged", "half", "energy", "row", "rdf"])
 def test_fault_is_not_correct(tmp_path, monkeypatch, cell, fault):
-    root = tiny_root(str(tmp_path / "root"))
+    root = _root(tmp_path, cell)
     fault(monkeypatch)
     res = _run(root, cell)
     assert not res["correct"], res["checks"]
@@ -143,3 +154,56 @@ def test_window_refine_is_checked(tmp_path, monkeypatch, fault):
         fault(monkeypatch)
     res = _run(root, "cs1_argon_40k")
     assert res["correct"] == (fault is None), res["checks"]
+
+
+def _cfg(tmp_path, cell, dtype="f32", n_atoms=None):
+    """The port's configuration of ``cell``'s tiny deck, loaded on the
+    CPU (``n_atoms``: the configuration at that size instead)."""
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+    w = registry.workload(cell, _root(tmp_path, cell))
+    if n_atoms:
+        w["config"]["generator_params"]["n_atoms"] = n_atoms
+    d = str(tmp_path / "deck")
+    decks.make_deck(w["config"], w["traffic"], 7, d)
+    sysd = load_deck_dir(d, dtype=dtype, seed=7, device="cpu")
+    return sysd["cfg"], sysd["state"].pos.dtype
+
+
+def test_guard_passes_the_kernel_and_list_cells(tmp_path):
+    for cell, engine in (("cs2_surkov_4k", "pallas"),
+                         ("cs1_argon_40k", "neighbor")):
+        cfg, dt = _cfg(tmp_path / cell, cell)
+        assert cfg.pair_engine == engine
+        harness.torch_engine_guard(cfg, dt)
+
+
+def test_guard_refuses_a_torch_engine(tmp_path):
+    import torch
+    # the Nose-Hoover liquid at examples/liquid_argon's 32,768 atoms:
+    # "auto" takes the torch cell-block engine
+    cfg, dt = _cfg(tmp_path, LIQUID, n_atoms=32768)
+    assert cfg.pair_engine == "block" and dt == torch.float32
+    with pytest.raises(RuntimeError, match='selects the "block" engine'):
+        harness.torch_engine_guard(cfg, dt)
+    # the kernels are f32 only
+    cfg, dt = _cfg(tmp_path / "f64", "cs2_surkov_4k", dtype="f64")
+    with pytest.raises(RuntimeError, match="f32 only"):
+        harness.torch_engine_guard(cfg, dt)
+
+
+def test_guard_fails_without_the_ports_reason(tmp_path, monkeypatch):
+    from aztotmd_tpu_torch.runtime import step as step_mod
+    cfg, dt = _cfg(tmp_path, "cs2_surkov_4k")
+    monkeypatch.delattr(step_mod, "torch_engine_reason")
+    with pytest.raises(RuntimeError, match="torch_engine_reason"):
+        harness.torch_engine_guard(cfg, dt)
+
+
+def test_cpu_run_never_asks_the_guard(tmp_path, monkeypatch):
+    """A guard that raises whenever it is asked: a CPU run of the tiny
+    liquid passes all the same."""
+    def guard(cfg, dtype):
+        raise AssertionError("the guard ran on the CPU")
+    monkeypatch.setattr(harness, "torch_engine_guard", guard)
+    res = _run(_root(tmp_path, LIQUID), LIQUID)
+    assert res["correct"], res["checks"]
