@@ -587,3 +587,35 @@ def build_sim_config(ctl: ControlSpec, fld: FieldSpec, box, n_at: int,
         n_free_el=n_free_el, max_neigh=ctl.max_neigh,
         dtype=dtype,
     )
+
+
+def device_pair_engine(cfg: SimConfig, device_type: str,
+                       requested: str = "auto") -> str:
+    """The engine a deck runs on a ``device_type`` device, from ``cfg``,
+    whose ``pair_engine`` is ``build_sim_config``'s for the ``requested``
+    engine.  An engine the user named stands.  For ``"auto"`` the cost
+    model's choice (the JAX package's) stands but in one case: on a CUDA
+    device a ``"block"`` choice goes to ``"pallas"`` where that engine's
+    pass is the stacked one (``ops/allpairs.py::pallas_branch``
+    "stacked", the kernel K3): f32, no bind/jump candidates, a grid of at
+    least three cells a side with every stencil offset within +-1
+    (``ops/cellblock.py::stacked_ok``), and a ``cap`` whose neighbor
+    cells fit a K3 block (``stacked_plan``).  The block engine is torch
+    ops, thousands of small launches a pass on the card; the CPU keeps
+    the JAX package's choice.  Host code: it launches nothing."""
+    if (requested != "auto" or cfg.pair_engine != "block"
+            or device_type != "cuda" or cfg.dtype != "f32"):
+        return cfg.pair_engine
+    import torch
+
+    from ..ops.allpairs import pallas_branch
+    from ..ops.cellblock import stacked_plan
+    want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
+    want_jump = cfg.ejtype != 0
+    if pallas_branch(cfg, torch.float32, want_bind, want_jump) != "stacked":
+        return cfg.pair_engine
+    try:
+        stacked_plan(cfg.grid.cap, cfg.grid.dims, cfg.n_at, cfg.n_spec)
+    except ValueError:
+        return cfg.pair_engine
+    return "pallas"

@@ -88,7 +88,8 @@ from .checkpoint import save_checkpoint
 from . import statring
 from . import graph as graph_mod
 from .graph import GraphedSample
-from .step import MultiStep, make_multi_step, torch_engine_reason
+from .step import (MultiStep, make_multi_step, pair_pass,
+                   torch_engine_reason)
 
 def _gcd_all(values):
     g = 0
@@ -148,6 +149,11 @@ class MDRunner:
                 raise ValueError(f"unknown mesh_mode {mesh_mode!r} "
                                  "(use 'slab' or 'atoms')")
             else:
+                # the slab mesh routes from the cost model's engine; the
+                # one-device kernel rule of ``device_pair_engine`` is not
+                # the slab step's
+                cfg = dataclasses.replace(cfg, pair_engine=sysd.get(
+                    "cost_engine") or cfg.pair_engine)
                 self.cfg = cfg = _slab.prepare_slab_cfg(cfg, n_dev)
                 self.comm = comm or _comm.LocalRing(n_dev, dev)
         self.ff = sysd["ff"]
@@ -499,7 +505,8 @@ class MDRunner:
         self.loop_seconds += wall
         steps = int(self.state.step) - done
         self.steps_run += steps
-        self.timer.end(steps, wall, self._counters())
+        self.timer.end(steps, wall, self._counters(),
+                       pair_pass=self.pair_pass())
         if self.profile:
             n = max(total - done, 1)
             print(f"loop wall: {wall:.1f} s for {n} steps "
@@ -521,6 +528,16 @@ class MDRunner:
                 **{f"{h.__name__.rsplit('.', 1)[-1]}.{k}": getattr(h, k)
                    for h, k in graph_mod.launch_counters()
                    if not isinstance(h, dict)}}
+
+    def pair_pass(self) -> str:
+        """The pair pass the step runs now, in words (``runtime/step.py::
+        pair_pass``; on the slab mesh its dense pass K2 or its stencil
+        pass in torch ops), for the call's record."""
+        if self.comm is not None:
+            if self.cfg.pair_engine == "pallas" and self.cfg.dtype != "f64":
+                return "slab dense (K2)"
+            return "slab stencil (torch ops)"
+        return pair_pass(self.cfg, self.state.pos.dtype, self.device.type)
 
     def _run_loop(self, total, done):
         if self.ring_ok:

@@ -19,7 +19,7 @@ from ..io.control import (ELEC_EWALD, INITVEL_CONST, INITVEL_ENG,
                           INITVEL_GAUSS, TSTAT_RADI, ControlSpec)
 from ..io.toplists import parse_anglelist_file, parse_bondlist_file
 
-from ..core.config import build_sim_config
+from ..core.config import build_sim_config, device_pair_engine
 from ..core.ffield import build_forcefield
 from ..core.state import init_state
 from ..ops.elec import ewald_self_energy, make_kvectors
@@ -47,7 +47,12 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
     """Returns (cfg, ff, state, aux) with tensors on ``device``.
 
     ``extras`` receives host init byproducts (``vel0``, the NumPy initial
-    velocities).  ``bond_equil_hack`` False turns off the reference's
+    velocities; ``cost_engine``, the cost model's engine, where the
+    device's rule below changed it).  ``pair_engine="auto"`` takes the
+    cost model's choice (the JAX package's) and then
+    ``core/config.py::device_pair_engine`` for ``device``'s type: on a
+    CUDA device a cell-block deck that the stacked kernel (K3) takes runs
+    on ``"pallas"``.  ``bond_equil_hack`` False turns off the reference's
     zeroing of the velocities of reactive bond partners near force
     equilibrium (``cfg.bond_equil_hack``).
     """
@@ -63,6 +68,12 @@ def build_system(ctl: ControlSpec, fld, atoms, bonds=None, angles=None,
                            target_occupancy=target_occupancy,
                            max_cells=max_cells, pos=atoms.pos,
                            pair_engine=pair_engine)
+    dev_type = torch.device(device).type if device is not None else "cpu"
+    engine = device_pair_engine(cfg, dev_type, pair_engine)
+    if engine != cfg.pair_engine:
+        if extras is not None:
+            extras["cost_engine"] = cfg.pair_engine
+        cfg = dataclasses.replace(cfg, pair_engine=engine)
     if not bond_equil_hack:
         cfg = dataclasses.replace(cfg, bond_equil_hack=False)
     if ctl.elec.type == ELEC_EWALD:
@@ -145,4 +156,5 @@ def load_deck_dir(path, dtype: str = "f32", seed: int = 12345,
                                        extras=extras, device=device, **kw)
     return dict(cfg=cfg, ff=ff, state=state, aux=aux, ctl=ctl, fld=fld,
                 atoms=atoms, dev=dev, bonds=bonds, angles=angles,
-                vel0=extras.get("vel0"))
+                vel0=extras.get("vel0"),
+                cost_engine=extras.get("cost_engine"))

@@ -196,6 +196,34 @@ def torch_engine_reason(cfg, dtype) -> str | None:
     return None
 
 
+def pair_pass(cfg, dtype, device_type: str = "cuda") -> str:
+    """The pair pass of this configuration's step, in words for the
+    runner's record: the pass with the kernel it launches on the card
+    ("stacked (K3)", "allpairs (K1)", "allpairs (K1-cand)", "sparse
+    (K4)", "sparse (K4-cand)"), the torch engines ("neighbor list (torch
+    ops)", "gather (torch ops)", and the cell-block engine with
+    ``torch_engine_reason``'s words); off the card the kernel's place is
+    taken by its plain version, and the words say so."""
+    if cfg.pair_engine == "neighbor":
+        return "neighbor list (torch ops)"
+    if cfg.pair_engine not in ("pallas", "sparse", "block"):
+        return "gather (torch ops)"
+    reason = torch_engine_reason(cfg, dtype)
+    if reason:
+        return f"block (torch ops: {reason})"
+    want_bind = cfg.use_bnd == 2 and cfg.use_linkage != 0
+    want_jump = cfg.ejtype != 0
+    if cfg.pair_engine == "sparse":
+        name, kernel = "sparse", "K4"
+    else:
+        name = pallas_branch(cfg, dtype, want_bind, want_jump)
+        kernel = "K1" if name == "allpairs" else "K3"
+    kernel += "-cand" if want_bind or want_jump else ""
+    if device_type != "cuda":
+        return f"{name} (the plain version of {kernel})"
+    return f"{name} ({kernel})"
+
+
 def make_step(cfg, aux: StepAux | None = None, pair_fn=None,
               nbr_auto_rebuild: bool = True):
     """Build step(state, ff) -> state.

@@ -47,8 +47,9 @@ class StageTimer:
     card; while a profiler records it is also a ``profiler_range``.
     ``begin``/``end`` bracket one call of the caller and append its record
     to ``calls`` (the last ``KEEP_CALLS``): ``{"steps", "wall_s",
-    "spans": {name: [seconds, count]}, "counters": {name: n}}``, the
-    counters as deltas over the call."""
+    "spans": {name: [seconds, count]}, "counters": {name: n},
+    "pair_pass"}``, the counters as deltas over the call and
+    ``pair_pass`` the caller's words for the pair pass its steps ran."""
 
     def __init__(self):
         self.spans = {}
@@ -71,20 +72,24 @@ class StageTimer:
         self.spans = {}
         self._counters = dict(counters)
 
-    def end(self, steps: int, wall_s: float, counters: dict):
-        """Close the open record with the call's steps, its wall seconds
-        and the caller's ``counters`` now, and append it."""
+    def end(self, steps: int, wall_s: float, counters: dict,
+            pair_pass: str | None = None):
+        """Close the open record with the call's steps, its wall seconds,
+        the caller's ``counters`` now and its ``pair_pass``, and append
+        it."""
         rec = {"steps": int(steps), "wall_s": float(wall_s),
                "spans": self.spans,
                "counters": {k: v - self._counters.get(k, 0)
-                            for k, v in counters.items()}}
+                            for k, v in counters.items()},
+               "pair_pass": pair_pass}
         self.spans = {}
         self.calls.append(rec)
         del self.calls[:-KEEP_CALLS]
 
     def report(self) -> str:
         """The last record: each span's host seconds, calls and ms a call,
-        then ``other`` (the wall less the spans), then the counters."""
+        then ``other`` (the wall less the spans), then the counters and
+        the pair pass."""
         rec = self.calls[-1]
         lines = ["stage                    total_s   calls   ms/call"]
         spans = rec["spans"]
@@ -95,6 +100,8 @@ class StageTimer:
         lines.append(f"{'other':<24} {other:8.3f}")
         for k, v in sorted(rec["counters"].items()):
             lines.append(f"{k:<24} {v:8d}")
+        if rec["pair_pass"]:
+            lines.append(f"{'pair_pass':<24} {rec['pair_pass']}")
         return "\n".join(lines)
 
 

@@ -49,8 +49,9 @@ cell-list RDF), examples/reactive_polymer and examples/ejump_redox
 (K1-cand: bonds form, break and mutate; electrons jump) and
 examples/molten_salt (K1 plus the Ewald reciprocal sum), and through
 the runner the two tiled decks on the sparse engine (K4-cand) and
-examples/liquid_argon on the pallas engine (K3); liquid_argon also runs
-through the CLI on "auto", the cell-block engine in torch ops.  The
+examples/liquid_argon through the CLI on "auto" (K3: on the card "auto"
+takes the stacked pass for a cell-block deck it fits); liquid_argon also
+runs with pair_engine="block", the cell-block engine in torch ops.  The
 slab-decomposed step runs through ``run --mesh N`` on the one card (all
 slabs batched in one process): examples/surkov_cluster over 2 slabs and
 examples/nanoclusters over 4 (K2, every pair pass), examples/liquid_argon
@@ -98,8 +99,8 @@ and apply_angles timed with CUDA events; a 50-step profile.
 Every run and every multi-step on the card goes through CUDA graphs
 (``aztotmd_tpu_torch/runtime/graph.py``): the launch counts add each
 replay's launches, so "every pair pass a launch" holds unchanged.  Each
-deck (the eight examples, liquid_argon on K3 and on the torch block
-engine, surkov_cluster over 2 slabs, nanoclusters over 4) runs 1 + 100
+deck (the eight examples, liquid_argon on K3 through "auto" and on the
+torch block engine named, surkov_cluster over 2 slabs, nanoclusters over 4) runs 1 + 100
 steps eager and 1 + 100 replayed from the same state: integer fields
 exactly equal, positions within 1e-6 A, with the graph's nodes, its
 capture time and both rates; the step profiles run replayed and eager
@@ -197,6 +198,7 @@ MESH_POS_ATOL = 5e-4     # A after 20 steps
 MESH_VEL_ATOL = 1e-4     # x max|v|
 TILED_STEPS = 200        # the 3x3x3 tiled reactive decks (K4-cand), and
                          # liquid_argon on the torch cell-block engine
+                         # (pair_engine="block")
 PROFILE_STEPS = 50
 BONDED_K2_STEPS = 1000   # bonded_fluid's slab steps before K2's second
                          # comparison on its path (its CLI run's length)
@@ -2780,11 +2782,12 @@ def run(dev, out):
     phase("K3 (cellblock, stacked pass) vs plain (forces atol "
           "3e-5*max|F|, energies rel 1e-4, max_occ exact):")
     k3 = (cellblock.pair_forces_stacked, cellblock.pair_forces_stacked_plain)
-    d = load_deck_dir(ARGON_DECK, device=dev, pair_engine="pallas")
+    d = load_deck_dir(ARGON_DECK, device=dev)
     st = d["state"]
     g = d["cfg"].grid
-    check(allpairs.pallas_branch(d["cfg"], torch.float32) == "stacked",
-          "liquid_argon on the pallas engine does not take the stacked pass")
+    check(d["cfg"].pair_engine == "pallas"
+          and allpairs.pallas_branch(d["cfg"], torch.float32) == "stacked",
+          'liquid_argon through "auto" does not take the stacked pass')
     nz3, smem3 = cellblock.stacked_plan(g.cap, g.dims, d["cfg"].n_at,
                                         d["cfg"].n_spec)
     log(f"  liquid_argon: grid {g.dims} cap {g.cap}, half-stencil slot "
@@ -2905,22 +2908,25 @@ def run(dev, out):
             cli, counters, f"{nm} x3 (sparse engine)", None,
             os.path.join(out, nm + "_x3_run"), TILED_STEPS,
             runner_fn=sparse_run(tiled[nm]))
-    def argon_k3(o):
+    def argon_block(o):
         r = MDRunner(load_deck_dir(ARGON_DECK, device=dev,
-                                   pair_engine="pallas"),
+                                   pair_engine="block"),
                      out_dir=o, quiet=True)
-        r.run(NEW_STEPS)
+        r.run(TILED_STEPS)
         r.finalize()
         return r
 
     runs["liquid_argon"] = drive(
-        cli, counters, "liquid_argon (pallas engine, K3)", None,
-        os.path.join(out, "liquid_argon"), NEW_STEPS, runner_fn=argon_k3)
+        cli, counters, "liquid_argon (auto: K3)", ARGON_DECK,
+        os.path.join(out, "liquid_argon"), NEW_STEPS)
+    check(runs["liquid_argon"][0].cfg.pair_engine == "pallas",
+          'liquid_argon is not on the pallas engine through "auto"')
     runs["liquid_argon_block"] = drive(
-        cli, counters, "liquid_argon (auto: torch cell-block engine)",
-        ARGON_DECK, os.path.join(out, "liquid_argon_block"), TILED_STEPS)
+        cli, counters, "liquid_argon (torch cell-block engine, named)",
+        None, os.path.join(out, "liquid_argon_block"), TILED_STEPS,
+        runner_fn=argon_block)
     check(runs["liquid_argon_block"][0].cfg.pair_engine == "block",
-          "liquid_argon is not auto-selected to the block engine")
+          'liquid_argon with pair_engine="block" is not on the block engine')
     runs["molten_salt"] = drive(cli, counters, "molten_salt", SALT_DECK,
                                 os.path.join(out, "molten_salt"), NEW_STEPS)
     for nm, deck in (("surkov_cluster", SURKOV_DECK),
@@ -2976,10 +2982,9 @@ def run(dev, out):
                          ("reactive_polymer", POLY_DECK, {}),
                          ("ejump_redox", EJUMP_DECK, {}),
                          ("molten_salt", SALT_DECK, {}),
-                         ("liquid_argon (pallas, K3)", ARGON_DECK,
-                          {"pair_engine": "pallas"}),
-                         ("liquid_argon (auto, block engine)", ARGON_DECK,
-                          {}),
+                         ("liquid_argon (auto, K3)", ARGON_DECK, {}),
+                         ("liquid_argon (block engine)", ARGON_DECK,
+                          {"pair_engine": "block"}),
                          ("argon_gas", GAS_DECK, {}),
                          ("bonded_fluid", BONDED_DECK, {})):
         d = load_deck_dir(deck, device=dev, **kw)
@@ -3034,8 +3039,7 @@ def run(dev, out):
 
     trajectories(torch, load_deck_dir, make_multi_step, "liquid_argon",
                  ARGON_DECK, dev,
-                 lambda c, f, p, t, radii=None, **kw: k3[1](c, f, p, t, radii),
-                 pair_engine="pallas")
+                 lambda c, f, p, t, radii=None, **kw: k3[1](c, f, p, t, radii))
     trajectories(torch, load_deck_dir, make_multi_step, "molten_salt",
                  SALT_DECK, dev, plain_pair(k1[1]))
     for nm, deck in (("surkov_cluster", SURKOV_DECK),
@@ -3059,10 +3063,10 @@ def run(dev, out):
         n = 10 if deck == EJUMP_DECK else PROFILE_STEPS
         profile(deck, n=n, graph=False)
         prof[deck] = profile(deck)
-    profile(ARGON_DECK, pair_engine="pallas", graph=False)
-    prof[ARGON_DECK] = profile(ARGON_DECK, pair_engine="pallas")
-    profile(ARGON_DECK, n=10, graph=False)   # "auto": the torch block engine
-    profile(ARGON_DECK, n=10)
+    profile(ARGON_DECK, graph=False)         # "auto": K3
+    prof[ARGON_DECK] = profile(ARGON_DECK)
+    profile(ARGON_DECK, n=10, graph=False, pair_engine="block")
+    profile(ARGON_DECK, n=10, pair_engine="block")
     poly_x3 = tiled["reactive_polymer"]
     profile(poly_x3, pair_engine="sparse", graph=False)
     prof[poly_x3] = profile(poly_x3, pair_engine="sparse")

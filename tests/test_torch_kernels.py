@@ -468,6 +468,50 @@ def test_stacked_plan_shared_memory_is_the_kernels(cuda):
             == cellblock.stacked_smem(nsp, cap, nz)
 
 
+LIQUID_DECK = os.path.join(ROOT, "examples", "liquid_argon")
+
+
+@pytest.mark.cuda
+def test_liquid_argon_through_auto_launches_k3_every_step(cuda, tmp_path):
+    """examples/liquid_argon loaded through "auto" on the card runs on the
+    stacked pass: after a first stat period (the captures), a run of two
+    periods launches K3 once a step, replayed, and its record names the
+    pass."""
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    d = load_deck_dir(LIQUID_DECK, device=cuda)
+    assert d["cfg"].pair_engine == "pallas" and d["cost_engine"] == "block"
+    r = MDRunner(d, out_dir=str(tmp_path), quiet=True)
+    r.run(200)
+    before = cellblock.launches
+    r.run(600)
+    assert cellblock.launches - before == 400
+    rec = r.timer.calls[-1]
+    assert rec["steps"] == 400
+    assert rec["counters"]["cellblock.launches"] == 400
+    assert rec["counters"]["allpairs.launches"] == 0
+    assert rec["pair_pass"] == "stacked (K3)"
+
+
+@pytest.mark.cuda
+def test_liquid_argon_through_auto_matches_the_block_engine(cuda):
+    """The pass "auto" takes on the card against the torch cell-block
+    engine on the loaded deck: forces atol 3e-5 * max|F|, energies rel
+    1e-4, the fullest cell exactly."""
+    d = load_deck_dir(LIQUID_DECK, device=cuda)
+    cfg, st = d["cfg"], d["state"]
+    before = cellblock.launches
+    k = allpairs.pair_forces_pallas(cfg, d["ff"], st.pos, st.types)
+    assert cellblock.launches == before + 1
+    b = cellblock.pair_forces_block(cfg, d["ff"], st.pos, st.types)
+    torch.cuda.synchronize()
+    kf, bf = k.frc.cpu().numpy(), b.frc.cpu().numpy()
+    np.testing.assert_allclose(kf, bf, rtol=0,
+                               atol=3e-5 * float(np.abs(bf).max()))
+    assert float(k.eng_vdw) == pytest.approx(float(b.eng_vdw), rel=1e-4)
+    assert float(k.eng_coul) == pytest.approx(float(b.eng_coul), abs=1e-6)
+    assert int(k.max_occ) == int(b.max_occ)
+
+
 # --- K2, the rectangular pass of the slab-decomposed step ---
 
 def _compare_rect(cfg, ff, args, kw):

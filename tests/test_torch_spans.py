@@ -83,15 +83,18 @@ def test_one_record_per_call(ring_deck, tmp_path, monkeypatch):
     """One record a ``run()`` call: its steps, spans that never nest (so
     their sum is within the wall, and ``other`` the rest), a ``steps``
     span a ring window, a ``wait`` a flush and the closing one, a
-    ``sampling`` a flush and a host event; the counters; the last
-    ``KEEP_CALLS`` kept."""
+    ``sampling`` a flush and a host event; the counters; the pair pass
+    in words (the Surkov deck's dense pass, K1's plain version on the
+    CPU), also in the report; the last ``KEEP_CALLS`` kept."""
     r = _runner(ring_deck, tmp_path, monkeypatch)
     for end in (40, 100):
         n0, f0 = r.n_dispatch, r.n_flush
         start = int(r.state.step)
         r.run(end)
         rec = r.timer.calls[-1]
-        assert set(rec) == {"steps", "wall_s", "spans", "counters"}
+        assert set(rec) == {"steps", "wall_s", "spans", "counters",
+                            "pair_pass"}
+        assert rec["pair_pass"] == "allpairs (the plain version of K1)"
         assert rec["steps"] == end - start
         assert set(rec["spans"]) == SPANS
         windows, flushes = r.n_dispatch - n0, r.n_flush - f0
@@ -110,6 +113,7 @@ def test_one_record_per_call(ring_deck, tmp_path, monkeypatch):
         row = next(ln.split() for ln in lines if ln.startswith("other "))
         assert float(row[1]) == pytest.approx(other, abs=1e-3)
         assert any(ln.split()[:2] == ["regrow", "0"] for ln in lines)
+        assert lines[-1].split(None, 1) == ["pair_pass", rec["pair_pass"]]
     assert len(r.timer.calls) == 2
     for k in range(profiling.KEEP_CALLS + 2):
         r.run(120 + 20 * k)
