@@ -1,10 +1,18 @@
 """Thermostats (port of ``aztotmd_tpu/ops/thermostat.py``): the
 equilibration rescale, Nose-Hoover, and the radiative (photon-exchange)
 thermostat with the thermal radii that feed the Surkov potential.
+
+The radiative thermostat has a hand-written CUDA kernel,
+``csrc/tstat.cu``, built and loaded by ``ops/cuda_build.py``:
+``tstat_radiative`` sends CUDA tensors to it and CPU tensors to
+``tstat_radiative_plain`` (the torch ops it repeats, operation for
+operation, with the same counter-keyed words), and raises on any other
+device.  The rescale and Nose-Hoover are torch ops on both devices.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
@@ -13,10 +21,14 @@ import torch
 from .. import units
 from ..io.control import TSTAT_NOSE, TSTAT_RADI
 
-from . import prng
+from . import cuda_build, prng
 
 REV_LIGHT = 3.33567e-5      # 1/c, ps/A
 _PHOTON_STRIDE = 2654435761  # odd 32-bit stride of the photon rotation
+
+# launches of csrc/tstat.cu made by tstat_radiative; a plain int that
+# tools checking the main path reset and read
+launches = 0
 
 
 def sample_photon_energies(n: int, temp: float, rng: np.random.Generator):
@@ -83,8 +95,107 @@ def tstat_radiative(cfg, ff, state, photons, gid=None, valid=None):
     equals the JAX package's bit for bit.  ``gid``: the global ids of the
     rows (default arange(n)); ``valid``: the filled slots of a slab, the
     others get no photon, engs 0 and radii 1.  Returns (vel, engs, radii,
-    eng_temp, rng).
+    eng_temp, rng): the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors; the inputs are checked first on both.
     """
+    _check_inputs(cfg, ff, state, photons, gid, valid)
+    dev = state.vel.device
+    if dev.type == "cpu":
+        return tstat_radiative_plain(cfg, ff, state, photons, gid, valid)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return _radiative_cuda(cfg, ff, state, photons, gid, valid)
+
+
+def _check_inputs(cfg, ff, state, photons, gid, valid):
+    """Raise on what the kernel does not take: a float type other than
+    f32 or f64, tables of another type, shapes that disagree, tensors on
+    more than one device."""
+    vel = state.vel
+    dt = vel.dtype
+    if dt not in (torch.float32, torch.float64):
+        raise TypeError(f"the radiative thermostat takes f32 or f64, got "
+                        f"{dt}")
+    n = vel.shape[0]
+    floats = {"engs": state.engs, "photons": photons,
+              "spec_mass": ff.spec_mass, "spec_mx_eng": ff.spec_mx_eng,
+              "spec_rad_a": ff.spec_rad_a, "spec_rad_b": ff.spec_rad_b}
+    for name, t in floats.items():
+        if t is None or t.dtype != dt:
+            raise TypeError(f"{name} is {None if t is None else t.dtype}, "
+                            f"the velocities {dt}")
+    nsp = ff.spec_mass.shape
+    want = {"vel": (vel, (n, 3)), "engs": (state.engs, (n,)),
+            "types": (state.types, (n,)), "photons": (photons, (cfg.n_at,)),
+            "spec_mx_eng": (ff.spec_mx_eng, nsp),
+            "spec_rad_a": (ff.spec_rad_a, nsp),
+            "spec_rad_b": (ff.spec_rad_b, nsp), "step": (state.step, ())}
+    if gid is not None:
+        want["gid"] = (gid, (n,))
+    if valid is not None:
+        want["valid"] = (valid, (n,))
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, not "
+                             f"{shape} for {n} rows and {cfg.n_at} atoms")
+    if state.rng.ndim != 1 or state.rng.shape[0] < 1 or \
+            state.rng.dtype != torch.int64:
+        raise ValueError(f"rng: {tuple(state.rng.shape)} {state.rng.dtype}"
+                         ", not a vector of int64 words")
+    if valid is not None and valid.dtype != torch.bool:
+        raise TypeError(f"valid is {valid.dtype}, not bool")
+    devs = {t.device for t in [state.rng] + [t for t, _ in want.values()]
+            + list(floats.values())}
+    if len(devs) != 1:
+        raise ValueError("the thermostat's tensors lie on "
+                         f"{sorted(map(str, devs))}")
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _lib():
+    lib = cuda_build.load("tstat")
+    if lib.aztotmd_tstat_radiative_f32.argtypes is None:
+        for name in ("f32", "f64"):
+            fn = getattr(lib, "aztotmd_tstat_radiative_" + name)
+            fn.argtypes = [_P] * 12 + [_I] * 3 + [_P] * 5
+            fn.restype = ctypes.c_int
+    return lib
+
+
+def _radiative_cuda(cfg, ff, state, photons, gid, valid):
+    """Launch csrc/tstat.cu into new output tensors; the internal-energy
+    sum is torch.sum of its engs, as in the plain version."""
+    global launches
+    c = lambda t: None if t is None else t.contiguous()
+    i32 = lambda t: None if t is None else t.to(torch.int32).contiguous()
+    ptr = lambda t: None if t is None else t.data_ptr()
+    vel, engs, rng = c(state.vel), c(state.engs), c(state.rng)
+    tables = [c(t) for t in (photons, ff.spec_mass, ff.spec_mx_eng,
+                             ff.spec_rad_a, ff.spec_rad_b)]
+    outs = (torch.empty_like(vel), torch.empty_like(engs),
+            torch.empty_like(engs), torch.empty_like(rng))
+    lib = _lib()
+    fn = lib.aztotmd_tstat_radiative_f64 if vel.dtype == torch.float64 \
+        else lib.aztotmd_tstat_radiative_f32
+    err = fn(vel.data_ptr(), engs.data_ptr(), i32(state.types).data_ptr(),
+             *(t.data_ptr() for t in tables), rng.data_ptr(),
+             i32(state.step).data_ptr(),
+             ptr(i32(gid)), ptr(c(valid)), vel.shape[0],
+             cfg.n_at, rng.shape[0], *(t.data_ptr() for t in outs),
+             torch.cuda.current_stream(vel.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"thermostat kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    vel, engs, radii, rng = outs
+    return vel, engs, radii, torch.sum(engs), rng
+
+
+def tstat_radiative_plain(cfg, ff, state, photons, gid=None, valid=None):
+    """What the kernel computes, in torch ops (f32 or f64, any device);
+    the arguments and results of ``tstat_radiative``."""
     dt = state.pos.dtype
     dev = state.pos.device
     types = state.types.long()

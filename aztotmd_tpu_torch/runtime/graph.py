@@ -150,12 +150,12 @@ def launch_counters():
     """[(holder, key)] of every launch counter: a module attribute of a
     kernel wrapper or a key of ``runtime.step.nbr_counts`` or of
     ``ops.rdf.rdf_counts``."""
-    from ..ops import allpairs, cellblock, rdf, sparse
+    from ..ops import allpairs, cellblock, rdf, sparse, thermostat
     from . import step
     return ([(allpairs, "launches"), (allpairs, "cand_launches"),
              (allpairs, "rect_launches"), (sparse, "launches"),
              (sparse, "cand_launches"), (cellblock, "launches"),
-             (rdf, "launches")]
+             (rdf, "launches"), (thermostat, "launches")]
             + [(step.nbr_counts, k) for k in step.nbr_counts]
             + [(rdf.rdf_counts, k) for k in rdf.rdf_counts])
 

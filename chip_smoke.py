@@ -8,13 +8,20 @@ Run from the root of a checkout.  It builds the port's CUDA kernels
 fused bind/jump candidates; csrc/sparse.cu: K4 and K4-cand, the Morton
 block-sparse pass; csrc/cellblock.cu: K3, the stacked cell-block pass;
 csrc/allpairs_rect.cu: K2, the rectangular pass of the slab-decomposed
-step; csrc/rdf.cu: the all-pairs RDF sample's integer counts) for sm_90a
+step; csrc/rdf.cu: the all-pairs RDF sample's integer counts;
+csrc/tstat.cu: the radiative thermostat) for sm_90a
 from the checkout, one nvcc each, in parallel, and then, for each kernel,
 checks it against its plain PyTorch version on the card:
   the RDF kernel: counts exactly equal on crafted pairs at r_rdf, on bin
       edges and at half the box (f32, f64, 1-3 species), on the
       surkov_cluster deck at three seeds and on molten_salt with the
       nuclei histogram, then timed beside its bound;
+  the radiative thermostat's kernel: the rng words exactly, velocities,
+      internal energies and radii within 2e-6 (f32) / 1e-13 (f64) of
+      the largest plain |v|, an atom's internal plus kinetic energy and
+      radius on surkov_cluster's state at the start
+      and after an MDRunner run whose steps each launched it once, then
+      timed at 4,000, 40,000 and 1,080,000 atoms beside its byte bound;
   K2, the rectangular pass: the slab states of examples/surkov_cluster
       over 2 slabs (2 x 3,208 x 6,416 slots) and examples/nanoclusters
       over 4 (4 x 5,024 x 15,072), and synthetic slabs with a fifth of
@@ -86,10 +93,11 @@ sub-tile pairs that the warp culls of K4 and K2 kept, as the kernels
 record them (held exactly against sparse.subtile_keep and
 allpairs.rect_subtile_keep); the bounds of K4 and K2 count the filled
 slot pairs in them (K2's over every filled slot pair beside it).
-Last, the Verlet-list engine, which has no kernel (no Pallas kernel lies
-on its path in the JAX package): examples/argon_gas (case study 1's
+Last, the Verlet-list engine, which has no pair kernel (no Pallas kernel
+lies on its path in the JAX package): examples/argon_gas (case study 1's
 40,000-atom gas) and examples/bonded_fluid (constant bonds and angles)
-1,000 steps each through the CLI with no kernel launched, no skin
+1,000 steps each through the CLI with no pair kernel launched (the
+radiative thermostat's kernel once a step on argon_gas), no skin
 violation, every list monitor within its capacity or regrown and the
 angle outputs checked; make_multi_step over 2*Q*R bare argon_gas steps
 with its 2 full rebuilds and 2*(Q-1) refines counted; 20 steps on the
@@ -261,6 +269,11 @@ TOPOLOGY = ("types", "bond_at1", "bond_at2", "bond_type", "n_bond",
 PEAK_FP32 = 67e12        # FLOP/s outside the tensor cores
 PEAK_MUFU = 132 * 16 * 1.98e9
 PEAK_BYTES = 3.35e12     # HBM3 bytes/s
+TSTAT_SIZES = (4000, 40000, 1080000)   # the thermostat kernel timed
+TSTAT_STEPS = 200        # MDRunner.run on surkov_cluster, a launch a step
+TSTAT_TOL = {"float32": 2e-6, "float64": 1e-13}
+# f32 bytes an atom: read vel, engs, type, photon; write vel, engs, radii
+TSTAT_BYTES = 44
 # FP32 operations (an FMA counts 2) read off csrc/pair_physics.cuh:
 # every slot pair: displacement, min-image (mul, rint, fma) per axis, r2
 # and the cutoff test; a pair in range: r2i, rr, r2cut test, clip, energy
@@ -748,8 +761,8 @@ def neighbor_run_checks(torch, runner, cfg0, name):
 
 
 def neighbor_phases(torch, dev, out, cli, counters, card, profile):
-    """The Verlet-list engine (no Pallas kernel on its path, so no CUDA
-    kernel and no kernel launch either): examples/argon_gas and
+    """The Verlet-list engine (no Pallas kernel on its path, so no pair
+    kernel and no pair-kernel launch either): examples/argon_gas and
     examples/bonded_fluid through the run CLI, the two-level schedule on
     argon_gas over 2*Q*R bare steps with its rebuilds and refines counted,
     20 steps on the card against 20 on the CPU, the first build's lists
@@ -777,8 +790,9 @@ def neighbor_phases(torch, dev, out, cli, counters, card, profile):
         graph_mod.capture_counts.update(state=0, sample=0)
         runner, launches, rate = drive(cli, counters, nm, deck,
                                        os.path.join(out, nm), steps)
-        check(all(v == 0 for v in launches.values()),
-              f"{nm}: a CUDA kernel ran on the neighbor path")
+        check(launches == expected_launches(counters, runner, None),
+              f"{nm}: a pair kernel ran on the neighbor path, or a step "
+              "did not launch the thermostat kernel")
         got = dict(step_mod.nbr_counts)
         caps = dict(graph_mod.capture_counts)
         log(f"  plan: {plan_words(runner)} ({runner._ring_plan})")
@@ -1041,15 +1055,27 @@ def _zero(counters):
 
 
 def _no_launch(counters, what):
-    check(all(getattr(mod, attr) == 0 for mod, attr in counters.values()),
-          f"{what}: a CUDA kernel ran on a path that has none")
+    """No pair kernel ran (the thermostat's runs on every path under the
+    radiative thermostat)."""
+    check(all(getattr(mod, attr) == 0 for k, (mod, attr) in counters.items()
+              if k != "tstat"),
+          f"{what}: a pair kernel ran on a path that has none")
+
+
+def expected_launches(counters, runner, kern):
+    """The launch counts a run of ``runner`` must show: its steps for its
+    pair kernel ``kern`` (None: a pass in torch ops) and, under the
+    radiative thermostat, for csrc/tstat.cu; 0 for every other kernel."""
+    from aztotmd_tpu_torch.io.control import TSTAT_RADI
+    ran = {kern, "tstat" if runner.cfg.tstat_type == TSTAT_RADI else None}
+    return {k: (runner.steps_run if k in ran else 0) for k in counters}
 
 
 def scale_phase(torch, dev, out, cli, counters, card):
     """The tiled argon decks of ``tools/make_bigdeck.py``
     (``systems.write_scale_argon_deck`` of examples/argon_gas: 320,000 and
     1,080,000 atoms at case study 1's density), bare replayed steps of
-    the multi-step and a run through the CLI each: no kernel launched,
+    the multi-step and a run through the CLI each: no pair kernel launched,
     finite stat.dat, non-zero rdf.dat from the RDF cell path, no atom
     lost, no skin violation, every list monitor within its capacity after
     any regrow, the JAX stat ring's cadence counted.  Returns the numbers
@@ -1353,7 +1379,7 @@ def gather_phase(torch, dev, counters, card):
     """The "gather" engine (``ops/pairs.py::pair_forces``, torch ops as
     JAX's is XLA) on examples/liquid_argon: GATHER_STEPS eager steps
     against as many of the block engine from the same state (positions
-    within GATHER_POS_ATOL), no kernel launched, and its bare replayed
+    within GATHER_POS_ATOL), no pair kernel launched, and its bare replayed
     steps/s.  Returns the numbers it measured."""
     from aztotmd_tpu_torch import bench
     from aztotmd_tpu_torch.runtime.setup import load_deck_dir
@@ -1431,7 +1457,8 @@ def mesh_system(load_deck_dir, deck, n_dev, dev, **load_kw):
 PROFILED_KERNELS = {"::allpairs_kernel<": ("allpairs", "allpairs_cand"),
                     "::sparse_kernel<": ("sparse", "sparse_cand"),
                     "::cellblock_kernel(": ("cellblock",),
-                    "::rect_kernel<": ("allpairs_rect",)}
+                    "::rect_kernel<": ("allpairs_rect",),
+                    "::tstat_radiative_kernel<": ("tstat",)}
 # host calls that launch a kernel, as torch.profiler names them
 RUNTIME_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC",
                     "cuLaunchKernel", "cuLaunchKernelEx")
@@ -2015,9 +2042,9 @@ def atoms_mesh_phases(torch, dev, out, cli, counters, card, rates,
             cli, counters, f"{nm} --mesh {ATOMS_DEV} --mesh-mode atoms", deck,
             os.path.join(out, nm + "_atoms"), ATOMS_STEPS[nm],
             mesh=ATOMS_DEV, mesh_mode="atoms")
-        want = {k: (runner.steps_run if k == kern else 0) for k in counters}
-        check(launches == want, f"the {nm} atoms run's pair passes did not "
-              f"all go through {kern}")
+        check(launches == expected_launches(counters, runner, kern),
+              f"the {nm} atoms run's pair passes did not all go through "
+              f"{kern}, or its thermostat not through csrc/tstat.cu")
         res[nm] = {"cli_steps_per_s": rate, "launches": launches[kern]}
     phase(f"atoms mesh: 1 + {GRAPH_STEPS} atoms-mode steps replayed vs "
           "eager, and vs the one-device replays (integer fields exactly, "
@@ -2276,6 +2303,144 @@ def rdf_kernel_phase(torch, dev, out, card):
     return res
 
 
+def tstat_inputs(torch, n, dev, seed=0):
+    """(cfg, ff, state, photons) of a synthetic radiative-thermostat
+    state of ``n`` atoms and 3 species in f32 on the card: thermal
+    velocities, a third of the atoms cold, internal energies of 0 to 0.3
+    eV, photons drawn as the decks draw them at 500 K."""
+    import types as pytypes
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    vel = rng.normal(0.0, 5.0, (n, 3))
+    vel[rng.random(n) < 1 / 3] = 0.0
+    ff = pytypes.SimpleNamespace(
+        spec_mass=f([0.0041, 0.0020, 0.0066]), spec_mx_eng=f([1.0, 0.6, 1.4]),
+        spec_rad_a=f([2.885, 1.9, 3.3]), spec_rad_b=f([5.0, 4.0, 6.5]))
+    state = pytypes.SimpleNamespace(
+        pos=f(np.zeros((n, 3))), vel=f(vel), engs=f(rng.uniform(0, 0.3, n)),
+        types=torch.as_tensor(rng.integers(0, 3, n).astype(np.int32),
+                              device=dev),
+        rng=torch.tensor([7, 12345], dtype=torch.int64, device=dev),
+        step=torch.tensor(1001, dtype=torch.int32, device=dev))
+    photons = f(np.minimum(rng.gamma(5.0, 0.0431, n), 1.0))
+    return pytypes.SimpleNamespace(n_at=n), ff, state, photons
+
+
+def tstat_kernel_phase(torch, dev, out, card):
+    """The radiative thermostat's kernel (csrc/tstat.cu) against its plain
+    version on examples/surkov_cluster's 4,000 atoms, at the start and
+    after TSTAT_STEPS steps, in f32 and f64: the rng words exactly, the
+    velocities, internal energies and radii within TSTAT_TOL of the
+    largest plain |v|, internal plus kinetic energy of an atom, and
+    radius; ``thermostat.launches`` equal to the steps of
+    an ``MDRunner.run`` of TSTAT_STEPS.  Then at 4,000, 40,000 and
+    1,080,000 synthetic f32 atoms, CUDA-event medians of the kernel alone
+    (200 back-to-back launches), the wrapper and the plain version each
+    replayed from a graph of one call, the kernel's profiler time, and
+    the byte bound (TSTAT_BYTES an atom).  Returns those by size."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from aztotmd_tpu_torch.ops import thermostat
+    from aztotmd_tpu_torch.runtime import graph as graph_mod
+    from aztotmd_tpu_torch.runtime.runner import MDRunner
+    from aztotmd_tpu_torch.runtime.setup import load_deck_dir
+
+    def same(name, cfg, ff, st, photons):
+        n0 = thermostat.launches
+        k = thermostat.tstat_radiative(cfg, ff, st, photons)
+        p = thermostat.tstat_radiative_plain(cfg, ff, st, photons)
+        torch.cuda.synchronize()
+        tol = TSTAT_TOL[str(st.vel.dtype).split(".")[-1]]
+        # energies over the largest energy in an atom's sums: its
+        # internal plus its kinetic energy
+        m = ff.spec_mass[st.types.long()]
+        e_max = (p[1].abs() + 0.5 * m * (p[0] * p[0]).sum(-1)).max()
+        gaps = [float((a - b).abs().max() / s) for a, b, s in zip(
+            k[:3], p[:3], (p[0].abs().max(), e_max, p[2].abs().max()))]
+        ok = (thermostat.launches == n0 + 1 and torch.equal(k[4], p[4])
+              and max(gaps) <= tol)
+        log(f"  {name:40s} N={cfg.n_at}: rng words "
+            f"{'equal' if torch.equal(k[4], p[4]) else 'DIFFER'}; vel, "
+            f"engs, radii gaps {', '.join(f'{g:.3g}' for g in gaps)} of the "
+            f"largest plain |v|, E + kinetic energy, radius (limit {tol:g});"
+            f" eng_temp {float(k[3]):.9g} / {float(p[3]):.9g}")
+        check(ok, f"the thermostat kernel disagrees with its plain version: "
+              f"{name}")
+
+    runner = MDRunner(load_deck_dir(SURKOV_DECK, device=dev),
+                      out_dir=os.path.join(out, "tstat_run"), quiet=True)
+    cfg, ff, aux = runner.cfg, runner.ff, runner.aux
+    same("surkov_cluster at the start, f32", cfg, ff, runner.state,
+         aux.photons)
+    thermostat.launches = 0
+    runner.run(TSTAT_STEPS)
+    rec = runner.timer.calls[-1]["counters"].get("thermostat.launches")
+    log(f"  surkov_cluster MDRunner.run({TSTAT_STEPS}): "
+        f"{runner.steps_run} steps, thermostat.launches "
+        f"{thermostat.launches} ({rec} in the call's record)")
+    check(thermostat.launches == rec == runner.steps_run == TSTAT_STEPS,
+          "the run's steps did not each launch csrc/tstat.cu once")
+    st = runner.state
+    same(f"surkov_cluster after {TSTAT_STEPS} steps, f32", cfg, ff, st,
+         aux.photons)
+    d64 = load_deck_dir(SURKOV_DECK, dtype="f64", device=dev)
+    st64 = d64["state"].replace(vel=st.vel.double(), engs=st.engs.double(),
+                                step=st.step.clone(), rng=st.rng.clone())
+    same(f"surkov_cluster after {TSTAT_STEPS} steps, f64", d64["cfg"],
+         d64["ff"], st64, d64["aux"].photons)
+    del runner, d64, st64
+    _free(torch)
+
+    res = {}
+    lib = thermostat._lib()
+    for n in TSTAT_SIZES:
+        cfg, ff, st, photons = tstat_inputs(torch, n, dev)
+        same("synthetic, 3 species, f32", cfg, ff, st, photons)
+        outs = [torch.empty_like(st.vel), torch.empty_like(st.engs),
+                torch.empty_like(st.engs), torch.empty_like(st.rng)]
+        args = (st.vel.data_ptr(), st.engs.data_ptr(), st.types.data_ptr(),
+                photons.data_ptr(), ff.spec_mass.data_ptr(),
+                ff.spec_mx_eng.data_ptr(), ff.spec_rad_a.data_ptr(),
+                ff.spec_rad_b.data_ptr(), st.rng.data_ptr(),
+                st.step.data_ptr(), None, None, n, n, 2,
+                *(t.data_ptr() for t in outs),
+                torch.cuda.current_stream(dev).cuda_stream)
+
+        def alone(k=200):
+            for _ in range(k):
+                lib.aztotmd_tstat_radiative_f32(*args)
+        progs = [graph_mod.Program(f"tstat {name}", fn, fn, dev)
+                 for name, fn in (
+                     ("kernel", lambda: thermostat.tstat_radiative(
+                         cfg, ff, st, photons)),
+                     ("plain", lambda: thermostat.tstat_radiative_plain(
+                         cfg, ff, st, photons)))]
+        kern, wrap, plain = timed(torch, [alone, progs[0].replay,
+                                          progs[1].replay], n=10)
+        kern /= 200
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            alone(50)
+            torch.cuda.synchronize()
+        ev = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and "tstat_radiative_kernel" in e.name]
+        prof_ms = sum(ev) * 1e-3 / len(ev) if ev else None
+        b_ms = n * TSTAT_BYTES / PEAK_BYTES * 1e3
+        log(f"  N={n:8d}: kernel alone {kern:.5f} ms (events), {prof_ms} ms"
+            f" (profiler); wrapper replayed {wrap:.5f} ms ({progs[0].nodes}"
+            f" nodes); plain replayed {plain:.5f} ms ({progs[1].nodes} "
+            f"nodes); bound {b_ms:.5f} ms by bytes ({TSTAT_BYTES} B an atom)"
+            f" on {card}")
+        res[n] = {"kernel_ms": kern, "kernel_profiler_ms": prof_ms,
+                  "wrapper_replay_ms": wrap, "plain_replay_ms": plain,
+                  "wrapper_nodes": progs[0].nodes,
+                  "plain_nodes": progs[1].nodes, "bound_ms": b_ms}
+        del progs, outs, st, photons
+        _free(torch)
+    return res
+
+
 def rdf_case(torch, name, runner, card):
     """One RDF sample of the deck's first state (the runner's sample
     function and histograms): its time eager and as a graph replay (CUDA
@@ -2373,8 +2538,8 @@ def topology_mesh_phases(torch, dev, out, cli, counters, card, tiled,
       4 slabs and ejump_redox x3 over 3 (the stencil pass; bonds form and
       electrons jump across slab boundaries), bonded_fluid over 4 on the
       stencil pass and on "pallas" in f32 (K2 beside the bonded pass): K2
-      launches equal to the pair passes there, no kernel launch on the
-      stencil paths, no record beyond one slab;
+      launches equal to the pair passes there, no pair-kernel launch on
+      the stencil paths, no record beyond one slab;
     - 1 + GRAPH_STEPS replays against eager slab steps (every integer
       field exactly, ``rg`` included; positions within GRAPH_POS_ATOL);
       ejump_redox x3 runs at the cut depth EJUMP_MESH_DEPTH throughout;
@@ -2427,10 +2592,11 @@ def topology_mesh_phases(torch, dev, out, cli, counters, card, tiled,
             runner_fn=go if kw else None, mesh=n_dev)
         cfg = runner.cfg
         k2 = nm == k2_path
-        want = {k: (runner.steps_run if k2 and k == "allpairs_rect" else 0)
-                for k in counters}
+        want = expected_launches(counters, runner,
+                                 "allpairs_rect" if k2 else None)
         check(launches == want, f"{nm}: the pair passes did not all go "
-              f"through {'K2' if k2 else 'torch ops'}")
+              f"through {'K2' if k2 else 'torch ops'}, or the thermostat "
+              "not through csrc/tstat.cu")
         check(cfg.pair_engine == ("pallas" if k2 else "block"),
               f"{nm}: routed to {cfg.pair_engine}")
         if k2:
@@ -2630,7 +2796,8 @@ def run(dev, out):
     import torch
     from aztotmd_tpu_torch import systems
     from aztotmd_tpu_torch.__main__ import main as cli
-    from aztotmd_tpu_torch.ops import allpairs, cellblock, cuda_build, sparse
+    from aztotmd_tpu_torch.ops import (allpairs, cellblock, cuda_build, sparse,
+                                       thermostat)
     from aztotmd_tpu_torch.ops.elec import ewald_recip
     from aztotmd_tpu_torch.parallel import slab
     from aztotmd_tpu_torch.runtime.runner import MDRunner
@@ -2641,19 +2808,27 @@ def run(dev, out):
     log(card)
     toolchain(torch, cuda_build)
     build_all(cuda_build, ["allpairs", "sparse", "cellblock",
-                           "allpairs_rect", "rdf"])
+                           "allpairs_rect", "rdf", "tstat"])
     counters = {"allpairs": (allpairs, "launches"),
                 "allpairs_cand": (allpairs, "cand_launches"),
                 "sparse": (sparse, "launches"),
                 "sparse_cand": (sparse, "cand_launches"),
                 "cellblock": (cellblock, "launches"),
-                "allpairs_rect": (allpairs, "rect_launches")}
+                "allpairs_rect": (allpairs, "rect_launches"),
+                "tstat": (thermostat, "launches")}
 
     # --- the all-pairs RDF kernel against its plain version ---
     phase("RDF kernel (csrc/rdf.cu, all-pairs counts) vs plain (integer "
           "counts exactly equal), then timed:")
     log(f"rdf kernel on {card}: "
         + json.dumps(rdf_kernel_phase(torch, dev, out, card)))
+
+    # --- the radiative thermostat's kernel against its plain version ---
+    phase("thermostat kernel (csrc/tstat.cu) vs plain (rng words exactly, "
+          "the rest within 2e-6 f32 / 1e-13 f64), launches a run step, "
+          "timed:")
+    log(f"thermostat kernel on {card}: "
+        + json.dumps(tstat_kernel_phase(torch, dev, out, card)))
 
     # --- K1 against its plain version ---
     phase("K1 (allpairs) vs plain (forces atol 3e-5*max|F|, energies rel "
@@ -2960,9 +3135,10 @@ def run(dev, out):
               "liquid_argon_mesh": None}
     for nm, kern in expect.items():
         runner, launches, _ = runs[nm]
-        want = {k: (runner.steps_run if k == kern else 0) for k in counters}
-        check(launches == want, f"the {nm} run's pair passes did not all go "
-              f"through {kern or 'torch ops'}")
+        check(launches == expected_launches(counters, runner, kern),
+              f"the {nm} run's pair passes did not all go through "
+              f"{kern or 'torch ops'}, or its thermostat not through "
+              "csrc/tstat.cu")
     runner = runs["nanoclusters"][0]
     log(f"  nanoclusters sparse pair_cap: {cap} at start, "
         f"{runner.cfg.sparse_pair_cap} at end "
